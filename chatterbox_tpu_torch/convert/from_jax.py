@@ -1,0 +1,150 @@
+"""Carry chatterbox_tpu parameter trees (leaves already converted to numpy)
+into this package's trees of torch tensors.
+
+Layouts that change on the way:
+  * conv weights (K, Cin, Cout) -> torch's (Cout, Cin, K);
+  * transposed-conv weights, stored pre-flipped as an input-dilated conv
+    (K, Cin, Cout) -> torch ConvTranspose1d's (Cin, Cout, K), un-flipped;
+  * the fused decode-layer operands: the 8-row broadcast vectors become
+    (N,) and the int8 weights move to out-major (N, K) storage, which the
+    layer's own (in, out) "w_q" then views;
+  * bfloat16 leaves stay bfloat16.
+Every key is checked against the port's own schema (its init on the meta
+device): a missing, unexpected or misshaped leaf raises.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..models.s3gen.flow import FlowDims
+from ..models.s3gen.model import s3gen_init
+from ..models.t3 import model as t3m
+from ..models.t3.config import T3Config
+
+_FUSED_MAP = {  # JAX fused operand -> (port key, transform)
+    "g1_8": ("g1", "row"), "b1_8": ("b1", "row"),
+    "qkv_w": ("qkv_wt", "transpose"), "qkv_s8": ("qkv_s", "row"),
+    "qkv_b8": ("qkv_b", "row"),
+    "wo_w": ("wo_t", "transpose"), "wo_s8": ("wo_s", "row"),
+    "wo_b8": ("wo_b", "row"),
+    "g2_8": ("g2", "row"), "b2_8": ("b2", "row"),
+    "w1": ("w1_t", "transpose"), "s1_8": ("s1", "row"),
+    "fc1_b8": ("fc1_b", "row"),
+    "w2": ("w2_t", "transpose"), "s2_8": ("s2", "row"),
+    "fc2_b8": ("fc2_b", "row"),
+}
+_FUSED_LINKS = {"qkv": "qkv_wt", "attn_out": "wo_t", "fc_in": "w1_t",
+                "fc_out": "w2_t"}
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _leaf(path: tuple, a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if path[-1] == "w" and a.ndim == 3:
+        if "ups" in path:                    # transposed conv, un-flip
+            a = a[::-1].transpose(1, 2, 0)
+        else:                                # conv
+            a = a.transpose(2, 1, 0)
+    return _tensor(a, device)
+
+
+def _fused(path: tuple, fl: dict, device) -> dict:
+    extra = set(fl) - set(_FUSED_MAP)
+    missing = set(_FUSED_MAP) - set(fl)
+    if extra or missing:
+        raise KeyError(f"{'/'.join(map(str, path))}: fused operands "
+                       f"unexpected {sorted(extra)}, missing {sorted(missing)}")
+    out = {}
+    for k, (name, how) in _FUSED_MAP.items():
+        a = np.asarray(fl[k])
+        a = a[0] if how == "row" else a.T
+        out[name] = _tensor(a, device).float() if how == "row" else _tensor(a, device)
+    return out
+
+
+def _convert(node, device, path=()):
+    if isinstance(node, dict):
+        out = {}
+        for k, v in node.items():
+            if k == "fused":
+                out[k] = _fused(path + (k,), v, device)
+            else:
+                out[k] = _convert(v, device, path + (k,))
+        if "fused" in out:
+            for name, key in _FUSED_LINKS.items():
+                wt = out["fused"][key]
+                if not torch.equal(out[name]["w_q"], wt.T):
+                    raise ValueError(f"{'/'.join(map(str, path))}/{name}: "
+                                     "fused weight differs from the layer's")
+                out[name]["w_q"] = wt.T
+        return out
+    if isinstance(node, (list, tuple)):
+        return [_convert(v, device, path + (i,)) for i, v in enumerate(node)]
+    if node is None:
+        raise ValueError(f"{'/'.join(map(str, path))}: empty leaf")
+    return _leaf(path, node, device)
+
+
+def _float_form(node):
+    """Schema view of a (possibly quantized) tree: {"w_q","w_scale"} read
+    as {"w"}, the fused operands dropped."""
+    if isinstance(node, dict):
+        out = {}
+        for k, v in node.items():
+            if k == "fused":
+                continue
+            if k == "w_q":
+                out["w"] = v
+            elif k != "w_scale":
+                out[k] = _float_form(v)
+        return out
+    if isinstance(node, list):
+        return [_float_form(v) for v in node]
+    return node
+
+
+def _check_schema(tree, template, path=()):
+    where = "/".join(map(str, path)) or "<root>"
+    if isinstance(template, dict):
+        if not isinstance(tree, dict):
+            raise KeyError(f"{where}: expected a dict")
+        extra, missing = set(tree) - set(template), set(template) - set(tree)
+        if extra or missing:
+            raise KeyError(f"{where}: unexpected keys {sorted(extra)}, "
+                           f"missing keys {sorted(missing)}")
+        for k in template:
+            _check_schema(tree[k], template[k], path + (k,))
+    elif isinstance(template, list):
+        if not isinstance(tree, list) or len(tree) != len(template):
+            raise KeyError(f"{where}: expected a list of {len(template)}")
+        for i, (a, b) in enumerate(zip(tree, template)):
+            _check_schema(a, b, path + (i,))
+    elif tuple(tree.shape) != tuple(template.shape):
+        raise ValueError(f"{where}: shape {tuple(tree.shape)}, expected "
+                         f"{tuple(template.shape)}")
+
+
+def t3_from_jax(tree: dict, hp: T3Config, device="cuda") -> dict:
+    """A T3 tree (float, or int8-quantized with w_q/w_scale and optional
+    "fused" operands) -> the port's T3 tree on `device`."""
+    out = _convert(tree, device)
+    _check_schema(_float_form(out), t3m.t3_init(hp, device="meta"))
+    return out
+
+
+def s3gen_from_jax(tree: dict, dims: FlowDims = FlowDims(), hift_base: int = 512,
+                   meanflow: bool = True, device="cuda") -> dict:
+    """The S3Gen {"flow", "mel2wav"} subtrees -> the port's S3Gen tree. Other
+    subtrees (tokenizer, speaker encoder) belong to the frontend and are not
+    taken."""
+    out = _convert({"flow": tree["flow"], "mel2wav": tree["mel2wav"]}, device)
+    _check_schema(out, s3gen_init(device="meta", meanflow=meanflow, dims=dims,
+                                  hift_base=hift_base))
+    return out

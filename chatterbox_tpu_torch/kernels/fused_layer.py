@@ -1,0 +1,240 @@
+"""The fused int8 GPT-2 decode-layer kernels and their plain versions.
+
+Two functions carry every Turbo decode step, once per layer each:
+
+  ln_qkv_int8          out = (bf16(LN1(x)) @ Wqkv) * s + bias            (B, 3D)
+  attnout_ln_mlp_int8  r = x + (bf16(a) @ Wo) * so + bo
+                       out = r + b2 + bf16(gelu_new((bf16(LN2(r)) @ W1) * s1
+                                                    + b1)) @ W2 * s2      (B, D)
+
+They replace the Pallas TPU kernels of chatterbox_tpu/ops/fused_layer.py
+(`ln_qkv_int8` and `attnout_ln_mlp_int8`); the CUDA source is
+csrc/fused_layer.cu. Weights are int8 and stored OUT-MAJOR, (N, K) with K
+contiguous (`*_t`), the layout the CUDA kernels stream; scales, biases and
+norm parameters are (N,) float32; outputs are float32.
+
+Dispatch: a CPU tensor takes the plain PyTorch version (`*_plain`), a CUDA
+tensor launches the kernel, and anything else raises. `launches` counts the
+kernel calls made by each wrapper (one per layer and step; the B2 kernel is
+three CUDA launches on one stream).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+launches = {"ln_qkv_int8": 0, "attnout_ln_mlp_int8": 0}
+
+MAX_B = 2            # rows a kernel call takes (csrc MAX_B)
+K_STEP = 512         # contraction bytes a warp reads per iteration
+SMEM_LIMIT = 48 * 1024
+WARPS = 8
+
+_lib = None
+
+
+def _kernels():
+    global _lib
+    if _lib is None:
+        from .build import load
+        lib = load("fused_layer")
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.ln_qkv_int8_launch.argtypes = [P, I, P, P, P, P, P, P, I, I, I, F, P]
+        lib.ln_qkv_int8_launch.restype = I
+        lib.attnout_ln_mlp_int8_launch.argtypes = [
+            P, P, I, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, F, P]
+        lib.attnout_ln_mlp_int8_launch.restype = I
+        _lib = lib
+    return _lib
+
+
+# ---------------------------------------------------------------------------
+# plain versions (the arithmetic of the Pallas kernels, in PyTorch)
+# ---------------------------------------------------------------------------
+
+def _ln_bf16(x: torch.Tensor, g, b, eps: float) -> torch.Tensor:
+    """LayerNorm in f32 (mean, then mean squared deviation), rounded to bf16
+    and returned as f32 values."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps) * g + b
+    return y.to(torch.bfloat16).float()
+
+
+def _dot_i8(x_f32: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:
+    """(B, K) f32 @ (N, K) int8 out-major weight -> (B, N) f32 sums."""
+    return x_f32 @ w_t.float().T
+
+
+def _gelu_new_f32(u):
+    c = 0.7978845608028654
+    return 0.5 * u * (1.0 + torch.tanh(c * (u + 0.044715 * u * u * u)))
+
+
+def ln_qkv_int8_plain(x, g, b, w_t, s, bias, eps: float):
+    y = _ln_bf16(x, g, b, eps)
+    return _dot_i8(y, w_t) * s + bias
+
+
+def attnout_ln_mlp_int8_plain(a, xres, wo_t, so, bo, g2, be2, w1_t, s1, b1,
+                              w2_t, s2, b2, eps: float):
+    a16 = a.to(torch.bfloat16).float()
+    r = xres.float() + _dot_i8(a16, wo_t) * so + bo
+    y2 = _ln_bf16(r, g2, be2, eps)
+    u = _dot_i8(y2, w1_t) * s1 + b1
+    h = _gelu_new_f32(u).to(torch.bfloat16).float()
+    return (r + b2) + _dot_i8(h, w2_t) * s2
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def _check(name, t, shape, dtypes, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+_ACT = (torch.bfloat16, torch.float32)
+_F32 = (torch.float32,)
+_I8 = (torch.int8,)
+
+
+def _check_device(x):
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel for device {x.device}")
+
+
+def _shape_limits(B, K, what):
+    if not 1 <= B <= MAX_B:
+        raise ValueError(f"{what}: batch {B} outside 1..{MAX_B}")
+    if K % K_STEP:
+        raise ValueError(f"{what}: contraction {K} is not a multiple of {K_STEP}")
+
+
+def ln_qkv_int8(x, g, b, w_t, s, bias, eps: float):
+    """x (B, D) bf16/f32 -> (bf16(LN(x)) @ W) * s + bias, (B, N) f32.
+    w_t (N, D) int8 out-major; g, b (D,) and s, bias (N,) f32."""
+    if not _check_device(x):
+        return ln_qkv_int8_plain(x, g, b, w_t, s, bias, eps)
+    B, D = x.shape
+    N = w_t.shape[0]
+    _shape_limits(B, D, "ln_qkv_int8")
+    if (B * D + WARPS) * 4 > SMEM_LIMIT:
+        raise ValueError("ln_qkv_int8: LayerNorm rows exceed shared memory")
+    dev = x.device
+    _check("x", x, (B, D), _ACT, dev)
+    for name, t in (("g", g), ("b", b)):
+        _check(name, t, (D,), _F32, dev)
+    _check("w_t", w_t, (N, D), _I8, dev)
+    for name, t in (("s", s), ("bias", bias)):
+        _check(name, t, (N,), _F32, dev)
+    out = torch.empty((B, N), dtype=torch.float32, device=dev)
+    err = _kernels().ln_qkv_int8_launch(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), g.data_ptr(),
+        b.data_ptr(), w_t.data_ptr(), s.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), B, D, N, eps,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"ln_qkv_int8 launch failed: CUDA error {err}")
+    launches["ln_qkv_int8"] += 1
+    return out
+
+
+def attnout_ln_mlp_int8(a, xres, wo_t, so, bo, g2, be2, w1_t, s1, b1,
+                        w2_t, s2, b2, eps: float):
+    """Second half of a GPT-2 decode layer: a, xres (B, D) bf16/f32 (same
+    type) -> new residual stream (B, D) f32. wo_t (D, D), w1_t (I, D),
+    w2_t (D, I) int8 out-major; the rest (D,) or (I,) f32."""
+    if not _check_device(a):
+        return attnout_ln_mlp_int8_plain(a, xres, wo_t, so, bo, g2, be2, w1_t,
+                                         s1, b1, w2_t, s2, b2, eps)
+    B, D = a.shape
+    I = w1_t.shape[0]
+    _shape_limits(B, D, "attnout_ln_mlp_int8")
+    _shape_limits(B, I, "attnout_ln_mlp_int8")
+    if (B * D + WARPS) * 4 > SMEM_LIMIT or B * I * 4 > SMEM_LIMIT:
+        raise ValueError("attnout_ln_mlp_int8: rows exceed shared memory")
+    dev = a.device
+    _check("a", a, (B, D), _ACT, dev)
+    _check("xres", xres, (B, D), (a.dtype,), dev)
+    _check("wo_t", wo_t, (D, D), _I8, dev)
+    _check("w1_t", w1_t, (I, D), _I8, dev)
+    _check("w2_t", w2_t, (D, I), _I8, dev)
+    for name, t in (("so", so), ("bo", bo), ("g2", g2), ("be2", be2),
+                    ("s2", s2), ("b2", b2)):
+        _check(name, t, (D,), _F32, dev)
+    for name, t in (("s1", s1), ("b1", b1)):
+        _check(name, t, (I,), _F32, dev)
+    r_buf = torch.empty((B, D), dtype=torch.float32, device=dev)
+    h_buf = torch.empty((B, I), dtype=torch.float32, device=dev)
+    out = torch.empty((B, D), dtype=torch.float32, device=dev)
+    err = _kernels().attnout_ln_mlp_int8_launch(
+        a.data_ptr(), xres.data_ptr(), int(a.dtype == torch.bfloat16),
+        wo_t.data_ptr(), so.data_ptr(), bo.data_ptr(), g2.data_ptr(),
+        be2.data_ptr(), w1_t.data_ptr(), s1.data_ptr(), b1.data_ptr(),
+        w2_t.data_ptr(), s2.data_ptr(), b2.data_ptr(), r_buf.data_ptr(),
+        h_buf.data_ptr(), out.data_ptr(), B, D, I, eps,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"attnout_ln_mlp_int8 launch failed: CUDA error {err}")
+    launches["attnout_ln_mlp_int8"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# operands
+# ---------------------------------------------------------------------------
+
+FUSED_KEYS = ("g1", "b1", "qkv_wt", "qkv_s", "qkv_b", "wo_t", "wo_s", "wo_b",
+              "g2", "b2", "w1_t", "s1", "fc1_b", "w2_t", "s2", "fc2_b")
+
+
+def prepare_fused_gpt2_layer_int8(lp: dict) -> dict:
+    """Fused-kernel operands from an int8-quantized GPT-2 layer dict
+    ({"ln1","qkv","attn_out","ln2","fc_in","fc_out"}, linears carrying
+    {"w_q","w_scale","b"}). The weights move to out-major storage and the
+    layer's own "w_q" is replaced by a transposed view of it (one copy)."""
+    f32 = lambda t: t.float().contiguous()
+    fused = {"g1": f32(lp["ln1"]["g"]), "b1": f32(lp["ln1"]["b"]),
+             "g2": f32(lp["ln2"]["g"]), "b2": f32(lp["ln2"]["b"])}
+    names = {"qkv": ("qkv_wt", "qkv_s", "qkv_b"),
+             "attn_out": ("wo_t", "wo_s", "wo_b"),
+             "fc_in": ("w1_t", "s1", "fc1_b"),
+             "fc_out": ("w2_t", "s2", "fc2_b")}
+    for name, (kw, ks, kb) in names.items():
+        p = lp[name]
+        if "w_q" not in p:
+            raise ValueError(f"{name}: quantize int8 first")
+        fused[kw] = p["w_q"].T.contiguous()
+        fused[ks] = f32(p["w_scale"])
+        fused[kb] = f32(p["b"])
+        p["w_q"] = fused[kw].T
+    return fused
+
+
+def apply_fused_gpt2_qkv_int8(fl: dict, x2d, eps: float):
+    """(B, D) -> (B, 3D) f32."""
+    return ln_qkv_int8(x2d, fl["g1"], fl["b1"], fl["qkv_wt"], fl["qkv_s"],
+                       fl["qkv_b"], eps)
+
+
+def apply_fused_gpt2_mlp_int8(fl: dict, attn2d, xres2d, eps: float):
+    """(B, D) attention output + residual -> new residual (B, D) f32."""
+    return attnout_ln_mlp_int8(
+        attn2d, xres2d, fl["wo_t"], fl["wo_s"], fl["wo_b"], fl["g2"],
+        fl["b2"], fl["w1_t"], fl["s1"], fl["fc1_b"], fl["w2_t"], fl["s2"],
+        fl["fc2_b"], eps)

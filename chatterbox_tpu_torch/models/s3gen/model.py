@@ -1,0 +1,122 @@
+"""S3Gen for the Turbo path: decoded speech tokens + reference voice ->
+waveform (the counterpart of the fused decode->vocode handoff of
+chatterbox_tpu/models/s3gen/model.py: `_pack_body`, the `_fused` body and
+`inference_from_decode`).
+
+token filter and pack -> upsample-conformer flow encoder -> 2-step meanflow
+UNet -> HiFT with iSTFT -> trim-fade. One utterance runs at its exact
+length, so there are no buckets; the one host read is the count of valid
+tokens. The output stays float32. Convolutions run with cuDNN's TF32 off,
+so the float32 S3Gen is float32 on the card too.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ...nn import core as nn
+from .flow import FlowDims, TOKEN_MEL_RATIO, flow_init, flow_inference
+from .hift import SourceNoise, hift_inference, hift_init
+
+S3GEN_SR = 24_000
+SIL_TOKEN = 4299                     # silence speech token
+SPEECH_VOCAB_SIZE = 6561
+
+
+def s3gen_init(seed: int = 0, device="cuda", meanflow: bool = True,
+               dims: FlowDims = FlowDims(), hift_base: int = 512) -> dict:
+    """Random float32 `flow` and `mel2wav` parameters."""
+    init = nn.Init(seed, device)
+    return {"flow": flow_init(init, meanflow=meanflow, dims=dims),
+            "mel2wav": hift_init(init, base_channels=hift_base)}
+
+
+class RefDict(NamedTuple):
+    """The reference-voice conditioning bundle (numpy arrays)."""
+    prompt_token: np.ndarray      # (1, P) int
+    prompt_token_len: np.ndarray  # (1,)
+    prompt_feat: np.ndarray       # (1, T_feat, 80)
+    embedding: np.ndarray         # (1, 192)
+
+
+class S3GenNoise(NamedTuple):
+    """Every random number of one vocode call."""
+    z: torch.Tensor               # (1, T_mel, 80) flow starting noise
+    source: SourceNoise           # HiFT harmonic phases and noise
+
+
+def trim_fade(sr: int = S3GEN_SR) -> np.ndarray:
+    """20 ms of silence then a 20 ms raised-cosine fade-in."""
+    n = sr // 50
+    fade = np.zeros(2 * n, np.float32)
+    fade[n:] = (np.cos(np.linspace(np.pi, 0, n)) + 1) / 2
+    return fade
+
+
+@contextlib.contextmanager
+def no_tf32_convs():
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def pack_tokens(gen_tokens: torch.Tensor, n_raw, prompt_token: torch.Tensor,
+                append_sil: int = 0) -> torch.Tensor:
+    """[prompt | valid generated tokens | append_sil silence tokens] as one
+    (1, P + G) row. Generated tokens count when they are among the first
+    n_raw and below the S3 vocabulary (the Turbo filter)."""
+    gen = gen_tokens.reshape(-1).long()
+    idx = torch.arange(gen.shape[0], device=gen.device)
+    gen = gen[(idx < n_raw) & (gen < SPEECH_VOCAB_SIZE)]    # the one host read
+    sil = torch.full((append_sil,), SIL_TOKEN, dtype=torch.long, device=gen.device)
+    return torch.cat([prompt_token.reshape(-1).long(), gen, sil])[None]
+
+
+class S3GenEngine:
+    """Owns the `flow` and `mel2wav` parameters of a meanflow S3Gen."""
+
+    def __init__(self, params: dict, dims: FlowDims = FlowDims()):
+        self.params = params
+        self.dims = dims
+        self.device = params["flow"]["input_embedding"]["w"].device
+        self._fade = torch.from_numpy(trim_fade()).to(self.device)
+
+    def draw_noise(self, n_mel: int, n_gen_mel: int, generator) -> S3GenNoise:
+        """Random numbers for n_mel flow frames ([prompt | gen]) of which the
+        last n_gen_mel are vocoded."""
+        z = torch.randn((1, n_mel, 80), generator=generator, device=self.device)
+        return S3GenNoise(z, SourceNoise.draw(1, n_gen_mel, generator, self.device))
+
+    @torch.no_grad()
+    def inference_from_decode(self, gen_tokens: torch.Tensor, n_tokens,
+                              ref: RefDict, *, generator=None,
+                              noise: Optional[S3GenNoise] = None,
+                              n_timesteps: int = 2, append_sil: int = 0):
+        """Vocode a T3 decode result. gen_tokens (L,) on the device, n_tokens
+        the generated count (tensor or int). Returns (wav (1, T) float32
+        numpy, n_gen vocoded tokens)."""
+        P = int(np.asarray(ref.prompt_token_len).reshape(-1)[0])
+        prompt = torch.as_tensor(np.asarray(ref.prompt_token)[:, :P], device=self.device)
+        token = pack_tokens(gen_tokens.to(self.device), n_tokens, prompt, append_sil)
+        n_gen = token.shape[1] - P
+        if n_gen == 0:
+            return np.zeros((1, 0), np.float32), 0
+        n_mel = token.shape[1] * TOKEN_MEL_RATIO
+        if noise is None:
+            noise = self.draw_noise(n_mel, n_gen * TOKEN_MEL_RATIO, generator)
+        feat = torch.as_tensor(np.asarray(ref.prompt_feat, np.float32), device=self.device)
+        emb = torch.as_tensor(np.asarray(ref.embedding, np.float32), device=self.device)
+        with no_tf32_convs():
+            mels = flow_inference(self.params["flow"], token, P, feat, emb, noise.z,
+                                  n_timesteps=n_timesteps, dims=self.dims)
+            wav, _, _ = hift_inference(self.params["mel2wav"],
+                                       mels[:, P * TOKEN_MEL_RATIO:], noise.source)
+        n_fade = min(self._fade.shape[0], wav.shape[1])
+        wav = torch.cat([wav[:, :n_fade] * self._fade[:n_fade], wav[:, n_fade:]], dim=1)
+        return wav.float().cpu().numpy(), n_gen

@@ -1,0 +1,214 @@
+"""Functional building blocks on torch tensors (the subset of
+chatterbox_tpu/nn/core.py that the Turbo text-to-wav path calls).
+
+Layouts follow the JAX package at every public function, so the two can be
+compared like with like:
+  * activations are channels-last (B, T, C);
+  * linear weights are (in, out): `x @ w`;
+  * int8 linear weights are {"w_q" (in, out) int8, "w_scale" (out,) f32}.
+Convolution weights are the one exception: they are carried in torch's own
+layout, (Cout, Cin, K) for a conv and (Cin, Cout, K) for a transposed conv
+(convert/from_jax.py transposes them once).
+
+Parameters are nested dicts of tensors, as in the JAX package.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+F32_MIN = torch.finfo(torch.float32).min
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """`x @ w` with XLA's result types: f32 products summed in f32, then
+    rounded once to the result type (an int8 weight takes x's type; two
+    float types promote). The JAX package's bf16 matmuls are computed this
+    way on the CPU, where torch would otherwise round bf16 partial sums."""
+    if w.dtype == torch.int8:
+        out = x.dtype
+    else:
+        out = torch.promote_types(x.dtype, w.dtype)
+    return (x.float() @ w.float()).to(out)
+
+
+def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
+    if "w_q" in p:
+        # weight-only int8: the product rounds to x's type, then the
+        # per-output-channel scale is applied in that type
+        y = matmul(x, p["w_q"])
+        y = y * p["w_scale"].to(y.dtype)
+    else:
+        y = matmul(x, p["w"])
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def embedding(p: dict, ids: torch.Tensor) -> torch.Tensor:
+    return F.embedding(ids, p["w"])
+
+
+def layer_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    if x.dtype == torch.float32 and p["g"].dtype == torch.float32:
+        return F.layer_norm(x, x.shape[-1:], p["g"], p["b"], eps)
+    # low-precision input: the statistics are taken in f32 and rounded to
+    # x's type, the normalisation runs in x's type (jnp.mean / jnp.var)
+    xf = x.float()
+    mu_f = xf.mean(-1, keepdim=True)
+    var = ((xf - mu_f) ** 2).mean(-1, keepdim=True).to(x.dtype)
+    y = (x - mu_f.to(x.dtype)) * torch.rsqrt(var + eps)
+    return y * p["g"] + p["b"]
+
+
+def silu(x):
+    return x * torch.sigmoid(x)
+
+
+def gelu_exact(x):
+    return F.gelu(x)
+
+
+def gelu_new(x):
+    """GPT-2's gelu ('gelu_new' in HF): tanh approximation."""
+    return 0.5 * x * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi)
+                                       * (x + 0.044715 * x ** 3)))
+
+
+def mish(x):
+    return x * torch.tanh(F.softplus(x))
+
+
+def leaky_relu(x, slope: float = 0.1):
+    return torch.where(x >= 0, x, x * slope)
+
+
+def elu(x):
+    return torch.where(x > 0, x, torch.expm1(x))
+
+
+# ---------------------------------------------------------------------------
+# convolutions
+# ---------------------------------------------------------------------------
+
+def _pads(padding):
+    if isinstance(padding, int):
+        return padding, padding
+    return tuple(padding)
+
+
+def conv1d_cf(p: dict, x: torch.Tensor, stride: int = 1, padding=0,
+              dilation: int = 1) -> torch.Tensor:
+    """Channels-first conv: x (B, C, T), weight (Cout, Cin, K).
+    padding: int (symmetric) or (lo, hi)."""
+    lo, hi = _pads(padding)
+    if lo or hi:
+        x = F.pad(x, (lo, hi))
+    return F.conv1d(x, p["w"], p.get("b"), stride=stride, dilation=dilation)
+
+
+def conv1d(p: dict, x: torch.Tensor, stride: int = 1, padding=0,
+           dilation: int = 1) -> torch.Tensor:
+    """x (B, T, C) channels-last, as in the JAX package."""
+    return conv1d_cf(p, x.transpose(1, 2), stride, padding, dilation).transpose(1, 2)
+
+
+def causal_conv1d(p: dict, x: torch.Tensor, k: int, dilation: int = 1):
+    """Left-padded conv, channels-last."""
+    return conv1d(p, x, padding=((k - 1) * dilation, 0), dilation=dilation)
+
+
+def conv_transpose1d_cf(p: dict, x: torch.Tensor, stride: int,
+                        padding: int = 0) -> torch.Tensor:
+    """torch.nn.ConvTranspose1d: x (B, Cin, T), weight (Cin, Cout, K)."""
+    return F.conv_transpose1d(x, p["w"], p.get("b"), stride=stride,
+                              padding=padding)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Multi-head attention core, written out (not SDPA): q (B, H, Tq, D),
+    k/v (B, H, Tk, D); mask is a boolean keep-mask broadcastable to
+    (B, H, Tq, Tk). Scores and softmax in f32; the weights are rounded to
+    v's type before the second product, whose result has v's type."""
+    scores = (q.float() @ k.float().transpose(-1, -2)) * (1.0 / math.sqrt(q.shape[-1]))
+    if mask is not None:
+        scores = torch.where(mask, scores, F32_MIN)
+    probs = torch.softmax(scores, dim=-1)
+    if mask is not None:
+        probs = torch.where(mask, probs, 0.0)
+    probs = probs.to(v.dtype)
+    return (probs.float() @ v.float()).to(v.dtype)
+
+
+def split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    B, T, C = x.shape
+    return x.reshape(B, T, n_heads, C // n_heads).transpose(1, 2)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    B, H, T, D = x.shape
+    return x.transpose(1, 2).reshape(B, T, H * D)
+
+
+# ---------------------------------------------------------------------------
+# initialisers (random weights from an explicit torch.Generator; on the
+# "meta" device they only give shapes, which the converter checks against)
+# ---------------------------------------------------------------------------
+
+class Init:
+    """Draws parameters on `device` from one seeded generator."""
+
+    def __init__(self, seed: int, device="cuda"):
+        self.device = torch.device(device)
+        self.gen = (None if self.device.type == "meta"
+                    else torch.Generator(device=self.device).manual_seed(seed))
+
+    def uniform(self, shape, bound: float) -> torch.Tensor:
+        if self.gen is None:
+            return torch.empty(shape, device=self.device)
+        u = torch.rand(shape, generator=self.gen, device=self.device)
+        return (u * 2.0 - 1.0) * bound
+
+    def normal(self, shape, std: float = 1.0) -> torch.Tensor:
+        if self.gen is None:
+            return torch.empty(shape, device=self.device)
+        return torch.randn(shape, generator=self.gen, device=self.device) * std
+
+    def const(self, shape, value: float) -> torch.Tensor:
+        return torch.full(shape, value, device=self.device)
+
+    def linear(self, in_dim: int, out_dim: int, bias: bool = True) -> dict:
+        bound = 1.0 / math.sqrt(in_dim)
+        p = {"w": self.uniform((in_dim, out_dim), bound)}
+        if bias:
+            p["b"] = self.uniform((out_dim,), bound)
+        return p
+
+    def embedding(self, num: int, dim: int, std: float = 0.02) -> dict:
+        return {"w": self.normal((num, dim), std)}
+
+    def layer_norm(self, dim: int) -> dict:
+        return {"g": self.const((dim,), 1.0), "b": self.const((dim,), 0.0)}
+
+    def conv1d(self, in_ch: int, out_ch: int, k: int, bias: bool = True) -> dict:
+        bound = 1.0 / math.sqrt(in_ch * k)
+        p = {"w": self.uniform((out_ch, in_ch, k), bound)}
+        if bias:
+            p["b"] = self.uniform((out_ch,), bound)
+        return p
+
+    def conv_transpose1d(self, in_ch: int, out_ch: int, k: int,
+                         bias: bool = True) -> dict:
+        bound = 1.0 / math.sqrt(in_ch * k)
+        p = {"w": self.uniform((in_ch, out_ch, k), bound)}
+        if bias:
+            p["b"] = self.uniform((out_ch,), bound)
+        return p

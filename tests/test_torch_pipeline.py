@@ -1,0 +1,137 @@
+"""The port's Turbo pipeline end to end on the CPU against chatterbox_tpu's
+ChatterboxTurboTTS: a 2-layer GPT2_FUSED_TEST T3 quantized int8_fused, a
+tiny meanflow S3Gen, synthetic Conditionals, greedy decode. Also the
+conds.pt interchange, the frontend guard, and the rule that the port never
+imports JAX or the JAX package."""
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+
+from chatterbox_tpu.api.pipelines import ChatterboxTurboTTS as JTTS  # noqa: E402
+from chatterbox_tpu.api.pipelines import Conditionals as JConds  # noqa: E402
+from chatterbox_tpu.api.pipelines import T3CondHost as JT3Cond  # noqa: E402
+from chatterbox_tpu.models.s3gen import flow as jflow  # noqa: E402
+from chatterbox_tpu.models.s3gen import hift as jhift  # noqa: E402
+from chatterbox_tpu.models.s3gen.model import RefDict as JRefDict  # noqa: E402
+from chatterbox_tpu.models.s3gen.model import S3GenEngine as JEngine  # noqa: E402
+from chatterbox_tpu.models.t3 import model as jt3m  # noqa: E402
+from chatterbox_tpu.models.t3.config import T3Config as JT3Config  # noqa: E402
+from chatterbox_tpu.utils.quantize import quantize_t3_backbone as jquant  # noqa: E402
+
+import chatterbox_tpu_torch as port  # noqa: E402
+from chatterbox_tpu_torch.convert.from_jax import s3gen_from_jax, t3_from_jax  # noqa: E402
+from chatterbox_tpu_torch.models.s3gen.flow import FlowDims  # noqa: E402
+from chatterbox_tpu_torch.models.s3gen.model import S3GenEngine  # noqa: E402
+from chatterbox_tpu_torch.models.t3.config import T3Config  # noqa: E402
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+HP_KW = dict(text_tokens_dict_size=64, backbone_name="GPT2_fused_test",
+             speech_tokens_dict_size=6564, input_pos_emb=None,
+             speech_cond_prompt_len=8, use_perceiver_resampler=False,
+             emotion_adv=False, max_text_tokens=64, max_speech_tokens=128)
+P = 64           # prompt tokens: with 61 tokens + 3 silence the JAX buckets
+N_NEW = 61       # (128 tokens, 128 mel frames) are exact, as in the port
+
+
+class _Tok:
+    def text_to_tokens(self, text):
+        return (np.frombuffer(text.encode(), np.uint8) % 60 + 1)[None].astype(np.int32)
+
+
+def _conds(rng):
+    t3 = (rng.standard_normal((1, 256)).astype(np.float32),
+          rng.integers(0, 6561, (1, 8)).astype(np.int32))
+    gen = (rng.integers(0, 6561, (1, P)).astype(np.int32), np.array([P], np.int32),
+           (rng.standard_normal((1, 2 * P, 80)) * 0.5).astype(np.float32),
+           rng.standard_normal((1, 192)).astype(np.float32))
+    return (JConds(JT3Cond(*t3, 0.0), JRefDict(*gen)),
+            port.Conditionals(port.T3CondHost(*t3, 0.0), port.RefDict(*gen)))
+
+
+def _pipelines():
+    jhp = JT3Config(**HP_KW)
+    qp = jquant(jt3m.t3_init(jax.random.key(0), jhp), mode="int8_fused")
+    # keep greedy decoding on ordinary speech tokens (no EOS, nothing the
+    # vocoder filters), so both engines vocode exactly N_NEW + 3 tokens
+    qp["speech_head"]["b"] = qp["speech_head"]["b"].at[6561:].set(-1e4)
+    k1, k2 = jax.random.split(jax.random.key(1))
+    dims, jdims = FlowDims.tiny_test(), jflow.FlowDims.tiny_test()
+    sp = {"flow": jflow.flow_init(k1, meanflow=True, dims=jdims),
+          "mel2wav": jhift.hift_init(k2, base_channels=32)}
+    jeng = JEngine(sp, meanflow=True, dims=jdims)
+    jeng.pcm16_fetch = False
+    jconds, tconds = _conds(np.random.default_rng(0))
+    jtts = JTTS(qp, jhp, jeng, None, _Tok(), jconds, seed=7)
+    tts = port.ChatterboxTurboTTS(
+        t3_from_jax(jax.tree.map(np.asarray, qp), T3Config(**HP_KW), device="cpu"),
+        T3Config(**HP_KW),
+        S3GenEngine(s3gen_from_jax(jax.tree.map(np.asarray, sp), dims=dims,
+                                   hift_base=32, device="cpu"), dims=dims),
+        _Tok(), tconds, seed=7)
+    return jtts, tts
+
+
+def test_turbo_generate_matches_jax_pipeline():
+    from tests.test_torch_s3gen import jax_vocode_noise
+    jtts, tts = _pipelines()
+    kw = dict(top_k=1, max_new_tokens=N_NEW)
+    ref = jtts.generate("hello world, this is a test", **kw)
+    # the JAX pipeline's second key draws its vocoder noise; hand the same
+    # numbers to the port
+    key = jax.random.key(7)
+    key, _ = jax.random.split(key)
+    _, k_voc = jax.random.split(key)
+    noise = jax_vocode_noise(k_voc, 2 * (P + N_NEW + 3), 2 * (N_NEW + 3))
+    tts.s3gen.draw_noise = lambda n_mel, n_gen_mel, generator: noise
+    out = tts.generate("hello world, this is a test", **kw)
+    assert tts.last_decode.n_forward == N_NEW - 1
+    assert out.shape == ref.shape == (1, (N_NEW + 3) * 2 * 480)
+    assert np.isfinite(out).all() and np.abs(out).max() > 1e-3
+    # float32 end to end on the CPU; the watermark (the same numpy code in
+    # both packages) is applied to near-equal waves
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
+
+
+def test_conds_pt_from_jax_loads_in_port(tmp_path):
+    jconds, _ = _conds(np.random.default_rng(1))
+    path = tmp_path / "conds.pt"
+    jconds.save(str(path))
+    c = port.Conditionals.load(str(path))
+    np.testing.assert_array_equal(c.t3.speaker_emb, jconds.t3.speaker_emb)
+    np.testing.assert_array_equal(c.t3.cond_prompt_speech_tokens,
+                                  jconds.t3.cond_prompt_speech_tokens)
+    for a, b in zip(c.gen, jconds.gen):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    npz = tmp_path / "conds.npz"
+    c.save(str(npz))
+    c2 = port.Conditionals.load(str(npz))
+    np.testing.assert_array_equal(c2.gen.prompt_feat, c.gen.prompt_feat)
+
+
+def test_audio_prompt_path_raises_until_frontend_is_ported():
+    _, tts = _pipelines()
+    with pytest.raises(NotImplementedError, match="frontend"):
+        tts.generate("hi", audio_prompt_path="ref.wav", max_new_tokens=2)
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = sorted((REPO / "chatterbox_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 20
+    for f in files:
+        for mod in _imports(f):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "chatterbox_tpu"), (f, mod)

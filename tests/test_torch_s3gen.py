@@ -1,0 +1,175 @@
+"""The port's meanflow S3Gen (chatterbox_tpu_torch/models/s3gen) held against
+chatterbox_tpu on the JAX CPU backend at FlowDims.tiny_test() with a
+32-channel HiFT, float32 on both sides, the same noise handed to both (the
+JAX draws are reproduced here from its own keys, in its own split order)."""
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from chatterbox_tpu.models.s3gen import flow as jflow  # noqa: E402
+from chatterbox_tpu.models.s3gen import hift as jhift  # noqa: E402
+from chatterbox_tpu.models.s3gen.model import RefDict as JRefDict  # noqa: E402
+from chatterbox_tpu.models.s3gen.model import S3GenEngine as JEngine  # noqa: E402
+
+from chatterbox_tpu_torch.convert.from_jax import s3gen_from_jax  # noqa: E402
+from chatterbox_tpu_torch.models.s3gen import flow, hift  # noqa: E402
+from chatterbox_tpu_torch.models.s3gen.model import (RefDict, S3GenEngine,  # noqa: E402
+                                                     S3GenNoise, pack_tokens)
+
+DIMS = flow.FlowDims.tiny_test()
+JDIMS = jflow.FlowDims.tiny_test()
+HIFT_BASE = 32
+P = 64            # prompt tokens; with 61 generated + 3 silence tokens the
+N_GEN = 61        # JAX engine's token and mel buckets (128, 128) are exact
+
+
+def _params():
+    k1, k2 = jax.random.split(jax.random.key(0))
+    jp = {"flow": jflow.flow_init(k1, meanflow=True, dims=JDIMS),
+          "mel2wav": jhift.hift_init(k2, base_channels=HIFT_BASE)}
+    tp = s3gen_from_jax(jax.tree.map(np.asarray, jp), dims=DIMS, hift_base=HIFT_BASE,
+                        device="cpu")
+    return jp, tp
+
+
+_CACHE = {}
+
+
+def params():
+    if "p" not in _CACHE:
+        _CACHE["p"] = _params()
+    return _CACHE["p"]
+
+
+def _ref(rng):
+    return (rng.integers(0, 6561, (1, P)).astype(np.int32), np.array([P], np.int32),
+            (rng.standard_normal((1, 2 * P, 80)) * 0.5).astype(np.float32),
+            rng.standard_normal((1, 192)).astype(np.float32))
+
+
+def test_flow_mels_match_with_given_noise():
+    jp, tp = params()
+    rng = np.random.default_rng(0)
+    G = 20
+    prompt, _, feat, emb = _ref(rng)
+    tokens = np.concatenate([prompt, rng.integers(0, 6561, (1, G))], axis=1)
+    T = tokens.shape[1]
+    z = rng.standard_normal((1, 2 * T, 80)).astype(np.float32)
+    ref = jflow.flow_inference(
+        jp["flow"], token=jnp.asarray(tokens, jnp.int32), token_len=jnp.asarray([T]),
+        prompt_len=jnp.asarray([P]), prompt_feat=jnp.asarray(feat),
+        embedding=jnp.asarray(emb), key=jax.random.key(1), n_timesteps=2,
+        meanflow=True, noise=jnp.asarray(z), noise_aligned=True, dims=JDIMS)
+    out = flow.flow_inference(tp["flow"], torch.from_numpy(tokens).long(), P,
+                              torch.from_numpy(feat), torch.from_numpy(emb),
+                              torch.from_numpy(z), n_timesteps=2, dims=DIMS)
+    ref = np.asarray(ref)
+    assert out.shape == ref.shape
+    # float32 on both sides; convolution and matmul summation order differ
+    # (7e-7 measured on mels of scale 4.5)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-5)
+
+
+def test_hift_decode_matches_with_fixed_source():
+    jp, tp = params()
+    rng = np.random.default_rng(1)
+    T = 24
+    mel = rng.standard_normal((1, T, 80)).astype(np.float32)
+    s = (rng.standard_normal((1, T * 480, 1)) * 0.1).astype(np.float32)
+    ref = np.asarray(jhift.hift_decode(jp["mel2wav"], jnp.asarray(mel), jnp.asarray(s)))
+    out = hift.hift_decode(tp["mel2wav"], torch.from_numpy(mel), torch.from_numpy(s))
+    assert out.shape == ref.shape == (1, T * 480)
+    # torch.stft/istft against the JAX matmul-DFT, float32 rounding (1.2e-7
+    # measured)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-6)
+
+
+def test_hift_source_matches_with_given_phase_and_noise():
+    jp, tp = params()
+    rng = np.random.default_rng(2)
+    T = 24
+    f0 = np.abs(rng.standard_normal((1, T)) * 150 + 100).astype(np.float32)
+    f0[:, :4] = 0.0                                     # some unvoiced frames
+    key = jax.random.key(3)
+    ref = np.asarray(jhift.hift_source(jp["mel2wav"], key, jnp.asarray(f0)))
+    k_phase, k_noise = jax.random.split(key)            # hift.py's own split
+    phase = jax.random.uniform(k_phase, (1, 1, 9), minval=-jnp.pi, maxval=jnp.pi)
+    noise_u = jax.random.normal(k_noise, (1, T * 480, 9))
+    noise = hift.SourceNoise(torch.from_numpy(np.array(phase)),
+                             torch.from_numpy(np.array(noise_u)))
+    out = hift.hift_source(tp["mel2wav"], torch.from_numpy(f0), noise)
+    assert out.shape == ref.shape == (1, T * 480, 1)
+    # the port sums the harmonic phase in float64, JAX in float32: at these
+    # f0 (up to ~500 Hz) over 11520 samples the phases differ by ~1e-4 rad
+    # (1.2e-5 measured on the source)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=2e-5)
+
+
+def jax_vocode_noise(key, n_mel, n_gen_mel):
+    """The draws the JAX fused vocoder makes from `key` (model.py
+    k_noise/k_flow/k_hift split, cfm.py noise placement, hift.py split),
+    for exact buckets: the flow buffer is n_mel frames, of which the last
+    n_gen_mel are vocoded."""
+    k_noise, k_flow, k_hift = jax.random.split(key, 3)
+    noise = np.asarray(jax.random.normal(k_noise, (1, n_mel, 80)))
+    z = np.array(jax.random.normal(k_flow, (1, n_mel, 80)))
+    p_mel = n_mel - n_gen_mel
+    z[:, p_mel:] = noise[:, : n_gen_mel]
+    k_phase, k_src = jax.random.split(k_hift)
+    phase = jax.random.uniform(k_phase, (1, 1, 9), minval=-jnp.pi, maxval=jnp.pi)
+    noise_u = jax.random.normal(k_src, (1, n_gen_mel * 480, 9))
+    return S3GenNoise(torch.from_numpy(z), hift.SourceNoise(
+        torch.from_numpy(np.array(phase)), torch.from_numpy(np.array(noise_u))))
+
+
+def test_pack_tokens_matches_jax_filter():
+    rng = np.random.default_rng(4)
+    gen = rng.integers(0, 6564, (40,)).astype(np.int32)
+    gen[3] = 6561
+    gen[9] = 6563
+    prompt = rng.integers(0, 6561, (1, 10)).astype(np.int32)
+    eng = JEngine({"flow": None, "mel2wav": None}, meanflow=True, dims=JDIMS)
+    row, tl = eng._pack_from_decode(jnp.asarray(gen), jnp.asarray(30),
+                                    jnp.asarray(prompt), jnp.asarray(10), bucket=64,
+                                    append_sil=3, cfg_slice=False, sos=6561,
+                                    eos=6562, vocab=6561)
+    out = pack_tokens(torch.from_numpy(gen), 30, torch.from_numpy(prompt), 3)
+    n = int(np.asarray(tl)[0])
+    np.testing.assert_array_equal(out.numpy(), np.asarray(row)[:, :n])
+
+
+def test_inference_from_decode_waveform_matches():
+    jp, tp = params()
+    rng = np.random.default_rng(5)
+    prompt, plen, feat, emb = _ref(rng)
+    gen = rng.integers(0, 6561, (70,)).astype(np.int32)
+    gen[N_GEN:] = 6562                                  # past n_tokens: ignored
+    key = jax.random.key(6)
+    eng = JEngine(jp, meanflow=True, dims=JDIMS)
+    eng.pcm16_fetch = False
+    ref, n_ref = eng.inference_from_decode(
+        jnp.asarray(gen), N_GEN, JRefDict(prompt, plen, feat, emb), key,
+        n_timesteps=2, append_sil=3)
+    n_mel = 2 * (P + N_GEN + 3)
+    noise = jax_vocode_noise(key, n_mel, 2 * (N_GEN + 3))
+    port = S3GenEngine(tp, dims=DIMS)
+    out, n_out = port.inference_from_decode(
+        torch.from_numpy(gen), torch.tensor(N_GEN), RefDict(prompt, plen, feat, emb),
+        noise=noise, append_sil=3)
+    assert n_out == n_ref == N_GEN + 3
+    assert out.shape == ref.shape == (1, (N_GEN + 3) * 2 * 480)
+    assert np.isfinite(out).all()
+    # flow + HiFT in float32: summation order, STFT formulation and the
+    # float64 harmonic phase (1.5e-7 measured on a wave of scale 0.16)
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
+
+
+def test_unmapped_keys_raise():
+    jp, _ = params()
+    tree = jax.tree.map(np.asarray, jp)
+    tree["mel2wav"]["conv_post"]["extra"] = np.zeros(3, np.float32)
+    with pytest.raises(KeyError):
+        s3gen_from_jax(tree, dims=DIMS, hift_base=HIFT_BASE, device="cpu")
