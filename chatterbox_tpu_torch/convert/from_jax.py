@@ -5,9 +5,10 @@ Layouts that change on the way:
   * conv weights (K, Cin, Cout) -> torch's (Cout, Cin, K);
   * transposed-conv weights, stored pre-flipped as an input-dilated conv
     (K, Cin, Cout) -> torch ConvTranspose1d's (Cin, Cout, K), un-flipped;
-  * the fused decode-layer operands: the 8-row broadcast vectors become
-    (N,) and the int8 weights move to out-major (N, K) storage, which the
-    layer's own (in, out) "w_q" then views;
+  * the fused decode-layer operands (GPT-2 or llama, told apart by their
+    keys): the 8-row broadcast vectors become (N,) and the int8 weights move
+    to out-major (N, K) storage, which the layer's own (in, out) "w_q" then
+    views (llama's q, k and v view row slices of the fused q|k|v);
   * bfloat16 leaves stay bfloat16.
 Every key is checked against the port's own schema (its init on the meta
 device): a missing, unexpected or misshaped leaf raises.
@@ -22,7 +23,7 @@ from ..models.s3gen.model import s3gen_init
 from ..models.t3 import model as t3m
 from ..models.t3.config import T3Config
 
-_FUSED_MAP = {  # JAX fused operand -> (port key, transform)
+_GPT2_FUSED_MAP = {  # JAX fused operand -> (port key, transform)
     "g1_8": ("g1", "row"), "b1_8": ("b1", "row"),
     "qkv_w": ("qkv_wt", "transpose"), "qkv_s8": ("qkv_s", "row"),
     "qkv_b8": ("qkv_b", "row"),
@@ -34,8 +35,19 @@ _FUSED_MAP = {  # JAX fused operand -> (port key, transform)
     "w2": ("w2_t", "transpose"), "s2_8": ("s2", "row"),
     "fc2_b8": ("fc2_b", "row"),
 }
-_FUSED_LINKS = {"qkv": "qkv_wt", "attn_out": "wo_t", "fc_in": "w1_t",
-                "fc_out": "w2_t"}
+_LLAMA_FUSED_MAP = {
+    "g1_8": ("g1", "row"),
+    "qkv_w": ("qkv_wt", "transpose"), "qkv_s8": ("qkv_s", "row"),
+    "wo_w": ("wo_t", "transpose"), "wo_s8": ("wo_s", "row"),
+    "g2_8": ("g2", "row"),
+    "wg": ("wg_t", "transpose"), "sg_8": ("sg", "row"),
+    "wu": ("wu_t", "transpose"), "su_8": ("su", "row"),
+    "wd": ("wd_t", "transpose"), "sd_8": ("sd", "row"),
+}
+# layer linear -> the fused out-major weight its "w_q" views
+_GPT2_LINKS = {"qkv": "qkv_wt", "attn_out": "wo_t", "fc_in": "w1_t",
+               "fc_out": "w2_t"}
+_LLAMA_LINKS = {"o": "wo_t", "gate": "wg_t", "up": "wu_t", "down": "wd_t"}
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -56,17 +68,37 @@ def _leaf(path: tuple, a, device) -> torch.Tensor:
 
 
 def _fused(path: tuple, fl: dict, device) -> dict:
-    extra = set(fl) - set(_FUSED_MAP)
-    missing = set(_FUSED_MAP) - set(fl)
+    fmap = _LLAMA_FUSED_MAP if "wg" in fl else _GPT2_FUSED_MAP
+    extra = set(fl) - set(fmap)
+    missing = set(fmap) - set(fl)
     if extra or missing:
         raise KeyError(f"{'/'.join(map(str, path))}: fused operands "
                        f"unexpected {sorted(extra)}, missing {sorted(missing)}")
     out = {}
-    for k, (name, how) in _FUSED_MAP.items():
+    for k, (name, how) in fmap.items():
         a = np.asarray(fl[k])
         a = a[0] if how == "row" else a.T
         out[name] = _tensor(a, device).float() if how == "row" else _tensor(a, device)
     return out
+
+
+def _link_fused(layer: dict, where: str):
+    """Point the layer's "w_q" weights at views of its fused operands (the
+    JAX tree holds them as separate copies, which must be equal)."""
+    fused = layer["fused"]
+    links = {name: (fused[key], None) for name, key in
+             (_LLAMA_LINKS if "wg_t" in fused else _GPT2_LINKS).items()}
+    if "wg_t" in fused:
+        row = 0
+        for name in ("q", "k", "v"):
+            width = layer[name]["w_q"].shape[1]
+            links[name] = (fused["qkv_wt"], slice(row, row + width))
+            row += width
+    for name, (wt, rows) in links.items():
+        view = (wt if rows is None else wt[rows]).T
+        if not torch.equal(layer[name]["w_q"], view):
+            raise ValueError(f"{where}/{name}: fused weight differs from the layer's")
+        layer[name]["w_q"] = view
 
 
 def _convert(node, device, path=()):
@@ -78,12 +110,7 @@ def _convert(node, device, path=()):
             else:
                 out[k] = _convert(v, device, path + (k,))
         if "fused" in out:
-            for name, key in _FUSED_LINKS.items():
-                wt = out["fused"][key]
-                if not torch.equal(out[name]["w_q"], wt.T):
-                    raise ValueError(f"{'/'.join(map(str, path))}/{name}: "
-                                     "fused weight differs from the layer's")
-                out[name]["w_q"] = wt.T
+            _link_fused(out, "/".join(map(str, path)))
         return out
     if isinstance(node, (list, tuple)):
         return [_convert(v, device, path + (i,)) for i, v in enumerate(node)]

@@ -1,19 +1,27 @@
-// Fused GPT-2 decode-layer kernels with int8 weights, for Hopper (sm_90a).
+// Fused decode-layer kernels with int8 weights, for Hopper (sm_90a).
 //
-// Replaces the two Pallas TPU kernels of chatterbox_tpu/ops/fused_layer.py:
+// Replaces the four Pallas TPU kernels of chatterbox_tpu/ops/fused_layer.py:
+//   GPT-2 (Turbo T3, 24 layers):
 //   B1  ln_qkv_int8          (_ln_qkv_kernel_i8):
 //         out = (bf16(LN1(x)) @ Wqkv_int8) * s + bias
 //   B2  attnout_ln_mlp_int8  (_attnout_ln_mlp_kernel_i8):
 //         r   = x + (bf16(a) @ Wo_int8) * so + bo
 //         out = r + b2 + (bf16(gelu_new((bf16(LN2(r)) @ W1_int8) * s1 + b1))
 //                         @ W2_int8) * s2
-// Each decode step of the Turbo T3 runs both once per layer (24 layers).
+//   llama (520M CFG T3, 30 layers, batch 2 = cond and uncond rows):
+//   B5  rms_qkv_int8         (_rms_qkv_kernel_i8):
+//         out = (bf16(RMSNorm(x) * g) @ [Wq|Wk|Wv]_int8) * s
+//   B6  attnout_rms_glu_int8 (_attnout_rms_glu_kernel_i8):
+//         r   = x + (bf16(a) @ Wo_int8) * so;   y = bf16(RMSNorm(r) * g2)
+//         h   = bf16(silu((y @ Wg_int8) * sg) * ((y @ Wu_int8) * su))
+//         out = r + sum over hidden tiles t of (h_t @ Wd_int8_t) * sd
+// Each decode step runs one pair once per layer.
 //
 // What bounds them: at batch 1-2 they are matrix-vector products that read
-// every weight byte once and do 2 operations per byte, so the int8 weight
-// bytes over the memory rate bound them. At Turbo widths (D=1024, I=4096)
-// B1 reads 3.15 MB and B2 9.44 MB; on an H100 SXM (3.35 TB/s) that is
-// 0.94 us and 2.82 us.
+// every weight byte once and do 2 operations per byte and row, so the int8
+// weight bytes over the memory rate bound them. At D=1024, I=4096 B1 and B5
+// read 3.15 MB (0.94 us at the H100 SXM's 3.35 TB/s), B2 9.44 MB (2.82 us)
+// and B6 13.6 MB (4.07 us).
 //
 // Design (simple and right first; no TMA / wgmma / split-K yet):
 //   * Weights are stored OUT-MAJOR, (N, K) with K contiguous: the converter
@@ -21,20 +29,22 @@
 //     column and streams its K int8 weights with 16-byte loads: a warp reads
 //     512 contiguous bytes per iteration, and every warp of the grid is
 //     resident at once, so all weight loads are in flight together.
-//   * The TPU kernel computes LN once at grid step (0,0) and keeps it in
+//   * The TPU kernels compute the norm once at grid step 0 and keep it in
 //     VMEM scratch, relying on the sequential grid. Blocks on Hopper run in
-//     no order, so every block recomputes the LayerNorm of its 1-2 input
-//     rows into shared memory (2x1024 floats, negligible next to the
-//     weights it streams).
-//   * B2's phases depend on each other across the whole width (attn-out and
-//     LN2 before the MLP; the MLP's hidden units before fc_out), so it is
-//     three launches on one stream: attn-out+residual, LN2+fc_in+gelu, and
-//     fc_out+residual, with r and h in small global scratch buffers.
-// Numerics mirror the Pallas kernels: LN in f32, the vector rounded to bf16
-// before each product, int8 -> float exact, f32 accumulation, scale and bias
-// applied after the full K sum. The Pallas B2 applies s2 to each 1024-wide
-// tile's partial sum; here s2 multiplies the full sum once (equal up to f32
-// rounding).
+//     no order, so every block recomputes the LayerNorm / RMSNorm of its 1-2
+//     input rows into shared memory (2x1024 floats, negligible next to the
+//     weights it streams). One template serves both norms.
+//   * Each second half (B2, B6) has two dependencies across the whole width
+//     (attn-out and the norm before the MLP; all hidden units before the
+//     down projection), so each is three launches on one stream: attn-out +
+//     residual, norm + up-projection(s) + activation, down-projection +
+//     residual, with r and h in small global scratch buffers.
+// Numerics mirror the Pallas kernels: norms in f32, the vector rounded to
+// bf16 before each product, int8 -> float exact, f32 accumulation, scale
+// (and bias) applied after the K sum. B6 applies sd to each tw-wide hidden
+// tile's partial sum and accumulates the tiles in order onto r, as the
+// Pallas grid does; B2 runs its fc_out as one tile (s2 on the full sum,
+// equal to the Pallas per-tile form up to f32 rounding).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -70,12 +80,14 @@ __device__ float block_sum(float v, float* red) {
   return warp_sum(t);
 }
 
-// ys[r, :] = bf16(LayerNorm(x[r, :]) * g + b) for the B rows, in shared
-// memory: mean, then the mean of squared deviations (two passes, f32).
-template <typename T>
-__device__ void layer_norm_bf16(const T* __restrict__ x, const float* __restrict__ g,
-                                const float* __restrict__ b, int B, int D, float eps,
-                                float* ys, float* red) {
+// ys[r, :] = bf16(norm(x[r, :])) for the B rows, in shared memory, in f32:
+//   LayerNorm (RMS = false): mean, then the mean of squared deviations;
+//                            (x - mu) * rsqrt(var + eps) * g + b
+//   RMSNorm   (RMS = true):  x * rsqrt(mean(x^2) + eps) * g   (b unused)
+template <typename T, bool RMS>
+__device__ void norm_bf16(const T* __restrict__ x, const float* __restrict__ g,
+                          const float* __restrict__ b, int B, int D, float eps,
+                          float* ys, float* red) {
   for (int r = 0; r < B; ++r) {
     const T* xr = x + (size_t)r * D;
     float* yr = ys + (size_t)r * D;
@@ -83,26 +95,31 @@ __device__ void layer_norm_bf16(const T* __restrict__ x, const float* __restrict
     for (int i = threadIdx.x; i < D; i += blockDim.x) {
       const float v = to_f32(xr[i]);
       yr[i] = v;
-      s += v;
+      s += RMS ? v * v : v;
     }
-    const float mu = block_sum(s, red) / D;
-    float q = 0.f;
-    for (int i = threadIdx.x; i < D; i += blockDim.x) {
-      const float d = yr[i] - mu;
-      q += d * d;
+    if (RMS) {
+      const float rs = rsqrtf(block_sum(s, red) / D + eps);
+      for (int i = threadIdx.x; i < D; i += blockDim.x)
+        yr[i] = round_bf16(yr[i] * rs * g[i]);
+    } else {
+      const float mu = block_sum(s, red) / D;
+      float q = 0.f;
+      for (int i = threadIdx.x; i < D; i += blockDim.x) {
+        const float d = yr[i] - mu;
+        q += d * d;
+      }
+      const float rs = rsqrtf(block_sum(q, red) / D + eps);
+      for (int i = threadIdx.x; i < D; i += blockDim.x)
+        yr[i] = round_bf16((yr[i] - mu) * rs * g[i] + b[i]);
     }
-    const float var = block_sum(q, red) / D;
-    const float rs = rsqrtf(var + eps);
-    for (int i = threadIdx.x; i < D; i += blockDim.x)
-      yr[i] = round_bf16((yr[i] - mu) * rs * g[i] + b[i]);
   }
   __syncthreads();
 }
 
-// acc[r] = sum_k xs[r*K + k] * w[k] for one out-major weight row, summed
-// over the warp (every lane holds the totals). K % K_STEP == 0.
+// acc[r] = sum_k xs[r*ldx + k] * w[k], k < K, for one out-major weight row,
+// summed over the warp (every lane holds the totals). K % K_STEP == 0.
 __device__ __forceinline__ void warp_dot_i8(const int8_t* __restrict__ w, const float* xs,
-                                            int K, int B, float acc[MAX_B]) {
+                                            int K, int ldx, int B, float acc[MAX_B]) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int r = 0; r < MAX_B; ++r) acc[r] = 0.f;
@@ -113,7 +130,7 @@ __device__ __forceinline__ void warp_dot_i8(const int8_t* __restrict__ w, const 
 #pragma unroll
     for (int r = 0; r < MAX_B; ++r) {
       if (r < B) {
-        const float4* x4 = reinterpret_cast<const float4*>(xs + (size_t)r * K + k0);
+        const float4* x4 = reinterpret_cast<const float4*>(xs + (size_t)r * ldx + k0);
         float s = 0.f;
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
@@ -134,26 +151,34 @@ __device__ __forceinline__ float gelu_new(float x) {
   return 0.5f * x * (1.0f + tanhf(c * (x + 0.044715f * x * x * x)));
 }
 
-// B1: grid = ceil(N / WARPS); block = WARPS warps, one output column each.
-template <typename T>
+__device__ __forceinline__ float silu(float x) { return x * (1.0f / (1.0f + expf(-x))); }
+
+// B1 / B5: out = (bf16(norm(x)) @ W) * s (+ bias for the LayerNorm form);
+// grid = ceil(N / WARPS); block = WARPS warps, one output column each.
+template <typename T, bool RMS>
 __global__ void __launch_bounds__(THREADS)
-ln_qkv_kernel(const T* __restrict__ x, const float* __restrict__ g,
-              const float* __restrict__ b, const int8_t* __restrict__ w_t,
-              const float* __restrict__ s, const float* __restrict__ bias,
-              float* __restrict__ out, int B, int D, int N, float eps) {
+norm_qkv_kernel(const T* __restrict__ x, const float* __restrict__ g,
+                const float* __restrict__ b, const int8_t* __restrict__ w_t,
+                const float* __restrict__ s, const float* __restrict__ bias,
+                float* __restrict__ out, int B, int D, int N, float eps) {
   extern __shared__ float4 smem4[];
   float* ys = reinterpret_cast<float*>(smem4);
   float* red = ys + (size_t)B * D;
-  layer_norm_bf16(x, g, b, B, D, eps, ys, red);
+  norm_bf16<T, RMS>(x, g, b, B, D, eps, ys, red);
   const int n = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (n >= N) return;
   float acc[MAX_B];
-  warp_dot_i8(w_t + (size_t)n * D, ys, D, B, acc);
+  warp_dot_i8(w_t + (size_t)n * D, ys, D, D, B, acc);
   if ((threadIdx.x & 31) == 0)
-    for (int r = 0; r < B; ++r) out[(size_t)r * N + n] = acc[r] * s[n] + bias[n];
+    for (int r = 0; r < B; ++r) {
+      float o = acc[r] * s[n];
+      if (!RMS) o += bias[n];
+      out[(size_t)r * N + n] = o;
+    }
 }
 
-// B2 phase 1: r = xres + (bf16(a) @ Wo) * so + bo; grid = ceil(D / WARPS).
+// B2 / B6 phase 1: r = xres + (bf16(a) @ Wo) * so (+ bo when given);
+// grid = ceil(D / WARPS).
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 attn_out_kernel(const T* __restrict__ a, const T* __restrict__ xres,
@@ -166,10 +191,13 @@ attn_out_kernel(const T* __restrict__ a, const T* __restrict__ xres,
   const int n = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (n >= D) return;
   float acc[MAX_B];
-  warp_dot_i8(wo_t + (size_t)n * D, as, D, B, acc);
+  warp_dot_i8(wo_t + (size_t)n * D, as, D, D, B, acc);
   if ((threadIdx.x & 31) == 0)
-    for (int r = 0; r < B; ++r)
-      r_out[(size_t)r * D + n] = to_f32(xres[(size_t)r * D + n]) + acc[r] * so[n] + bo[n];
+    for (int r = 0; r < B; ++r) {
+      float v = to_f32(xres[(size_t)r * D + n]) + acc[r] * so[n];
+      if (bo) v += bo[n];
+      r_out[(size_t)r * D + n] = v;
+    }
 }
 
 // B2 phase 2: h = bf16(gelu_new((bf16(LN2(r)) @ W1) * s1 + b1));
@@ -182,56 +210,130 @@ ln_fc_in_kernel(const float* __restrict__ r, const float* __restrict__ g2,
   extern __shared__ float4 smem4[];
   float* ys = reinterpret_cast<float*>(smem4);
   float* red = ys + (size_t)B * D;
-  layer_norm_bf16(r, g2, be2, B, D, eps, ys, red);
+  norm_bf16<float, false>(r, g2, be2, B, D, eps, ys, red);
   const int j = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (j >= I) return;
   float acc[MAX_B];
-  warp_dot_i8(w1_t + (size_t)j * D, ys, D, B, acc);
+  warp_dot_i8(w1_t + (size_t)j * D, ys, D, D, B, acc);
   if ((threadIdx.x & 31) == 0)
     for (int rr = 0; rr < B; ++rr)
       h[(size_t)rr * I + j] = round_bf16(gelu_new(acc[rr] * s1[j] + b1[j]));
 }
 
-// B2 phase 3: out = (r + b2) + (h @ W2) * s2; grid = ceil(D / WARPS).
+// B6 phase 2: y = bf16(RMSNorm(r) * g2);
+// h = bf16(silu((y @ Wg) * sg) * ((y @ Wu) * su)); grid = ceil(I / WARPS),
+// one hidden unit (its gate and up rows) per warp.
 __global__ void __launch_bounds__(THREADS)
-fc_out_kernel(const float* __restrict__ h, const float* __restrict__ r,
-              const int8_t* __restrict__ w2_t, const float* __restrict__ s2,
-              const float* __restrict__ b2, float* __restrict__ out, int B, int D, int I) {
+rms_glu_kernel(const float* __restrict__ r, const float* __restrict__ g2,
+               const int8_t* __restrict__ wg_t, const float* __restrict__ sg,
+               const int8_t* __restrict__ wu_t, const float* __restrict__ su,
+               float* __restrict__ h, int B, int D, int I, float eps) {
+  extern __shared__ float4 smem4[];
+  float* ys = reinterpret_cast<float*>(smem4);
+  float* red = ys + (size_t)B * D;
+  norm_bf16<float, true>(r, g2, nullptr, B, D, eps, ys, red);
+  const int j = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (j >= I) return;
+  float ag[MAX_B], au[MAX_B];
+  warp_dot_i8(wg_t + (size_t)j * D, ys, D, D, B, ag);
+  warp_dot_i8(wu_t + (size_t)j * D, ys, D, D, B, au);
+  if ((threadIdx.x & 31) == 0)
+    for (int rr = 0; rr < B; ++rr)
+      h[(size_t)rr * I + j] = round_bf16(silu(ag[rr] * sg[j]) * (au[rr] * su[j]));
+}
+
+// B2 / B6 phase 3: out = (r + b2) + sum over tw-wide tiles t of
+// (h_t @ W2_t) * s2, tiles added in order (b2 may be absent);
+// grid = ceil(D / WARPS).
+__global__ void __launch_bounds__(THREADS)
+down_kernel(const float* __restrict__ h, const float* __restrict__ r,
+            const int8_t* __restrict__ w2_t, const float* __restrict__ s2,
+            const float* __restrict__ b2, float* __restrict__ out, int B, int D, int I,
+            int tw) {
   extern __shared__ float4 smem4[];
   float* hs = reinterpret_cast<float*>(smem4);
   for (int i = threadIdx.x; i < B * I; i += blockDim.x) hs[i] = h[i];
   __syncthreads();
   const int n = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (n >= D) return;
-  float acc[MAX_B];
-  warp_dot_i8(w2_t + (size_t)n * I, hs, I, B, acc);
-  if ((threadIdx.x & 31) == 0)
-    for (int rr = 0; rr < B; ++rr)
-      out[(size_t)rr * D + n] = (r[(size_t)rr * D + n] + b2[n]) + acc[rr] * s2[n];
+  // rows unrolled to MAX_B so o and acc stay in registers
+  float o[MAX_B], acc[MAX_B];
+#pragma unroll
+  for (int rr = 0; rr < MAX_B; ++rr) {
+    o[rr] = rr < B ? r[(size_t)rr * D + n] : 0.f;
+    if (b2) o[rr] += b2[n];
+  }
+  for (int t0 = 0; t0 < I; t0 += tw) {
+    warp_dot_i8(w2_t + (size_t)n * I + t0, hs + t0, tw, I, B, acc);
+#pragma unroll
+    for (int rr = 0; rr < MAX_B; ++rr) o[rr] += acc[rr] * s2[n];
+  }
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int rr = 0; rr < MAX_B; ++rr)
+      if (rr < B) out[(size_t)rr * D + n] = o[rr];
+  }
 }
 
 inline unsigned blocks_for(int n) { return (unsigned)((n + WARPS - 1) / WARPS); }
 
+template <bool RMS>
+cudaError_t launch_norm_qkv(const void* x, int x_bf16, const float* g, const float* b,
+                            const int8_t* w_t, const float* s, const float* bias, float* out,
+                            int B, int D, int N, float eps, cudaStream_t st) {
+  const size_t smem = ((size_t)B * D + WARPS) * sizeof(float);
+  if (x_bf16)
+    norm_qkv_kernel<__nv_bfloat16, RMS><<<blocks_for(N), THREADS, smem, st>>>(
+        (const __nv_bfloat16*)x, g, b, w_t, s, bias, out, B, D, N, eps);
+  else
+    norm_qkv_kernel<float, RMS><<<blocks_for(N), THREADS, smem, st>>>(
+        (const float*)x, g, b, w_t, s, bias, out, B, D, N, eps);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_attn_out(const void* a, const void* xres, int in_bf16,
+                            const int8_t* wo_t, const float* so, const float* bo,
+                            float* r_buf, int B, int D, cudaStream_t st) {
+  const size_t smem = (size_t)B * D * sizeof(float);
+  if (in_bf16)
+    attn_out_kernel<__nv_bfloat16><<<blocks_for(D), THREADS, smem, st>>>(
+        (const __nv_bfloat16*)a, (const __nv_bfloat16*)xres, wo_t, so, bo, r_buf, B, D);
+  else
+    attn_out_kernel<float><<<blocks_for(D), THREADS, smem, st>>>(
+        (const float*)a, (const float*)xres, wo_t, so, bo, r_buf, B, D);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_down(const float* h_buf, const float* r_buf, const int8_t* w2_t,
+                        const float* s2, const float* b2, float* out, int B, int D, int I,
+                        int tw, cudaStream_t st) {
+  const size_t smem = (size_t)B * I * sizeof(float);
+  down_kernel<<<blocks_for(D), THREADS, smem, st>>>(h_buf, r_buf, w2_t, s2, b2, out, B, D,
+                                                    I, tw);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The wrapper (kernels/fused_layer.py) checks shapes, types, 16-byte
-// alignment, B <= MAX_B, K % K_STEP == 0 and that each launch's shared
-// memory fits the 48 KB a block may take without an opt-in. Each function
-// returns cudaGetLastError() after its launches.
+// alignment, B <= MAX_B, K % K_STEP == 0, tw % K_STEP == 0 and I % tw == 0,
+// and that each launch's shared memory fits the 48 KB a block may take
+// without an opt-in. Each function returns cudaGetLastError() after its
+// launches.
 extern "C" {
 
 int ln_qkv_int8_launch(const void* x, int x_bf16, const float* g, const float* b,
                        const int8_t* w_t, const float* s, const float* bias, float* out,
                        int B, int D, int N, float eps, void* stream) {
-  const size_t smem = ((size_t)B * D + WARPS) * sizeof(float);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (x_bf16)
-    ln_qkv_kernel<__nv_bfloat16><<<blocks_for(N), THREADS, smem, st>>>(
-        (const __nv_bfloat16*)x, g, b, w_t, s, bias, out, B, D, N, eps);
-  else
-    ln_qkv_kernel<float><<<blocks_for(N), THREADS, smem, st>>>(
-        (const float*)x, g, b, w_t, s, bias, out, B, D, N, eps);
-  return (int)cudaGetLastError();
+  return (int)launch_norm_qkv<false>(x, x_bf16, g, b, w_t, s, bias, out, B, D, N, eps,
+                                     (cudaStream_t)stream);
+}
+
+int rms_qkv_int8_launch(const void* x, int x_bf16, const float* g, const int8_t* w_t,
+                        const float* s, float* out, int B, int D, int N, float eps,
+                        void* stream) {
+  return (int)launch_norm_qkv<true>(x, x_bf16, g, nullptr, w_t, s, nullptr, out, B, D, N,
+                                    eps, (cudaStream_t)stream);
 }
 
 int attnout_ln_mlp_int8_launch(const void* a, const void* xres, int in_bf16,
@@ -242,24 +344,32 @@ int attnout_ln_mlp_int8_launch(const void* a, const void* xres, int in_bf16,
                                float* r_buf, float* h_buf, float* out,
                                int B, int D, int I, float eps, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem_a = (size_t)B * D * sizeof(float);
-  if (in_bf16)
-    attn_out_kernel<__nv_bfloat16><<<blocks_for(D), THREADS, smem_a, st>>>(
-        (const __nv_bfloat16*)a, (const __nv_bfloat16*)xres, wo_t, so, bo, r_buf, B, D);
-  else
-    attn_out_kernel<float><<<blocks_for(D), THREADS, smem_a, st>>>(
-        (const float*)a, (const float*)xres, wo_t, so, bo, r_buf, B, D);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_attn_out(a, xres, in_bf16, wo_t, so, bo, r_buf, B, D, st);
   if (err != cudaSuccess) return (int)err;
   const size_t smem_ln = ((size_t)B * D + WARPS) * sizeof(float);
   ln_fc_in_kernel<<<blocks_for(I), THREADS, smem_ln, st>>>(r_buf, g2, be2, w1_t, s1, b1,
                                                            h_buf, B, D, I, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t smem_h = (size_t)B * I * sizeof(float);
-  fc_out_kernel<<<blocks_for(D), THREADS, smem_h, st>>>(h_buf, r_buf, w2_t, s2, b2, out,
-                                                        B, D, I);
-  return (int)cudaGetLastError();
+  return (int)launch_down(h_buf, r_buf, w2_t, s2, b2, out, B, D, I, I, st);
+}
+
+int attnout_rms_glu_int8_launch(const void* a, const void* xres, int in_bf16,
+                                const int8_t* wo_t, const float* so, const float* g2,
+                                const int8_t* wg_t, const float* sg,
+                                const int8_t* wu_t, const float* su,
+                                const int8_t* wd_t, const float* sd,
+                                float* r_buf, float* h_buf, float* out,
+                                int B, int D, int I, int tw, float eps, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = launch_attn_out(a, xres, in_bf16, wo_t, so, nullptr, r_buf, B, D, st);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem_ln = ((size_t)B * D + WARPS) * sizeof(float);
+  rms_glu_kernel<<<blocks_for(I), THREADS, smem_ln, st>>>(r_buf, g2, wg_t, sg, wu_t, su,
+                                                          h_buf, B, D, I, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_down(h_buf, r_buf, wd_t, sd, nullptr, out, B, D, I, tw, st);
 }
 
 }  // extern "C"

@@ -1,22 +1,29 @@
-"""The fused int8 GPT-2 decode-layer kernels and their plain versions.
+"""The fused int8 decode-layer kernels and their plain versions.
 
-Two functions carry every Turbo decode step, once per layer each:
+Four functions carry every decode step, two per layer:
 
-  ln_qkv_int8          out = (bf16(LN1(x)) @ Wqkv) * s + bias            (B, 3D)
-  attnout_ln_mlp_int8  r = x + (bf16(a) @ Wo) * so + bo
-                       out = r + b2 + bf16(gelu_new((bf16(LN2(r)) @ W1) * s1
-                                                    + b1)) @ W2 * s2      (B, D)
+GPT-2 (Turbo):
+  ln_qkv_int8           out = (bf16(LN1(x)) @ Wqkv) * s + bias            (B, 3D)
+  attnout_ln_mlp_int8   r = x + (bf16(a) @ Wo) * so + bo
+                        out = r + b2 + bf16(gelu_new((bf16(LN2(r)) @ W1) * s1
+                                                     + b1)) @ W2 * s2      (B, D)
+llama (520M CFG):
+  rms_qkv_int8          out = (bf16(RMSNorm(x) * g) @ [Wq|Wk|Wv]) * s      (B, N)
+  attnout_rms_glu_int8  r = x + (bf16(a) @ Wo) * so;  y = bf16(RMSNorm(r) * g2)
+                        h = bf16(silu((y @ Wg) * sg) * ((y @ Wu) * su))
+                        out = r + sum over hidden tiles t of (h_t @ Wd_t) * sd
+                                                                          (B, D)
 
-They replace the Pallas TPU kernels of chatterbox_tpu/ops/fused_layer.py
-(`ln_qkv_int8` and `attnout_ln_mlp_int8`); the CUDA source is
-csrc/fused_layer.cu. Weights are int8 and stored OUT-MAJOR, (N, K) with K
-contiguous (`*_t`), the layout the CUDA kernels stream; scales, biases and
-norm parameters are (N,) float32; outputs are float32.
+They replace the Pallas TPU kernels of the same names in
+chatterbox_tpu/ops/fused_layer.py; the CUDA source is csrc/fused_layer.cu.
+Weights are int8 and stored OUT-MAJOR, (N, K) with K contiguous (`*_t`), the
+layout the CUDA kernels stream; scales, biases and norm parameters are (N,)
+float32; outputs are float32.
 
 Dispatch: a CPU tensor takes the plain PyTorch version (`*_plain`), a CUDA
 tensor launches the kernel, and anything else raises. `launches` counts the
-kernel calls made by each wrapper (one per layer and step; the B2 kernel is
-three CUDA launches on one stream).
+kernel calls made by each wrapper (one per layer and step; each second-half
+kernel is three CUDA launches on one stream).
 """
 from __future__ import annotations
 
@@ -24,7 +31,8 @@ import ctypes
 
 import torch
 
-launches = {"ln_qkv_int8": 0, "attnout_ln_mlp_int8": 0}
+launches = {"ln_qkv_int8": 0, "attnout_ln_mlp_int8": 0,
+            "rms_qkv_int8": 0, "attnout_rms_glu_int8": 0}
 
 MAX_B = 2            # rows a kernel call takes (csrc MAX_B)
 K_STEP = 512         # contraction bytes a warp reads per iteration
@@ -45,6 +53,11 @@ def _kernels():
         lib.attnout_ln_mlp_int8_launch.argtypes = [
             P, P, I, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, F, P]
         lib.attnout_ln_mlp_int8_launch.restype = I
+        lib.rms_qkv_int8_launch.argtypes = [P, I, P, P, P, P, I, I, I, F, P]
+        lib.rms_qkv_int8_launch.restype = I
+        lib.attnout_rms_glu_int8_launch.argtypes = [
+            P, P, I, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, P]
+        lib.attnout_rms_glu_int8_launch.restype = I
         _lib = lib
     return _lib
 
@@ -60,6 +73,13 @@ def _ln_bf16(x: torch.Tensor, g, b, eps: float) -> torch.Tensor:
     mu = xf.mean(-1, keepdim=True)
     var = ((xf - mu) ** 2).mean(-1, keepdim=True)
     y = (xf - mu) * torch.rsqrt(var + eps) * g + b
+    return y.to(torch.bfloat16).float()
+
+
+def _rms_bf16(x: torch.Tensor, g, eps: float) -> torch.Tensor:
+    """RMSNorm in f32 times g, rounded to bf16 and returned as f32 values."""
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps) * g
     return y.to(torch.bfloat16).float()
 
 
@@ -86,6 +106,26 @@ def attnout_ln_mlp_int8_plain(a, xres, wo_t, so, bo, g2, be2, w1_t, s1, b1,
     u = _dot_i8(y2, w1_t) * s1 + b1
     h = _gelu_new_f32(u).to(torch.bfloat16).float()
     return (r + b2) + _dot_i8(h, w2_t) * s2
+
+
+def rms_qkv_int8_plain(x, g, w_t, s, eps: float):
+    return _dot_i8(_rms_bf16(x, g, eps), w_t) * s
+
+
+def attnout_rms_glu_int8_plain(a, xres, wo_t, so, g2, wg_t, sg, wu_t, su,
+                               wd_t, sd, eps: float, tw: int = 1024):
+    a16 = a.to(torch.bfloat16).float()
+    r = xres.float() + _dot_i8(a16, wo_t) * so
+    y2 = _rms_bf16(r, g2, eps)
+    ug = _dot_i8(y2, wg_t) * sg
+    uu = _dot_i8(y2, wu_t) * su
+    h = (ug * torch.sigmoid(ug) * uu).to(torch.bfloat16).float()
+    out = r
+    # Wd's scale multiplies each hidden tile's partial sum, as in the Pallas
+    # kernel's grid steps
+    for j in range(0, h.shape[1], tw):
+        out = out + _dot_i8(h[:, j:j + tw], wd_t[:, j:j + tw]) * sd
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -195,6 +235,76 @@ def attnout_ln_mlp_int8(a, xres, wo_t, so, bo, g2, be2, w1_t, s1, b1,
     return out
 
 
+def rms_qkv_int8(x, g, w_t, s, eps: float):
+    """x (B, D) bf16/f32 -> (bf16(RMSNorm(x) * g) @ W) * s, (B, N) f32.
+    w_t (N, D) int8 out-major; g (D,) and s (N,) f32."""
+    if not _check_device(x):
+        return rms_qkv_int8_plain(x, g, w_t, s, eps)
+    B, D = x.shape
+    N = w_t.shape[0]
+    _shape_limits(B, D, "rms_qkv_int8")
+    if (B * D + WARPS) * 4 > SMEM_LIMIT:
+        raise ValueError("rms_qkv_int8: RMSNorm rows exceed shared memory")
+    dev = x.device
+    _check("x", x, (B, D), _ACT, dev)
+    _check("g", g, (D,), _F32, dev)
+    _check("w_t", w_t, (N, D), _I8, dev)
+    _check("s", s, (N,), _F32, dev)
+    out = torch.empty((B, N), dtype=torch.float32, device=dev)
+    err = _kernels().rms_qkv_int8_launch(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), g.data_ptr(),
+        w_t.data_ptr(), s.data_ptr(), out.data_ptr(), B, D, N, eps,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"rms_qkv_int8 launch failed: CUDA error {err}")
+    launches["rms_qkv_int8"] += 1
+    return out
+
+
+def attnout_rms_glu_int8(a, xres, wo_t, so, g2, wg_t, sg, wu_t, su, wd_t, sd,
+                         eps: float, tw: int = 1024):
+    """Second half of a llama decode layer: a (merged attention output) and
+    xres (B, D) bf16/f32 (same type) -> new residual stream (B, D) f32.
+    wo_t (D, D), wg_t / wu_t (I, D), wd_t (D, I) int8 out-major; so, g2, sd
+    (D,) and sg, su (I,) f32; tw is the hidden tile Wd's scale applies to."""
+    if not _check_device(a):
+        return attnout_rms_glu_int8_plain(a, xres, wo_t, so, g2, wg_t, sg, wu_t,
+                                          su, wd_t, sd, eps, tw)
+    B, D = a.shape
+    I = wg_t.shape[0]
+    _shape_limits(B, D, "attnout_rms_glu_int8")
+    _shape_limits(B, I, "attnout_rms_glu_int8")
+    if tw % K_STEP or I % tw:
+        raise ValueError(f"attnout_rms_glu_int8: tile {tw} must be a multiple "
+                         f"of {K_STEP} dividing {I}")
+    if (B * D + WARPS) * 4 > SMEM_LIMIT or B * I * 4 > SMEM_LIMIT:
+        raise ValueError("attnout_rms_glu_int8: rows exceed shared memory")
+    dev = a.device
+    _check("a", a, (B, D), _ACT, dev)
+    _check("xres", xres, (B, D), (a.dtype,), dev)
+    _check("wo_t", wo_t, (D, D), _I8, dev)
+    _check("wg_t", wg_t, (I, D), _I8, dev)
+    _check("wu_t", wu_t, (I, D), _I8, dev)
+    _check("wd_t", wd_t, (D, I), _I8, dev)
+    for name, t in (("so", so), ("g2", g2), ("sd", sd)):
+        _check(name, t, (D,), _F32, dev)
+    for name, t in (("sg", sg), ("su", su)):
+        _check(name, t, (I,), _F32, dev)
+    r_buf = torch.empty((B, D), dtype=torch.float32, device=dev)
+    h_buf = torch.empty((B, I), dtype=torch.float32, device=dev)
+    out = torch.empty((B, D), dtype=torch.float32, device=dev)
+    err = _kernels().attnout_rms_glu_int8_launch(
+        a.data_ptr(), xres.data_ptr(), int(a.dtype == torch.bfloat16),
+        wo_t.data_ptr(), so.data_ptr(), g2.data_ptr(), wg_t.data_ptr(),
+        sg.data_ptr(), wu_t.data_ptr(), su.data_ptr(), wd_t.data_ptr(),
+        sd.data_ptr(), r_buf.data_ptr(), h_buf.data_ptr(), out.data_ptr(),
+        B, D, I, tw, eps, torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"attnout_rms_glu_int8 launch failed: CUDA error {err}")
+    launches["attnout_rms_glu_int8"] += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # operands
 # ---------------------------------------------------------------------------
@@ -238,3 +348,60 @@ def apply_fused_gpt2_mlp_int8(fl: dict, attn2d, xres2d, eps: float):
         attn2d, xres2d, fl["wo_t"], fl["wo_s"], fl["wo_b"], fl["g2"],
         fl["b2"], fl["w1_t"], fl["s1"], fl["fc1_b"], fl["w2_t"], fl["s2"],
         fl["fc2_b"], eps)
+
+
+LLAMA_FUSED_KEYS = ("g1", "qkv_wt", "qkv_s", "wo_t", "wo_s", "g2", "wg_t", "sg",
+                    "wu_t", "su", "wd_t", "sd")
+
+
+def fused_llama_supported(cfg) -> bool:
+    """The shapes the llama kernel pair takes: 512-multiple contractions and
+    q|k|v width, hidden width a multiple of the 512 tile, H * head_dim == D."""
+    D, I = cfg.hidden_size, cfg.intermediate_size
+    N = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
+    return (not cfg.is_gpt and D % K_STEP == 0 and N % K_STEP == 0
+            and I % 512 == 0 and cfg.num_heads * cfg.head_dim == D)
+
+
+def llama_mlp_tile(cfg) -> int:
+    return 1024 if cfg.intermediate_size % 1024 == 0 else 512
+
+
+def prepare_fused_llama_layer_int8(lp: dict) -> dict:
+    """Fused-kernel operands from an int8-quantized llama layer dict
+    ({"input_ln","q","k","v","o","post_ln","gate","up","down"}, linears
+    carrying {"w_q","w_scale"}). q|k|v are stored once as one out-major
+    (N, D) weight; the layer's q, k and v "w_q" (used by prefill) become
+    transposed row-slice views of it, and the other weights move to
+    out-major storage that their layer's "w_q" views (one copy each)."""
+    for name in ("q", "k", "v", "o", "gate", "up", "down"):
+        if "w_q" not in lp[name]:
+            raise ValueError(f"{name}: quantize int8 first")
+    f32 = lambda t: t.float().contiguous()
+    qkv_wt = torch.cat([lp[n]["w_q"].T for n in ("q", "k", "v")]).contiguous()
+    fused = {"g1": f32(lp["input_ln"]["g"]), "qkv_wt": qkv_wt,
+             "qkv_s": f32(torch.cat([lp[n]["w_scale"] for n in ("q", "k", "v")])),
+             "g2": f32(lp["post_ln"]["g"])}
+    row = 0
+    for n in ("q", "k", "v"):
+        width = lp[n]["w_q"].shape[1]
+        lp[n]["w_q"] = qkv_wt[row:row + width].T
+        row += width
+    for name, (kw, ks) in {"o": ("wo_t", "wo_s"), "gate": ("wg_t", "sg"),
+                           "up": ("wu_t", "su"), "down": ("wd_t", "sd")}.items():
+        fused[kw] = lp[name]["w_q"].T.contiguous()
+        fused[ks] = f32(lp[name]["w_scale"])
+        lp[name]["w_q"] = fused[kw].T
+    return fused
+
+
+def apply_fused_llama_qkv_int8(fl: dict, x2d, eps: float):
+    """(B, D) -> (B, (H + 2 KV) * head_dim) f32."""
+    return rms_qkv_int8(x2d, fl["g1"], fl["qkv_wt"], fl["qkv_s"], eps)
+
+
+def apply_fused_llama_mlp_int8(fl: dict, attn2d, xres2d, eps: float, tw: int):
+    """(B, D) attention output + residual -> new residual (B, D) f32."""
+    return attnout_rms_glu_int8(
+        attn2d, xres2d, fl["wo_t"], fl["wo_s"], fl["g2"], fl["wg_t"], fl["sg"],
+        fl["wu_t"], fl["su"], fl["wd_t"], fl["sd"], eps, tw)

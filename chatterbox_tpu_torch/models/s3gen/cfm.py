@@ -1,7 +1,12 @@
-"""Meanflow solver of the S3Gen mel decoder (the counterpart of the meanflow
-half of chatterbox_tpu/models/s3gen/cfm.py): a plain linear t-span and Euler
-steps whose estimator sees both step endpoints (t, r), no CFG. The starting
-noise z is an argument, drawn by the caller."""
+"""Flow-matching solvers of the S3Gen mel decoder (the counterpart of
+chatterbox_tpu/models/s3gen/cfm.py). The starting noise z is an argument,
+drawn by the caller.
+  * meanflow (Turbo/Nano): a linear t-span and Euler steps whose estimator
+    sees both step endpoints (t, r), no CFG;
+  * CFM (520M): a cosine t-span and Euler steps with classifier-free
+    guidance folded into one batch-2B estimator call per step, the
+    unconditional half with mu, spks and cond zeroed.
+"""
 from __future__ import annotations
 
 import numpy as np
@@ -9,9 +14,16 @@ import torch
 
 from .unet import unet_apply
 
+INFERENCE_CFG_RATE = 0.7
+
 
 def t_span_linear(n_timesteps: int) -> np.ndarray:
     return np.linspace(0.0, 1.0, n_timesteps + 1, dtype=np.float32)
+
+
+def t_span_cosine(n_timesteps: int) -> np.ndarray:
+    t = np.linspace(0.0, 1.0, n_timesteps + 1)
+    return (1.0 - np.cos(t * 0.5 * np.pi)).astype(np.float32)
 
 
 def solve_euler_meanflow(params: dict, z, mu, spks, cond, n_timesteps: int = 2,
@@ -26,4 +38,24 @@ def solve_euler_meanflow(params: dict, z, mu, spks, cond, n_timesteps: int = 2,
         r_in = torch.full((B,), r, dtype=x.dtype, device=x.device)
         dxdt = unet_apply(params, x, mu, t_in, spks, cond, r=r_in, n_heads=n_heads)
         x = x + float(span[i + 1] - span[i]) * dxdt
+    return x
+
+
+def solve_euler_cfg(params: dict, z, mu, spks, cond, n_timesteps: int = 10,
+                    cfg_rate: float = INFERENCE_CFG_RATE,
+                    n_heads: int = 8) -> torch.Tensor:
+    """z, mu, cond (B, T, 80); spks (B, 80) -> mels (B, T, 80), with
+    d = (1 + cfg_rate) d_cond - cfg_rate d_uncond at every step."""
+    span = t_span_cosine(n_timesteps)
+    B = mu.shape[0]
+    mu_in = torch.cat([mu, torch.zeros_like(mu)])
+    spks_in = torch.cat([spks, torch.zeros_like(spks)])
+    cond_in = torch.cat([cond, torch.zeros_like(cond)])
+    x = z
+    for i in range(n_timesteps):
+        t_in = torch.full((2 * B,), float(span[i]), dtype=x.dtype, device=x.device)
+        d = unet_apply(params, torch.cat([x, x]), mu_in, t_in, spks_in, cond_in,
+                       n_heads=n_heads)
+        d = (1.0 + cfg_rate) * d[:B] - cfg_rate * d[B:]
+        x = x + float(span[i + 1] - span[i]) * d
     return x

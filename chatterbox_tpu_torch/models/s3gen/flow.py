@@ -1,6 +1,7 @@
 """Flow front of S3Gen: speech tokens -> conformer encoder (mu) -> meanflow
-CFM -> mel (the counterpart of chatterbox_tpu/models/s3gen/flow.py). Runs in
-float32, one utterance at its exact length."""
+or CFG flow matching -> mel (the counterpart of
+chatterbox_tpu/models/s3gen/flow.py). Runs in float32, one utterance at its
+exact length."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -10,7 +11,7 @@ import torch
 from ...nn import core as nn
 from .encoder import upsample_encoder_init, upsample_encoder_apply
 from .unet import unet_init
-from .cfm import solve_euler_meanflow
+from .cfm import solve_euler_cfg, solve_euler_meanflow
 
 VOCAB_SIZE = 6561
 OUTPUT_SIZE = 80
@@ -57,9 +58,11 @@ def flow_init(init: nn.Init, meanflow: bool = True, dims: FlowDims = FlowDims())
 def flow_inference(params: dict, token: torch.Tensor, prompt_len: int,
                    prompt_feat: torch.Tensor, embedding: torch.Tensor,
                    z: torch.Tensor, n_timesteps: int = 2,
-                   dims: FlowDims = FlowDims()) -> torch.Tensor:
+                   dims: FlowDims = FlowDims(), meanflow: bool = True) -> torch.Tensor:
     """token (B, T) [prompt | gen] ids; prompt_feat (B, T_feat, 80) prompt
-    mels; embedding (B, 192) x-vector; z (B, 2T, 80) starting noise.
+    mels; embedding (B, 192) x-vector; z (B, 2T, 80) starting noise over the
+    whole [prompt | gen] mel buffer. meanflow picks the 2-step meanflow
+    solver (Turbo) or the cosine CFG solver (520M, 10 steps).
     Returns mels (B, 2T, 80); the generated region starts at 2*prompt_len."""
     emb = embedding / torch.linalg.norm(embedding, dim=-1, keepdim=True)
     spks = nn.linear(params["spk_embed_affine"], emb)
@@ -72,5 +75,6 @@ def flow_inference(params: dict, token: torch.Tensor, prompt_len: int,
     n_prompt = min(prompt_len * TOKEN_MEL_RATIO, T_mel, prompt_feat.shape[1])
     conds = torch.zeros_like(mu)
     conds[:, :n_prompt] = prompt_feat[:, :n_prompt]
-    return solve_euler_meanflow(params["decoder"], z, mu, spks, conds,
-                                n_timesteps=n_timesteps, n_heads=dims.unet_heads)
+    solve = solve_euler_meanflow if meanflow else solve_euler_cfg
+    return solve(params["decoder"], z, mu, spks, conds, n_timesteps=n_timesteps,
+                 n_heads=dims.unet_heads)

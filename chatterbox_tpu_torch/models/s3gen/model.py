@@ -1,10 +1,11 @@
-"""S3Gen for the Turbo path: decoded speech tokens + reference voice ->
-waveform (the counterpart of the fused decode->vocode handoff of
+"""S3Gen: decoded speech tokens + reference voice -> waveform (the
+counterpart of the fused decode->vocode handoff of
 chatterbox_tpu/models/s3gen/model.py: `_pack_body`, the `_fused` body and
 `inference_from_decode`).
 
-token filter and pack -> upsample-conformer flow encoder -> 2-step meanflow
-UNet -> HiFT with iSTFT -> trim-fade. One utterance runs at its exact
+token filter and pack -> upsample-conformer flow encoder -> UNet flow
+(2-step meanflow for Turbo, 10-step cosine CFM with CFG for the 520M
+family) -> HiFT with iSTFT -> trim-fade. One utterance runs at its exact
 length, so there are no buckets; the one host read is the count of valid
 tokens. The output stays float32. Convolutions run with cuDNN's TF32 off,
 so the float32 S3Gen is float32 on the card too.
@@ -24,6 +25,7 @@ from .hift import SourceNoise, hift_inference, hift_init
 S3GEN_SR = 24_000
 SIL_TOKEN = 4299                     # silence speech token
 SPEECH_VOCAB_SIZE = 6561
+SOS, EOS = 6561, 6562                # T3's start / stop speech tokens
 
 
 def s3gen_init(seed: int = 0, device="cuda", meanflow: bool = True,
@@ -67,23 +69,38 @@ def no_tf32_convs():
 
 
 def pack_tokens(gen_tokens: torch.Tensor, n_raw, prompt_token: torch.Tensor,
-                append_sil: int = 0) -> torch.Tensor:
+                append_sil: int = 0, cfg_slice: bool = False) -> torch.Tensor:
     """[prompt | valid generated tokens | append_sil silence tokens] as one
     (1, P + G) row. Generated tokens count when they are among the first
-    n_raw and below the S3 vocabulary (the Turbo filter)."""
+    n_raw and below the S3 vocabulary (the Turbo filter). cfg_slice (the
+    520M tail) first keeps only the tokens strictly between the first SOS
+    and the first EOS among the first n_raw, and vocodes one silence token
+    when nothing is left."""
     gen = gen_tokens.reshape(-1).long()
     idx = torch.arange(gen.shape[0], device=gen.device)
-    gen = gen[(idx < n_raw) & (gen < SPEECH_VOCAB_SIZE)]    # the one host read
+    keep = idx < n_raw
+    if cfg_slice:
+        is_sos, is_eos = (gen == SOS) & keep, (gen == EOS) & keep
+        start = torch.where(is_sos.any(), is_sos.int().argmax() + 1, 0)
+        end = torch.where(is_eos.any(), is_eos.int().argmax(),
+                          torch.as_tensor(n_raw, device=gen.device))
+        keep = (idx >= start) & (idx < end)
+    gen = gen[keep & (gen < SPEECH_VOCAB_SIZE)]             # the one host read
+    if cfg_slice and append_sil == 0 and gen.numel() == 0:
+        append_sil = 1
     sil = torch.full((append_sil,), SIL_TOKEN, dtype=torch.long, device=gen.device)
     return torch.cat([prompt_token.reshape(-1).long(), gen, sil])[None]
 
 
 class S3GenEngine:
-    """Owns the `flow` and `mel2wav` parameters of a meanflow S3Gen."""
+    """Owns the `flow` and `mel2wav` parameters of an S3Gen: meanflow
+    (Turbo, 2 steps by default) or CFM with CFG (520M, 10 steps)."""
 
-    def __init__(self, params: dict, dims: FlowDims = FlowDims()):
+    def __init__(self, params: dict, dims: FlowDims = FlowDims(), meanflow: bool = True):
         self.params = params
         self.dims = dims
+        self.meanflow = meanflow
+        self.n_timesteps = 2 if meanflow else 10
         self.device = params["flow"]["input_embedding"]["w"].device
         self._fade = torch.from_numpy(trim_fade()).to(self.device)
 
@@ -97,13 +114,16 @@ class S3GenEngine:
     def inference_from_decode(self, gen_tokens: torch.Tensor, n_tokens,
                               ref: RefDict, *, generator=None,
                               noise: Optional[S3GenNoise] = None,
-                              n_timesteps: int = 2, append_sil: int = 0):
+                              n_timesteps: Optional[int] = None,
+                              append_sil: int = 0, cfg_slice: bool = False):
         """Vocode a T3 decode result. gen_tokens (L,) on the device, n_tokens
-        the generated count (tensor or int). Returns (wav (1, T) float32
-        numpy, n_gen vocoded tokens)."""
+        the generated count (tensor or int); append_sil and cfg_slice pick
+        the token tail (pack_tokens). Returns (wav (1, T) float32 numpy,
+        n_gen vocoded tokens)."""
         P = int(np.asarray(ref.prompt_token_len).reshape(-1)[0])
         prompt = torch.as_tensor(np.asarray(ref.prompt_token)[:, :P], device=self.device)
-        token = pack_tokens(gen_tokens.to(self.device), n_tokens, prompt, append_sil)
+        token = pack_tokens(gen_tokens.to(self.device), n_tokens, prompt, append_sil,
+                            cfg_slice)
         n_gen = token.shape[1] - P
         if n_gen == 0:
             return np.zeros((1, 0), np.float32), 0
@@ -114,7 +134,8 @@ class S3GenEngine:
         emb = torch.as_tensor(np.asarray(ref.embedding, np.float32), device=self.device)
         with no_tf32_convs():
             mels = flow_inference(self.params["flow"], token, P, feat, emb, noise.z,
-                                  n_timesteps=n_timesteps, dims=self.dims)
+                                  n_timesteps=n_timesteps or self.n_timesteps,
+                                  dims=self.dims, meanflow=self.meanflow)
             wav, _, _ = hift_inference(self.params["mel2wav"],
                                        mels[:, P * TOKEN_MEL_RATIO:], noise.source)
         n_fade = min(self._fade.shape[0], wav.shape[1])

@@ -47,18 +47,30 @@ GPT2_SMALL = BackboneConfig(
     head_dim=64, intermediate_size=3072, vocab_size=50276,
 )
 
-# smallest shape the fused int8 decode-layer kernels take (D % 512 == 0,
-# I % 1024 == 0): CPU parity tests
+LLAMA_TINY_TEST = BackboneConfig(
+    family="llama", hidden_size=64, num_layers=2, num_heads=4,
+    head_dim=16, intermediate_size=256, num_kv_heads=4,
+)
+
+# smallest shapes the fused int8 decode-layer kernels take (D % 512 == 0;
+# GPT-2 I % 1024 == 0, llama I % 512 == 0): CPU parity tests
 GPT2_FUSED_TEST = BackboneConfig(
     family="gpt2", hidden_size=512, num_layers=2, num_heads=8,
     head_dim=64, intermediate_size=2048, vocab_size=96,
+)
+
+LLAMA_FUSED_TEST = BackboneConfig(
+    family="llama", hidden_size=512, num_layers=2, num_heads=8,
+    head_dim=64, intermediate_size=1024, num_kv_heads=8,
 )
 
 BACKBONES = {
     "Llama_520M": LLAMA_520M,
     "GPT2_medium": GPT2_MEDIUM,
     "GPT2_small": GPT2_SMALL,
+    "Llama_tiny_test": LLAMA_TINY_TEST,
     "GPT2_fused_test": GPT2_FUSED_TEST,
+    "Llama_fused_test": LLAMA_FUSED_TEST,
 }
 
 
@@ -85,6 +97,12 @@ class T3Config:
     @property
     def backbone(self) -> BackboneConfig:
         return BACKBONES[self.backbone_name]
+
+    @classmethod
+    def english_only(cls) -> "T3Config":
+        """Llama-520M with CFG, perceiver, emotion input and learned
+        positions (the original Chatterbox)."""
+        return cls()
 
     @classmethod
     def turbo(cls) -> "T3Config":

@@ -1,12 +1,17 @@
-"""T3 parameters, conditioning prefix, embeddings and heads (the Turbo/Nano
-GPT-2 subset of chatterbox_tpu/models/t3/model.py).
+"""T3 parameters, conditioning prefix, embeddings and heads (the counterpart
+of chatterbox_tpu/models/t3/model.py).
 
-For Turbo the conditioning prefix is [spkr_enc(speaker_emb) (1 token) |
-speech_emb of the 375 prompt tokens]: no perceiver, no emotion input and
-no learned positional embedding, so Lc = 376.
+The conditioning prefix is [spkr_enc(speaker_emb) (1 token) | the speech
+prompt | emotion_adv_fc(exaggeration) (1 token)]:
+  * Turbo/Nano: the 375 prompt tokens' speech embeddings, no emotion input,
+    so Lc = 376;
+  * 520M: the 150 prompt tokens' embeddings plus learned speech positions,
+    resampled by the perceiver to 32 tokens, then the emotion token, so
+    Lc = 34.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -19,47 +24,129 @@ from .config import T3Config
 class T3CondTensors(NamedTuple):
     speaker_emb: torch.Tensor                          # (B, 256)
     cond_prompt_speech_tokens: Optional[torch.Tensor]  # (B, plen) long or None
+    emotion_adv: Optional[torch.Tensor] = None         # (B, 1, 1) or None
 
 
-def check_supported(hp: T3Config):
-    if (hp.use_perceiver_resampler or hp.emotion_adv
-            or hp.input_pos_emb == "learned" or not hp.backbone.is_gpt):
-        raise NotImplementedError(
-            "only the GPT-2 Turbo/Nano T3 is ported; the 520M CFG family "
-            "(perceiver, emotion input, learned positions) comes later")
+# ---------------------------------------------------------------------------
+# perceiver resampler (520M only)
+# ---------------------------------------------------------------------------
 
+PERCEIVER_QUERIES = 32
+PERCEIVER_HEADS = 4          # the reference perceiver always uses 4 heads
+
+
+def perceiver_init(init: nn.Init, dim: int) -> dict:
+    n = PERCEIVER_QUERIES
+    qv = math.sqrt(3.0) * math.sqrt(2.0 / (n + n))
+    return {"query": init.uniform((1, n, dim), qv),
+            "norm": init.layer_norm(dim),
+            "to_q": init.linear(dim, dim),
+            "to_k": init.linear(dim, dim),
+            "to_v": init.linear(dim, dim),
+            "proj_out": init.linear(dim, dim)}
+
+
+def _perceiver_attn_block(p: dict, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """One LayerNorm shared by both streams, q from x1, k and v from x2,
+    attention, projection, residual."""
+    x1n, x2n = nn.layer_norm(p["norm"], x1), nn.layer_norm(p["norm"], x2)
+    q = nn.split_heads(nn.linear(p["to_q"], x1n), PERCEIVER_HEADS)
+    k = nn.split_heads(nn.linear(p["to_k"], x2n), PERCEIVER_HEADS)
+    v = nn.split_heads(nn.linear(p["to_v"], x2n), PERCEIVER_HEADS)
+    return x1 + nn.linear(p["proj_out"], nn.merge_heads(nn.mha(q, k, v)))
+
+
+def perceiver_apply(p: dict, h: torch.Tensor) -> torch.Tensor:
+    """h (B, T, D) prompt embeddings -> (B, 32, D): cross-attend from the
+    learned queries, then self-attend with the same block."""
+    query = p["query"].expand(h.shape[0], -1, -1)
+    pre = _perceiver_attn_block(p, query, h)
+    return _perceiver_attn_block(p, pre, pre)
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
 
 def t3_init(hp: T3Config, seed: int = 0, device="cuda") -> dict:
     """Random T3 parameters (float32) from a seeded torch.Generator."""
-    check_supported(hp)
     if max(hp.start_speech_token, hp.stop_speech_token) >= hp.speech_tokens_dict_size:
         raise ValueError("speech special tokens outside the embedding table")
     init = nn.Init(seed, device)
-    D = hp.backbone.hidden_size
-    return {
-        "backbone": bb.init_backbone(init, hp.backbone),
+    cfg = hp.backbone
+    D = cfg.hidden_size
+    params = {
+        "backbone": bb.init_backbone(init, cfg),
         "text_emb": init.embedding(hp.text_tokens_dict_size, D),
         "speech_emb": init.embedding(hp.speech_tokens_dict_size, D),
         "text_head": init.linear(D, hp.text_tokens_dict_size, bias=False),
-        "speech_head": init.linear(D, hp.speech_tokens_dict_size, bias=True),
+        # the speech head has a bias only in the GPT-2 family
+        "speech_head": init.linear(D, hp.speech_tokens_dict_size, bias=cfg.is_gpt),
         "cond_enc": {"spkr_enc": init.linear(hp.speaker_embed_size, D)},
     }
+    if hp.emotion_adv:
+        params["cond_enc"]["emotion_adv_fc"] = init.linear(1, D, bias=False)
+    if hp.use_perceiver_resampler:
+        params["cond_enc"]["perceiver"] = perceiver_init(init, D)
+    if hp.input_pos_emb == "learned":
+        params["text_pos_emb"] = init.embedding(hp.max_text_tokens + 2, D)
+        params["speech_pos_emb"] = init.embedding(hp.max_speech_tokens + 4, D)
+    return params
 
 
 def cond_len(hp: T3Config) -> int:
-    return 1 + (hp.speech_cond_prompt_len or 0)
+    n = 1
+    if hp.speech_cond_prompt_len:
+        n += PERCEIVER_QUERIES if hp.use_perceiver_resampler else hp.speech_cond_prompt_len
+    return n + (1 if hp.emotion_adv else 0)
 
+
+# ---------------------------------------------------------------------------
+# embeddings and heads
+# ---------------------------------------------------------------------------
 
 def cond_embeds(params: dict, hp: T3Config, cond: T3CondTensors) -> list:
     """The conditioning prefix as a list of (B, n, D) parts (the caller
     casts them to the compute type before concatenating)."""
-    spkr = nn.linear(params["cond_enc"]["spkr_enc"],
-                     cond.speaker_emb.reshape(-1, hp.speaker_embed_size))
+    ce = params["cond_enc"]
+    spkr = nn.linear(ce["spkr_enc"], cond.speaker_emb.reshape(-1, hp.speaker_embed_size))
     parts = [spkr[:, None]]
     if cond.cond_prompt_speech_tokens is not None:
-        parts.append(nn.embedding(params["speech_emb"],
-                                  cond.cond_prompt_speech_tokens))
+        emb = nn.embedding(params["speech_emb"], cond.cond_prompt_speech_tokens)
+        if hp.input_pos_emb == "learned":
+            T = cond.cond_prompt_speech_tokens.shape[1]
+            emb = emb + nn.embedding(params["speech_pos_emb"],
+                                     torch.arange(T, device=emb.device))
+        if hp.use_perceiver_resampler:
+            emb = perceiver_apply(ce["perceiver"], emb)
+        parts.append(emb)
+    if hp.emotion_adv:
+        parts.append(nn.linear(ce["emotion_adv_fc"], cond.emotion_adv.reshape(-1, 1, 1)))
     return parts
+
+
+def text_embeds(params: dict, hp: T3Config, text_tokens: torch.Tensor,
+                row_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, Lt) -> (B, Lt, D), each row's token embeddings times row_scale
+    (B,) when given (CFG zeroes the uncond row), plus the learned text
+    positions when configured."""
+    emb = nn.embedding(params["text_emb"], text_tokens)
+    if row_scale is not None:
+        emb = emb * row_scale.to(emb.dtype)[:, None, None]
+    if hp.input_pos_emb == "learned":
+        emb = emb + nn.embedding(params["text_pos_emb"],
+                                 torch.arange(text_tokens.shape[1], device=emb.device))
+    return emb
+
+
+def speech_embed_token(params: dict, hp: T3Config, token: torch.Tensor,
+                       speech_pos: int) -> torch.Tensor:
+    """Embed one speech token per row, token (B,), at speech-stream position
+    speech_pos -> (B, 1, D)."""
+    emb = nn.embedding(params["speech_emb"], token)
+    if hp.input_pos_emb == "learned":
+        emb = emb + params["speech_pos_emb"]["w"][speech_pos]
+    return emb[:, None]
 
 
 def speech_logits(params: dict, hidden: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Functional building blocks on torch tensors (the subset of
-chatterbox_tpu/nn/core.py that the Turbo text-to-wav path calls).
+chatterbox_tpu/nn/core.py that the ported text-to-wav paths call).
 
 Layouts follow the JAX package at every public function, so the two can be
 compared like with like:
@@ -62,6 +62,13 @@ def layer_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     var = ((xf - mu_f) ** 2).mean(-1, keepdim=True).to(x.dtype)
     y = (x - mu_f.to(x.dtype)) * torch.rsqrt(var + eps)
     return y * p["g"] + p["b"]
+
+
+def rms_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """llama RMSNorm: normalise in f32, scale by g, cast back to x's type."""
+    xf = x.float()
+    y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (y * p["g"].float()).to(x.dtype)
 
 
 def silu(x):
@@ -197,6 +204,9 @@ class Init:
 
     def layer_norm(self, dim: int) -> dict:
         return {"g": self.const((dim,), 1.0), "b": self.const((dim,), 0.0)}
+
+    def rms_norm(self, dim: int) -> dict:
+        return {"g": self.const((dim,), 1.0)}
 
     def conv1d(self, in_ch: int, out_ch: int, k: int, bias: bool = True) -> dict:
         bound = 1.0 / math.sqrt(in_ch * k)

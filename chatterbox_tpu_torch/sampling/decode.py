@@ -1,6 +1,18 @@
-"""T3 Turbo decode engine: prefill over the dense prefix, then one token at a
-time over the preallocated KV cache (the counterpart of
-chatterbox_tpu/sampling/decode.py `t3_generate` with cfg_mode=False).
+"""T3 decode engine: prefill over the dense prefix, then one token at a time
+over the preallocated KV cache (the counterpart of
+chatterbox_tpu/sampling/decode.py `t3_generate`).
+
+Two modes, as in the JAX package:
+  * Turbo (cfg_mode=False): batch 1, prefix [cond | text | BOS], sampler
+    temp -> top_k -> top_p -> rep (the start token penalized on step 0 only);
+  * 520M CFG (cfg_mode=True): batch 2, row 0 conditional and row 1
+    unconditional (its text token embeddings zeroed, the learned text
+    positions kept); prefix [cond | text | BOS | BOS], the speech BOS fed
+    twice at speech position 0 as the reference's shipped loop does;
+    sampler cfg -> rep -> temp -> min_p -> top_p with the start token in the
+    history from the start; token `step` is embedded at speech position
+    step + 1. cfg_batch2=False runs batch 1 (the reference's cfg_weight == 0
+    path; the combine is then the identity).
 
 The loop never waits on the device per step: the sampled token stays on the
 device, is fed straight into the next step's embedding, and `done` is read
@@ -8,7 +20,9 @@ back only every DONE_CHECK_EVERY steps. Tokens sampled after the first EOS are
 overwritten with the stop token, so the output equals the JAX engine's
 (which stops its while-loop at EOS). One engine serves every budget: the
 cache holds exactly prefix + max_new_tokens positions and attention reads
-only the filled ones.
+only the filled ones, so the JAX package's bucketed engine
+(`t3_generate_bucketed`, a static-shape schedule for XLA) has no
+counterpart here.
 """
 from __future__ import annotations
 
@@ -17,7 +31,6 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..models.t3 import backbone as bb
-from ..nn import core as nn
 from ..models.t3 import model as t3m
 from ..models.t3.config import T3Config
 from ..ops import sampling as S
@@ -31,54 +44,85 @@ class GenResult(NamedTuple):
     n_forward: int           # decode-step forward passes run (host int)
 
 
+def build_prefix(params: dict, hp: T3Config, cond: t3m.T3CondTensors,
+                 text_tokens: torch.Tensor, batch: int,
+                 cfg_mode: bool) -> torch.Tensor:
+    """The dense prefix [cond | text | BOS (| BOS)] of `batch` rows in the
+    compute type, (batch, P, D). With CFG at batch 2 row 1 is the
+    unconditional row."""
+    dev = params["speech_emb"]["w"].device
+    dt = params["speech_emb"]["w"].dtype
+    parts = [p.to(dt).expand(batch, -1, -1) for p in t3m.cond_embeds(params, hp, cond)]
+    tokens = text_tokens.expand(batch, -1)
+    row_scale = (torch.tensor([1.0, 0.0], device=dev)
+                 if cfg_mode and batch == 2 else None)
+    parts.append(t3m.text_embeds(params, hp, tokens, row_scale).to(dt))
+    bos = t3m.speech_embed_token(
+        params, hp, torch.full((batch,), hp.start_speech_token, device=dev), 0)
+    parts += [bos.to(dt)] * (2 if cfg_mode else 1)
+    return torch.cat(parts, dim=1)
+
+
+def decode_step(params: dict, hp: T3Config, token: torch.Tensor, step: int,
+                cache: bb.KVCache, pos: int) -> torch.Tensor:
+    """Feed `token` (a () or (B,) long) as generated token `step` at cache
+    position `pos`; returns the next logits (B, V) f32."""
+    B = cache.k.shape[1]
+    emb = t3m.speech_embed_token(params, hp, token.reshape(-1).expand(B), step + 1)
+    hidden = bb.backbone_apply(params["backbone"], hp.backbone, emb,
+                               torch.full((B, 1), pos, device=emb.device), cache, pos)
+    return t3m.speech_logits(params, hidden[:, 0]).float()
+
+
 @torch.no_grad()
 def t3_generate(params: dict, hp: T3Config, cond: t3m.T3CondTensors,
                 text_tokens: torch.Tensor, sp: S.SamplerParams, *,
                 max_new_tokens: int = 1000, top_k: int = 0,
+                cfg_mode: bool = False, cfg_batch2: bool = True,
                 ignore_eos: bool = False,
                 generator: Optional[torch.Generator] = None,
                 gumbel: Optional[torch.Tensor] = None) -> GenResult:
-    """Generate speech tokens for one utterance (batch 1, no CFG).
+    """Generate speech tokens for one utterance.
 
-    text_tokens: (1, Lt) long, the unpadded text ids.
+    text_tokens: (1, Lt) long, the unpadded text ids (SOT/EOT framed for
+    the CFG family).
     gumbel: optional (max_new_tokens, V) draws used instead of drawing from
     `generator` (lets a test replay another engine's random numbers).
     """
-    t3m.check_supported(hp)
     cfg = hp.backbone
     dev = params["speech_emb"]["w"].device
-    dt = params["speech_emb"]["w"].dtype                      # compute type
     V = hp.speech_tokens_dict_size
     stop = hp.stop_speech_token
+    B = 2 if cfg_mode and cfg_batch2 else 1
 
-    # ---- dense prefix [cond | text | BOS] ---------------------------------
-    parts = t3m.cond_embeds(params, hp, cond)
-    parts.append(nn.embedding(params["text_emb"], text_tokens))
-    bos = torch.full((1, 1), hp.start_speech_token, dtype=torch.long, device=dev)
-    parts.append(nn.embedding(params["speech_emb"], bos))
-    x = torch.cat([p.to(dt) for p in parts], dim=1)           # (1, P, D)
+    # ---- dense prefix and prefill -----------------------------------------
+    x = build_prefix(params, hp, cond, text_tokens, B, cfg_mode)   # (B, P, D)
     P = x.shape[1]
-
-    cache = bb.KVCache.zeros(cfg, 1, P + max_new_tokens, dev)
-    positions = torch.arange(P, device=dev)[None]
+    cache = bb.KVCache.zeros(cfg, B, P + max_new_tokens, dev)
+    positions = torch.arange(P, device=dev)[None].expand(B, -1)
     hidden = bb.backbone_apply(params["backbone"], cfg, x, positions, cache, 0)
-    logits = t3m.speech_logits(params, hidden[:, -1]).float()  # (1, V)
+    logits = t3m.speech_logits(params, hidden[:, -1]).float()  # (B, V)
 
     # ---- token loop ---------------------------------------------------------
     tokens = torch.full((max_new_tokens,), stop, dtype=torch.long, device=dev)
     seen = torch.zeros(V, dtype=torch.bool, device=dev)
+    if cfg_mode:
+        seen[hp.start_speech_token] = True
     done = torch.zeros((), dtype=torch.bool, device=dev)
     n_tokens = torch.full((), max_new_tokens, dtype=torch.long, device=dev)
     stop_t = torch.full((), stop, dtype=torch.long, device=dev)
     n_forward = 0
     for step in range(max_new_tokens):
-        pen = seen
-        if step == 0:
-            # Turbo penalizes the start token on step 0 only, then the
-            # generated tokens
-            pen = seen.clone()
-            pen[hp.start_speech_token] = True
-        l = S.process_logits_turbo(logits[0], pen, sp, top_k)
+        if cfg_mode:
+            l = S.process_logits_cfg(logits[0], logits[B - 1], seen, sp)
+        else:
+            pen = seen
+            if step == 0:
+                # Turbo penalizes the start token on step 0 only, then the
+                # generated tokens
+                pen = seen.clone()
+                pen[hp.start_speech_token] = True
+            l = S.process_logits_turbo(logits[0], pen, sp, top_k)
         g = (gumbel[step].to(dev) if gumbel is not None
              else S.gumbel((V,), generator, dev))
         tok = S.sample_categorical(l, g)
@@ -96,11 +140,6 @@ def t3_generate(params: dict, hp: T3Config, cond: t3m.T3CondTensors,
             break
         if not ignore_eos and (step + 1) % DONE_CHECK_EVERY == 0 and bool(done):
             break
-        emb = nn.embedding(params["speech_emb"], tok.view(1, 1)).to(dt)
-        pos = P + step
-        hidden = bb.backbone_apply(params["backbone"], cfg, emb,
-                                   torch.full((1, 1), pos, device=dev),
-                                   cache, pos)
-        logits = t3m.speech_logits(params, hidden[:, 0]).float()
+        logits = decode_step(params, hp, tok, step, cache, P + step)
         n_forward += 1
     return GenResult(tokens, n_tokens, n_forward)

@@ -3,14 +3,17 @@
 The T3 decode step is weight-bandwidth bound at batch 1, so the backbone and
 heads are served with int8 weights: per-output-channel symmetric scales
 (amax/127, floored at 1e-12). Embeddings, norms, biases and the conditioning
-encoder stay in float. The "int8_fused" mode also builds each GPT-2 layer's
-operands for the two fused decode-layer kernels (kernels/fused_layer.py).
+encoder stay in float. The "int8_fused" mode also builds each layer's
+operands for its family's two fused decode-layer kernels
+(kernels/fused_layer.py).
 """
 from __future__ import annotations
 
 import torch
 
-from ..kernels.fused_layer import prepare_fused_gpt2_layer_int8
+from ..kernels.fused_layer import (fused_llama_supported,
+                                   prepare_fused_gpt2_layer_int8,
+                                   prepare_fused_llama_layer_int8)
 
 
 def cast_params(params, dtype=torch.bfloat16):
@@ -52,13 +55,13 @@ def quantize_tree(params, min_size: int = 1 << 16):
 
 def best_serving_mode(cfg) -> str:
     """The quantization mode the JAX package serves each backbone with:
-    the fused int8 decode-layer kernels where the GPT-2 widths fit their
-    tiles (Turbo), plain int8 elsewhere (Nano, D=768)."""
-    if not cfg.is_gpt:
-        raise NotImplementedError(
-            "the llama backbone (520M CFG family) is not ported yet")
-    if (cfg.hidden_size % 512 == 0 and (3 * cfg.hidden_size) % 512 == 0
+    the fused int8 decode-layer kernels where the widths fit their tiles
+    (Turbo, Llama-520M), plain int8 elsewhere (Nano, D=768)."""
+    if (cfg.is_gpt and cfg.hidden_size % 512 == 0
+            and (3 * cfg.hidden_size) % 512 == 0
             and cfg.intermediate_size % 1024 == 0):
+        return "int8_fused"
+    if fused_llama_supported(cfg):
         return "int8_fused"
     return "int8"
 
@@ -77,7 +80,8 @@ def quantize_t3_backbone(t3_params: dict, mode: str = "int8") -> dict:
     layers = quantize_tree(t3_params["backbone"]["layers"])
     if mode == "int8_fused":
         for lp in layers:
-            lp["fused"] = prepare_fused_gpt2_layer_int8(lp)
+            lp["fused"] = (prepare_fused_gpt2_layer_int8(lp) if "qkv" in lp
+                           else prepare_fused_llama_layer_int8(lp))
     backbone["layers"] = layers
     out["backbone"] = backbone
     out["speech_head"] = quantize_tree(t3_params["speech_head"])

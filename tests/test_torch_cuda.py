@@ -65,6 +65,51 @@ def test_attnout_ln_mlp_kernel_matches_plain(dev, B, D, I, dtype):
     assert (out - ref).abs().max().item() <= 1e-2
 
 
+def _b5_operands(dev, B, D, N, dtype, seed=2):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device=dev)
+    return (r(B, D).to(dtype), 1 + 0.1 * r(D),
+            torch.randint(-127, 128, (N, D), generator=g, device=dev, dtype=torch.int8),
+            torch.rand(N, generator=g, device=dev) * 1e-3)
+
+
+def _b6_operands(dev, B, D, I, dtype, seed=3):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device=dev)
+    i8 = lambda *s: torch.randint(-127, 128, s, generator=g, device=dev, dtype=torch.int8)
+    u = lambda n: torch.rand(n, generator=g, device=dev) * 1e-3
+    return ((0.5 * r(B, D)).to(dtype), r(B, D).to(dtype), i8(D, D), u(D), 1 + 0.1 * r(D),
+            i8(I, D), u(I), i8(I, D), u(I), i8(D, I), u(D))
+
+
+# B5 sums exact f32 products in another order (outputs of order 1-10); B6
+# also rounds the RMSNorm output and the hidden units to bf16, where a value
+# on the other side of a rounding boundary moves outputs by ~1e-4. The
+# 520M shapes: D=1024, N=3072, I=4096, batch 2 (CFG) or 1 (cfg_weight 0).
+@pytest.mark.parametrize("B,D,N,dtype", [(2, 1024, 3072, torch.bfloat16),
+                                         (1, 1024, 3072, torch.bfloat16),
+                                         (2, 512, 1536, torch.float32)])
+def test_rms_qkv_kernel_matches_plain(dev, B, D, N, dtype):
+    ops = _b5_operands(dev, B, D, N, dtype)
+    out = K.rms_qkv_int8(*ops, EPS)
+    ref = K.rms_qkv_int8_plain(*ops, EPS)
+    torch.cuda.synchronize()
+    assert out.shape == (B, N) and torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("B,D,I,dtype,tw", [(2, 1024, 4096, torch.bfloat16, 1024),
+                                            (1, 1024, 4096, torch.bfloat16, 1024),
+                                            (2, 512, 1024, torch.float32, 512)])
+def test_attnout_rms_glu_kernel_matches_plain(dev, B, D, I, dtype, tw):
+    ops = _b6_operands(dev, B, D, I, dtype)
+    out = K.attnout_rms_glu_int8(*ops, EPS, tw)
+    ref = K.attnout_rms_glu_int8_plain(*ops, EPS, tw)
+    torch.cuda.synchronize()
+    assert out.shape == (B, D) and torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= 1e-2
+
+
 def test_launch_counts_follow_kernel_calls(dev):
     before = dict(K.launches)
     K.ln_qkv_int8(*_b1_operands(dev, 1, 512, torch.bfloat16), EPS)
@@ -72,6 +117,10 @@ def test_launch_counts_follow_kernel_calls(dev):
     K.attnout_ln_mlp_int8(*_b2_operands(dev, 1, 512, 2048, torch.bfloat16), EPS)
     assert K.launches["ln_qkv_int8"] == before["ln_qkv_int8"] + 1
     assert K.launches["attnout_ln_mlp_int8"] == before["attnout_ln_mlp_int8"] + 2
+    K.rms_qkv_int8(*_b5_operands(dev, 2, 512, 1536, torch.bfloat16), EPS)
+    K.attnout_rms_glu_int8(*_b6_operands(dev, 2, 512, 1024, torch.bfloat16), EPS, 512)
+    assert K.launches["rms_qkv_int8"] == before["rms_qkv_int8"] + 1
+    assert K.launches["attnout_rms_glu_int8"] == before["attnout_rms_glu_int8"] + 1
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -91,3 +140,6 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     ops[1] = ops[1].float()                  # residual in another type than a
     with pytest.raises(TypeError):
         K.attnout_ln_mlp_int8(*ops, EPS)
+    ops = _b6_operands(dev, 2, 1024, 4096, torch.bfloat16)
+    with pytest.raises(ValueError):          # hidden tile not dividing I
+        K.attnout_rms_glu_int8(*ops, EPS, 1536)

@@ -1,8 +1,10 @@
-"""The port's Turbo pipeline end to end on the CPU against chatterbox_tpu's
-ChatterboxTurboTTS: a 2-layer GPT2_FUSED_TEST T3 quantized int8_fused, a
-tiny meanflow S3Gen, synthetic Conditionals, greedy decode. Also the
-conds.pt interchange, the frontend guard, and the rule that the port never
-imports JAX or the JAX package."""
+"""The port's pipelines end to end on the CPU against chatterbox_tpu's:
+ChatterboxTurboTTS (a 2-layer GPT2_FUSED_TEST T3 quantized int8_fused, a
+tiny meanflow S3Gen) and ChatterboxTTS (a 2-layer Llama_fused_test T3 with
+perceiver, emotion input and learned positions, quantized int8_fused, a tiny
+10-step CFG S3Gen), synthetic Conditionals, greedy decode. Also the conds.pt
+interchange, the frontend guard, and the rule that the port never imports
+JAX or the JAX package."""
 import ast
 import pathlib
 
@@ -11,11 +13,13 @@ import pytest
 
 jax = pytest.importorskip("jax")
 
+from chatterbox_tpu.api.pipelines import ChatterboxTTS as JCfgTTS  # noqa: E402
 from chatterbox_tpu.api.pipelines import ChatterboxTurboTTS as JTTS  # noqa: E402
 from chatterbox_tpu.api.pipelines import Conditionals as JConds  # noqa: E402
 from chatterbox_tpu.api.pipelines import T3CondHost as JT3Cond  # noqa: E402
 from chatterbox_tpu.models.s3gen import flow as jflow  # noqa: E402
 from chatterbox_tpu.models.s3gen import hift as jhift  # noqa: E402
+from chatterbox_tpu.models.s3gen import model as jmodel  # noqa: E402
 from chatterbox_tpu.models.s3gen.model import RefDict as JRefDict  # noqa: E402
 from chatterbox_tpu.models.s3gen.model import S3GenEngine as JEngine  # noqa: E402
 from chatterbox_tpu.models.t3 import model as jt3m  # noqa: E402
@@ -94,6 +98,78 @@ def test_turbo_generate_matches_jax_pipeline():
     # float32 end to end on the CPU; the watermark (the same numpy code in
     # both packages) is applied to near-equal waves
     np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
+
+
+LLAMA_KW = dict(backbone_name="Llama_fused_test", speech_tokens_dict_size=6564,
+                speech_cond_prompt_len=8, max_text_tokens=64, max_speech_tokens=128)
+P_CFG, N_CFG = 24, 40      # prompt and generated tokens of the CFG pipeline test
+
+
+def _cfg_pipelines():
+    jhp = JT3Config(**LLAMA_KW)
+    qp = jquant(jt3m.t3_init(jax.random.key(0), jhp), mode="int8_fused")
+    # the llama speech head has no bias: zero the special and out-of-vocab
+    # columns, so greedy decoding stays on ordinary speech tokens (no EOS,
+    # nothing the vocoder filters) and both engines vocode N_CFG tokens
+    qp["speech_head"]["w_q"] = qp["speech_head"]["w_q"].at[:, 6561:].set(0)
+    k1, k2 = jax.random.split(jax.random.key(1))
+    dims, jdims = FlowDims.tiny_test(), jflow.FlowDims.tiny_test()
+    sp = {"flow": jflow.flow_init(k1, meanflow=False, dims=jdims),
+          "mel2wav": jhift.hift_init(k2, base_channels=32)}
+    jeng = JEngine(sp, meanflow=False, dims=jdims)
+    jeng.pcm16_fetch = False
+    rng = np.random.default_rng(3)
+    t3 = (rng.standard_normal((1, 256)).astype(np.float32),
+          rng.integers(0, 6561, (1, 8)).astype(np.int32))
+    gen = (rng.integers(0, 6561, (1, P_CFG)).astype(np.int32),
+           np.array([P_CFG], np.int32),
+           (rng.standard_normal((1, 2 * P_CFG, 80)) * 0.5).astype(np.float32),
+           rng.standard_normal((1, 192)).astype(np.float32))
+    jtts = JCfgTTS(qp, jhp, jeng, None, _Tok(), JConds(JT3Cond(*t3, 0.5), JRefDict(*gen)),
+                   seed=7)
+    tts = port.ChatterboxTTS(
+        t3_from_jax(jax.tree.map(np.asarray, qp), T3Config(**LLAMA_KW), device="cpu"),
+        T3Config(**LLAMA_KW),
+        S3GenEngine(s3gen_from_jax(jax.tree.map(np.asarray, sp), dims=dims, hift_base=32,
+                                   meanflow=False, device="cpu"),
+                    dims=dims, meanflow=False),
+        _Tok(), port.Conditionals(port.T3CondHost(*t3, 0.5), port.RefDict(*gen)), seed=7)
+    return jtts, tts
+
+
+def test_cfg_generate_matches_jax_pipeline(monkeypatch):
+    from tests.test_torch_s3gen import jax_vocode_noise
+    # C7: the JAX vocoder pads HiFT's input to a mel bucket, which changes the
+    # last samples; pin its buckets to the exact lengths (its bucket pick
+    # falls back to the last bucket when none is large enough)
+    monkeypatch.setattr(jmodel, "TOKEN_BUCKETS", (P_CFG + N_CFG,))
+    monkeypatch.setattr(jmodel, "GEN_MEL_BUCKETS", (2 * N_CFG,))
+    jtts, tts = _cfg_pipelines()
+    # min_p = 1 keeps only the most likely token: greedy in both engines
+    kw = dict(min_p=1.0, max_new_tokens=N_CFG, exaggeration=0.6)
+    ref = jtts.generate("hello world, this is a test", **kw)
+    key = jax.random.key(7)
+    key, _ = jax.random.split(key)
+    _, k_voc = jax.random.split(key)
+    noise = jax_vocode_noise(k_voc, 2 * (P_CFG + N_CFG), 2 * N_CFG, meanflow=False)
+    tts.s3gen.draw_noise = lambda n_mel, n_gen_mel, generator: noise
+    out = tts.generate("hello world, this is a test", **kw)
+    assert tts.last_decode.n_forward == N_CFG - 1
+    assert tts.conds.t3.emotion_adv == 0.6
+    assert out.shape == ref.shape == (1, N_CFG * 2 * 480)
+    assert np.isfinite(out).all() and np.abs(out).max() > 1e-3
+    # float32 end to end on the CPU (the T3's fused kernels round to bf16 at
+    # the same points in both); ten flow steps of summation-order differences
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
+
+
+def test_cfg_weight_zero_decodes_batch_1():
+    _, tts = _cfg_pipelines()
+    kw = dict(min_p=1.0, max_new_tokens=4)
+    tts.generate("hi", cfg_weight=0.0, **kw)
+    assert tts.last_decode.n_forward == 3
+    with pytest.raises(NotImplementedError, match="frontend"):
+        tts.generate("hi", audio_prompt_path="ref.wav", **kw)
 
 
 def test_conds_pt_from_jax_loads_in_port(tmp_path):

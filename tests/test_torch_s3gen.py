@@ -1,7 +1,8 @@
-"""The port's meanflow S3Gen (chatterbox_tpu_torch/models/s3gen) held against
-chatterbox_tpu on the JAX CPU backend at FlowDims.tiny_test() with a
-32-channel HiFT, float32 on both sides, the same noise handed to both (the
-JAX draws are reproduced here from its own keys, in its own split order)."""
+"""The port's S3Gen (chatterbox_tpu_torch/models/s3gen: meanflow for Turbo,
+10-step CFG flow matching for the 520M family) held against chatterbox_tpu
+on the JAX CPU backend at FlowDims.tiny_test() with a 32-channel HiFT,
+float32 on both sides, the same noise handed to both (the JAX draws are
+reproduced here from its own keys, in its own split order)."""
 import numpy as np
 import pytest
 
@@ -9,6 +10,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
+from chatterbox_tpu.api.pipelines import drop_invalid_tokens_sliced  # noqa: E402
 from chatterbox_tpu.models.s3gen import flow as jflow  # noqa: E402
 from chatterbox_tpu.models.s3gen import hift as jhift  # noqa: E402
 from chatterbox_tpu.models.s3gen.model import RefDict as JRefDict  # noqa: E402
@@ -26,22 +28,22 @@ P = 64            # prompt tokens; with 61 generated + 3 silence tokens the
 N_GEN = 61        # JAX engine's token and mel buckets (128, 128) are exact
 
 
-def _params():
+def _params(meanflow):
     k1, k2 = jax.random.split(jax.random.key(0))
-    jp = {"flow": jflow.flow_init(k1, meanflow=True, dims=JDIMS),
+    jp = {"flow": jflow.flow_init(k1, meanflow=meanflow, dims=JDIMS),
           "mel2wav": jhift.hift_init(k2, base_channels=HIFT_BASE)}
     tp = s3gen_from_jax(jax.tree.map(np.asarray, jp), dims=DIMS, hift_base=HIFT_BASE,
-                        device="cpu")
+                        meanflow=meanflow, device="cpu")
     return jp, tp
 
 
 _CACHE = {}
 
 
-def params():
-    if "p" not in _CACHE:
-        _CACHE["p"] = _params()
-    return _CACHE["p"]
+def params(meanflow=True):
+    if meanflow not in _CACHE:
+        _CACHE[meanflow] = _params(meanflow)
+    return _CACHE[meanflow]
 
 
 def _ref(rng):
@@ -71,6 +73,32 @@ def test_flow_mels_match_with_given_noise():
     # float32 on both sides; convolution and matmul summation order differ
     # (7e-7 measured on mels of scale 4.5)
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-5)
+
+
+def test_cfg_flow_mels_match_with_given_noise():
+    """The 520M flow: cosine t-span, 10 Euler steps, one batch-2 UNet call
+    per step whose uncond half has mu, spks and cond zeroed; the noise
+    covers the whole [prompt | gen] buffer."""
+    jp, tp = params(meanflow=False)
+    rng = np.random.default_rng(7)
+    G = 16
+    prompt, _, feat, emb = _ref(rng)
+    tokens = np.concatenate([prompt, rng.integers(0, 6561, (1, G))], axis=1)
+    T = tokens.shape[1]
+    z = rng.standard_normal((1, 2 * T, 80)).astype(np.float32)
+    ref = jflow.flow_inference(
+        jp["flow"], token=jnp.asarray(tokens, jnp.int32), token_len=jnp.asarray([T]),
+        prompt_len=jnp.asarray([P]), prompt_feat=jnp.asarray(feat),
+        embedding=jnp.asarray(emb), key=jax.random.key(1), n_timesteps=10,
+        meanflow=False, noise=jnp.asarray(z), noise_aligned=True, dims=JDIMS)
+    out = flow.flow_inference(tp["flow"], torch.from_numpy(tokens).long(), P,
+                              torch.from_numpy(feat), torch.from_numpy(emb),
+                              torch.from_numpy(z), n_timesteps=10, dims=DIMS,
+                              meanflow=False)
+    ref = np.asarray(ref)
+    assert out.shape == ref.shape
+    # float32 on both sides, ten steps of summation-order differences
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-4)
 
 
 def test_hift_decode_matches_with_fixed_source():
@@ -108,16 +136,18 @@ def test_hift_source_matches_with_given_phase_and_noise():
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=2e-5)
 
 
-def jax_vocode_noise(key, n_mel, n_gen_mel):
+def jax_vocode_noise(key, n_mel, n_gen_mel, meanflow=True):
     """The draws the JAX fused vocoder makes from `key` (model.py
     k_noise/k_flow/k_hift split, cfm.py noise placement, hift.py split),
     for exact buckets: the flow buffer is n_mel frames, of which the last
-    n_gen_mel are vocoded."""
+    n_gen_mel are vocoded. Meanflow draws the generated region's noise
+    apart; the CFG flow draws the whole buffer from k_flow."""
     k_noise, k_flow, k_hift = jax.random.split(key, 3)
-    noise = np.asarray(jax.random.normal(k_noise, (1, n_mel, 80)))
     z = np.array(jax.random.normal(k_flow, (1, n_mel, 80)))
-    p_mel = n_mel - n_gen_mel
-    z[:, p_mel:] = noise[:, : n_gen_mel]
+    if meanflow:
+        noise = np.asarray(jax.random.normal(k_noise, (1, n_mel, 80)))
+        p_mel = n_mel - n_gen_mel
+        z[:, p_mel:] = noise[:, : n_gen_mel]
     k_phase, k_src = jax.random.split(k_hift)
     phase = jax.random.uniform(k_phase, (1, 1, 9), minval=-jnp.pi, maxval=jnp.pi)
     noise_u = jax.random.normal(k_src, (1, n_gen_mel * 480, 9))
@@ -139,6 +169,39 @@ def test_pack_tokens_matches_jax_filter():
     out = pack_tokens(torch.from_numpy(gen), 30, torch.from_numpy(prompt), 3)
     n = int(np.asarray(tl)[0])
     np.testing.assert_array_equal(out.numpy(), np.asarray(row)[:, :n])
+
+
+# (stream, n_raw): SOS and EOS in range, ids >= 6561, EOS before SOS, an
+# empty slice, a stream with neither special
+_CFG_STREAMS = [
+    ([5, 6561, 7, 8, 6563, 9, 6562, 10, 6562], 9),
+    ([5, 6561, 7, 8, 6563, 9, 6562, 10, 11], 5),
+    ([6562, 3, 6561, 4, 5], 5),
+    ([6561, 6562, 1, 2], 4),
+    ([1, 8000, 2, 3, 6561], 4),
+]
+
+
+@pytest.mark.parametrize("stream,n_raw", _CFG_STREAMS)
+def test_cfg_pack_tail_matches_jax(stream, n_raw):
+    """The 520M token tail: slice strictly between the first SOS and the
+    first EOS among the first n_raw, drop ids >= 6561, vocode one silence
+    token when nothing is left, append no silence."""
+    gen = np.asarray(stream + [6562] * 3, np.int32)
+    prompt = np.arange(10, 20, dtype=np.int32)[None]
+    host = drop_invalid_tokens_sliced(gen[:n_raw])
+    host = host[host < 6561]
+    if host.size == 0:
+        host = np.array([4299])
+    eng = JEngine({"flow": None, "mel2wav": None}, meanflow=False, dims=JDIMS)
+    row, tl = eng._pack_from_decode(jnp.asarray(gen), jnp.asarray(n_raw),
+                                    jnp.asarray(prompt), jnp.asarray(10), bucket=64,
+                                    append_sil=0, cfg_slice=True, sos=6561,
+                                    eos=6562, vocab=6561)
+    out = pack_tokens(torch.from_numpy(gen), n_raw, torch.from_numpy(prompt),
+                      cfg_slice=True)
+    np.testing.assert_array_equal(out.numpy()[0, 10:], host)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(row)[:, :int(np.asarray(tl)[0])])
 
 
 def test_inference_from_decode_waveform_matches():
