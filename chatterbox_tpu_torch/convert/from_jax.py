@@ -12,6 +12,9 @@ Layouts that change on the way:
   * bfloat16 leaves stay bfloat16.
 Every key is checked against the port's own schema (its init on the meta
 device): a missing, unexpected or misshaped leaf raises.
+
+`kv_cache_from_jax` carries a decode state's KV cache (a JAX KVCache or
+KVCacheInt8 with numpy leaves) into the port's cache.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import torch
 
 from ..models.s3gen.flow import FlowDims
 from ..models.s3gen.model import s3gen_init
+from ..models.t3 import backbone as bb
 from ..models.t3 import model as t3m
 from ..models.t3.config import T3Config
 
@@ -175,3 +179,12 @@ def s3gen_from_jax(tree: dict, dims: FlowDims = FlowDims(), hift_base: int = 512
     _check_schema(out, s3gen_init(device="meta", meanflow=meanflow, dims=dims,
                                   hift_base=hift_base))
     return out
+
+
+def kv_cache_from_jax(cache, device="cuda"):
+    """A JAX KVCache or KVCacheInt8 with numpy leaves -> bb.KVCache or
+    bb.KVCacheInt8 on `device`, in the same (L, B, H_kv, T, D) layout."""
+    if hasattr(cache, "k_q"):
+        return bb.KVCacheInt8(*(_tensor(a, device) for a in
+                                (cache.k_q, cache.v_q, cache.k_s, cache.v_s)))
+    return bb.KVCache(_tensor(cache.k, device), _tensor(cache.v, device))

@@ -15,9 +15,10 @@
 //         r   = x + (bf16(a) @ Wo_int8) * so;   y = bf16(RMSNorm(r) * g2)
 //         h   = bf16(silu((y @ Wg_int8) * sg) * ((y @ Wu_int8) * su))
 //         out = r + sum over hidden tiles t of (h_t @ Wd_int8_t) * sd
-// Each decode step runs one pair once per layer.
+// Each decode step runs one pair once per layer, over 1-16 rows (one
+// request, a CFG pair, or the batched engine's rows).
 //
-// What bounds them: at batch 1-2 they are matrix-vector products that read
+// What bounds them: at 1-16 rows they are matrix-vector products that read
 // every weight byte once and do 2 operations per byte and row, so the int8
 // weight bytes over the memory rate bound them. At D=1024, I=4096 B1 and B5
 // read 3.15 MB (0.94 us at the H100 SXM's 3.35 TB/s), B2 9.44 MB (2.82 us)
@@ -29,16 +30,22 @@
 //     column and streams its K int8 weights with 16-byte loads: a warp reads
 //     512 contiguous bytes per iteration, and every warp of the grid is
 //     resident at once, so all weight loads are in flight together.
+//   * Every kernel is a template on NB, the rows it unrolls (2, 4, 8, 16);
+//     a call of B rows runs the smallest instance with NB >= B, and rows
+//     past B are skipped inside the loop, so each weight byte is read once
+//     per call whatever B is.
 //   * The TPU kernels compute the norm once at grid step 0 and keep it in
 //     VMEM scratch, relying on the sequential grid. Blocks on Hopper run in
-//     no order, so every block recomputes the LayerNorm / RMSNorm of its 1-2
-//     input rows into shared memory (2x1024 floats, negligible next to the
-//     weights it streams). One template serves both norms.
+//     no order, so every block recomputes the LayerNorm / RMSNorm of its
+//     input rows into shared memory (up to 16 x 1024 floats, 64 KB, above
+//     the 48 KB default: each kernel opts in to Hopper's 227 KB once). One
+//     template serves both norms.
 //   * Each second half (B2, B6) has two dependencies across the whole width
 //     (attn-out and the norm before the MLP; all hidden units before the
 //     down projection), so each is three launches on one stream: attn-out +
 //     residual, norm + up-projection(s) + activation, down-projection +
-//     residual, with r and h in small global scratch buffers.
+//     residual, with r (f32) and h (bf16: its values are bf16-rounded, so
+//     16 rows of 4096 fit shared memory) in small global scratch buffers.
 // Numerics mirror the Pallas kernels: norms in f32, the vector rounded to
 // bf16 before each product, int8 -> float exact, f32 accumulation, scale
 // (and bias) applied after the K sum. B6 applies sd to each tw-wide hidden
@@ -54,8 +61,8 @@ namespace {
 
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
-constexpr int MAX_B = 2;
-constexpr int K_STEP = 32 * 16;  // bytes a warp reads per iteration
+constexpr int K_STEP = 32 * 16;           // bytes a warp reads per iteration
+constexpr int SMEM_MAX = 227 * 1024;      // dynamic shared memory a block may opt in to
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -116,34 +123,77 @@ __device__ void norm_bf16(const T* __restrict__ x, const float* __restrict__ g,
   __syncthreads();
 }
 
-// acc[r] = sum_k xs[r*ldx + k] * w[k], k < K, for one out-major weight row,
-// summed over the warp (every lane holds the totals). K % K_STEP == 0.
-__device__ __forceinline__ void warp_dot_i8(const int8_t* __restrict__ w, const float* xs,
-                                            int K, int ldx, int B, float acc[MAX_B]) {
+// sum_j x[j] * w[j] over 16 consecutive entries of one row of xs (f32 or
+// bf16 in shared memory) and the 16 weights already converted to float.
+__device__ __forceinline__ float dot16(const float* x, const float w[16]) {
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  float s = 0.f;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float4 xv = x4[q];
+    s += xv.x * w[4 * q] + xv.y * w[4 * q + 1] + xv.z * w[4 * q + 2] + xv.w * w[4 * q + 3];
+  }
+  return s;
+}
+
+__device__ __forceinline__ float dot16(const __nv_bfloat16* x, const float w[16]) {
+  const uint4* x4 = reinterpret_cast<const uint4*>(x);
+  float s = 0.f;
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const uint4 u = x4[q];
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(h[j]);
+      s += f.x * w[8 * q + 2 * j] + f.y * w[8 * q + 2 * j + 1];
+    }
+  }
+  return s;
+}
+
+// acc[r] = sum_k xs[r*ldx + k] * w[k], k < K, r < B, for one out-major
+// weight row, summed over the warp (every lane holds the totals). The row
+// loop is unrolled to NB >= B so acc stays in registers; K % K_STEP == 0.
+// The 2-row instance over f32 rows converts each weight where a row uses
+// it (measured ~6 % faster at one row than converting the 16 weights
+// first); with more rows each weight is converted once.
+template <int NB, typename XT>
+__device__ __forceinline__ void warp_dot_i8(const int8_t* __restrict__ w, const XT* xs,
+                                            int K, int ldx, int B, float acc[NB]) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int r = 0; r < MAX_B; ++r) acc[r] = 0.f;
+  for (int r = 0; r < NB; ++r) acc[r] = 0.f;
 #pragma unroll 4
   for (int k0 = lane * 16; k0 < K; k0 += K_STEP) {
     const int4 pk = __ldg(reinterpret_cast<const int4*>(w + k0));
     const int8_t* w8 = reinterpret_cast<const int8_t*>(&pk);
+    if constexpr (NB <= 2 && sizeof(XT) == sizeof(float)) {
 #pragma unroll
-    for (int r = 0; r < MAX_B; ++r) {
-      if (r < B) {
-        const float4* x4 = reinterpret_cast<const float4*>(xs + (size_t)r * ldx + k0);
-        float s = 0.f;
+      for (int r = 0; r < NB; ++r) {
+        if (r < B) {
+          const float4* x4 = reinterpret_cast<const float4*>(xs + (size_t)r * ldx + k0);
+          float s = 0.f;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float4 xv = x4[q];
-          s += xv.x * (float)w8[4 * q] + xv.y * (float)w8[4 * q + 1]
-             + xv.z * (float)w8[4 * q + 2] + xv.w * (float)w8[4 * q + 3];
+          for (int q = 0; q < 4; ++q) {
+            const float4 xv = x4[q];
+            s += xv.x * (float)w8[4 * q] + xv.y * (float)w8[4 * q + 1]
+               + xv.z * (float)w8[4 * q + 2] + xv.w * (float)w8[4 * q + 3];
+          }
+          acc[r] += s;
         }
-        acc[r] += s;
       }
+    } else {
+      float wf[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) wf[j] = (float)w8[j];
+#pragma unroll
+      for (int r = 0; r < NB; ++r)
+        if (r < B) acc[r] += dot16(xs + (size_t)r * ldx + k0, wf);
     }
   }
 #pragma unroll
-  for (int r = 0; r < MAX_B; ++r) acc[r] = warp_sum(acc[r]);
+  for (int r = 0; r < NB; ++r) acc[r] = warp_sum(acc[r]);
 }
 
 __device__ __forceinline__ float gelu_new(float x) {
@@ -155,7 +205,7 @@ __device__ __forceinline__ float silu(float x) { return x * (1.0f / (1.0f + expf
 
 // B1 / B5: out = (bf16(norm(x)) @ W) * s (+ bias for the LayerNorm form);
 // grid = ceil(N / WARPS); block = WARPS warps, one output column each.
-template <typename T, bool RMS>
+template <typename T, bool RMS, int NB>
 __global__ void __launch_bounds__(THREADS)
 norm_qkv_kernel(const T* __restrict__ x, const float* __restrict__ g,
                 const float* __restrict__ b, const int8_t* __restrict__ w_t,
@@ -167,19 +217,22 @@ norm_qkv_kernel(const T* __restrict__ x, const float* __restrict__ g,
   norm_bf16<T, RMS>(x, g, b, B, D, eps, ys, red);
   const int n = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (n >= N) return;
-  float acc[MAX_B];
-  warp_dot_i8(w_t + (size_t)n * D, ys, D, D, B, acc);
-  if ((threadIdx.x & 31) == 0)
-    for (int r = 0; r < B; ++r) {
-      float o = acc[r] * s[n];
-      if (!RMS) o += bias[n];
-      out[(size_t)r * N + n] = o;
-    }
+  float acc[NB];
+  warp_dot_i8<NB>(w_t + (size_t)n * D, ys, D, D, B, acc);
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int r = 0; r < NB; ++r)
+      if (r < B) {
+        float o = acc[r] * s[n];
+        if (!RMS) o += bias[n];
+        out[(size_t)r * N + n] = o;
+      }
+  }
 }
 
 // B2 / B6 phase 1: r = xres + (bf16(a) @ Wo) * so (+ bo when given);
 // grid = ceil(D / WARPS).
-template <typename T>
+template <typename T, int NB>
 __global__ void __launch_bounds__(THREADS)
 attn_out_kernel(const T* __restrict__ a, const T* __restrict__ xres,
                 const int8_t* __restrict__ wo_t, const float* __restrict__ so,
@@ -190,136 +243,186 @@ attn_out_kernel(const T* __restrict__ a, const T* __restrict__ xres,
   __syncthreads();
   const int n = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (n >= D) return;
-  float acc[MAX_B];
-  warp_dot_i8(wo_t + (size_t)n * D, as, D, D, B, acc);
-  if ((threadIdx.x & 31) == 0)
-    for (int r = 0; r < B; ++r) {
-      float v = to_f32(xres[(size_t)r * D + n]) + acc[r] * so[n];
-      if (bo) v += bo[n];
-      r_out[(size_t)r * D + n] = v;
-    }
+  float acc[NB];
+  warp_dot_i8<NB>(wo_t + (size_t)n * D, as, D, D, B, acc);
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int r = 0; r < NB; ++r)
+      if (r < B) {
+        float v = to_f32(xres[(size_t)r * D + n]) + acc[r] * so[n];
+        if (bo) v += bo[n];
+        r_out[(size_t)r * D + n] = v;
+      }
+  }
 }
 
 // B2 phase 2: h = bf16(gelu_new((bf16(LN2(r)) @ W1) * s1 + b1));
 // grid = ceil(I / WARPS), one hidden unit per warp.
+template <int NB>
 __global__ void __launch_bounds__(THREADS)
 ln_fc_in_kernel(const float* __restrict__ r, const float* __restrict__ g2,
                 const float* __restrict__ be2, const int8_t* __restrict__ w1_t,
                 const float* __restrict__ s1, const float* __restrict__ b1,
-                float* __restrict__ h, int B, int D, int I, float eps) {
+                __nv_bfloat16* __restrict__ h, int B, int D, int I, float eps) {
   extern __shared__ float4 smem4[];
   float* ys = reinterpret_cast<float*>(smem4);
   float* red = ys + (size_t)B * D;
   norm_bf16<float, false>(r, g2, be2, B, D, eps, ys, red);
   const int j = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (j >= I) return;
-  float acc[MAX_B];
-  warp_dot_i8(w1_t + (size_t)j * D, ys, D, D, B, acc);
-  if ((threadIdx.x & 31) == 0)
-    for (int rr = 0; rr < B; ++rr)
-      h[(size_t)rr * I + j] = round_bf16(gelu_new(acc[rr] * s1[j] + b1[j]));
+  float acc[NB];
+  warp_dot_i8<NB>(w1_t + (size_t)j * D, ys, D, D, B, acc);
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int rr = 0; rr < NB; ++rr)
+      if (rr < B) h[(size_t)rr * I + j] = __float2bfloat16(gelu_new(acc[rr] * s1[j] + b1[j]));
+  }
 }
 
 // B6 phase 2: y = bf16(RMSNorm(r) * g2);
 // h = bf16(silu((y @ Wg) * sg) * ((y @ Wu) * su)); grid = ceil(I / WARPS),
 // one hidden unit (its gate and up rows) per warp.
+template <int NB>
 __global__ void __launch_bounds__(THREADS)
 rms_glu_kernel(const float* __restrict__ r, const float* __restrict__ g2,
                const int8_t* __restrict__ wg_t, const float* __restrict__ sg,
                const int8_t* __restrict__ wu_t, const float* __restrict__ su,
-               float* __restrict__ h, int B, int D, int I, float eps) {
+               __nv_bfloat16* __restrict__ h, int B, int D, int I, float eps) {
   extern __shared__ float4 smem4[];
   float* ys = reinterpret_cast<float*>(smem4);
   float* red = ys + (size_t)B * D;
   norm_bf16<float, true>(r, g2, nullptr, B, D, eps, ys, red);
   const int j = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (j >= I) return;
-  float ag[MAX_B], au[MAX_B];
-  warp_dot_i8(wg_t + (size_t)j * D, ys, D, D, B, ag);
-  warp_dot_i8(wu_t + (size_t)j * D, ys, D, D, B, au);
-  if ((threadIdx.x & 31) == 0)
-    for (int rr = 0; rr < B; ++rr)
-      h[(size_t)rr * I + j] = round_bf16(silu(ag[rr] * sg[j]) * (au[rr] * su[j]));
+  float ag[NB], au[NB];
+  warp_dot_i8<NB>(wg_t + (size_t)j * D, ys, D, D, B, ag);
+  warp_dot_i8<NB>(wu_t + (size_t)j * D, ys, D, D, B, au);
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int rr = 0; rr < NB; ++rr)
+      if (rr < B)
+        h[(size_t)rr * I + j] = __float2bfloat16(silu(ag[rr] * sg[j]) * (au[rr] * su[j]));
+  }
 }
 
 // B2 / B6 phase 3: out = (r + b2) + sum over tw-wide tiles t of
 // (h_t @ W2_t) * s2, tiles added in order (b2 may be absent);
 // grid = ceil(D / WARPS).
+template <int NB>
 __global__ void __launch_bounds__(THREADS)
-down_kernel(const float* __restrict__ h, const float* __restrict__ r,
+down_kernel(const __nv_bfloat16* __restrict__ h, const float* __restrict__ r,
             const int8_t* __restrict__ w2_t, const float* __restrict__ s2,
             const float* __restrict__ b2, float* __restrict__ out, int B, int D, int I,
             int tw) {
   extern __shared__ float4 smem4[];
-  float* hs = reinterpret_cast<float*>(smem4);
-  for (int i = threadIdx.x; i < B * I; i += blockDim.x) hs[i] = h[i];
+  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem4);
+  {  // B * I bf16 is a multiple of 8 (I % 512 == 0): copy 16 bytes a thread
+    const uint4* src = reinterpret_cast<const uint4*>(h);
+    uint4* dst = reinterpret_cast<uint4*>(hs);
+    for (int i = threadIdx.x; i < B * I / 8; i += blockDim.x) dst[i] = src[i];
+  }
   __syncthreads();
   const int n = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (n >= D) return;
-  // rows unrolled to MAX_B so o and acc stay in registers
-  float o[MAX_B], acc[MAX_B];
+  float o[NB], acc[NB];
 #pragma unroll
-  for (int rr = 0; rr < MAX_B; ++rr) {
+  for (int rr = 0; rr < NB; ++rr) {
     o[rr] = rr < B ? r[(size_t)rr * D + n] : 0.f;
     if (b2) o[rr] += b2[n];
   }
   for (int t0 = 0; t0 < I; t0 += tw) {
-    warp_dot_i8(w2_t + (size_t)n * I + t0, hs + t0, tw, I, B, acc);
+    warp_dot_i8<NB>(w2_t + (size_t)n * I + t0, hs + t0, tw, I, B, acc);
 #pragma unroll
-    for (int rr = 0; rr < MAX_B; ++rr) o[rr] += acc[rr] * s2[n];
+    for (int rr = 0; rr < NB; ++rr) o[rr] += acc[rr] * s2[n];
   }
   if ((threadIdx.x & 31) == 0) {
 #pragma unroll
-    for (int rr = 0; rr < MAX_B; ++rr)
+    for (int rr = 0; rr < NB; ++rr)
       if (rr < B) out[(size_t)rr * D + n] = o[rr];
   }
 }
 
 inline unsigned blocks_for(int n) { return (unsigned)((n + WARPS - 1) / WARPS); }
 
+// Launch Kernel<<<grid, THREADS, smem, st>>>(args...), first letting it
+// take up to SMEM_MAX of dynamic shared memory. The attribute belongs to the
+// current device, so it is set once per kernel and device, on the kernel's
+// first launch there (devices past MAX_DEVICES set it on every launch).
+constexpr int MAX_DEVICES = 64;
+
+template <auto Kernel, typename... Args>
+cudaError_t launch(unsigned grid, size_t smem, cudaStream_t st, Args... args) {
+  static bool opted_in[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES || !opted_in[dev]) {
+    err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (err != cudaSuccess) return err;
+    if (dev < MAX_DEVICES) opted_in[dev] = true;
+  }
+  Kernel<<<grid, THREADS, smem, st>>>(args...);
+  return cudaGetLastError();
+}
+
+// The smallest row instance that holds B rows (the wrapper checks B <= 16).
+#define DISPATCH_ROWS(B, ...)                      \
+  do {                                             \
+    if ((B) <= 2) { constexpr int NB = 2; __VA_ARGS__; }       \
+    else if ((B) <= 4) { constexpr int NB = 4; __VA_ARGS__; }  \
+    else if ((B) <= 8) { constexpr int NB = 8; __VA_ARGS__; }  \
+    else { constexpr int NB = 16; __VA_ARGS__; }               \
+  } while (0)
+
 template <bool RMS>
 cudaError_t launch_norm_qkv(const void* x, int x_bf16, const float* g, const float* b,
                             const int8_t* w_t, const float* s, const float* bias, float* out,
                             int B, int D, int N, float eps, cudaStream_t st) {
   const size_t smem = ((size_t)B * D + WARPS) * sizeof(float);
+  cudaError_t err = cudaSuccess;
   if (x_bf16)
-    norm_qkv_kernel<__nv_bfloat16, RMS><<<blocks_for(N), THREADS, smem, st>>>(
-        (const __nv_bfloat16*)x, g, b, w_t, s, bias, out, B, D, N, eps);
+    DISPATCH_ROWS(B, err = launch<norm_qkv_kernel<__nv_bfloat16, RMS, NB>>(blocks_for(N), smem,
+                                  st, (const __nv_bfloat16*)x, g, b, w_t, s, bias, out, B, D,
+                                  N, eps));
   else
-    norm_qkv_kernel<float, RMS><<<blocks_for(N), THREADS, smem, st>>>(
-        (const float*)x, g, b, w_t, s, bias, out, B, D, N, eps);
-  return cudaGetLastError();
+    DISPATCH_ROWS(B, err = launch<norm_qkv_kernel<float, RMS, NB>>(blocks_for(N), smem, st,
+                                  (const float*)x, g, b, w_t, s, bias, out, B, D, N, eps));
+  return err;
 }
 
 cudaError_t launch_attn_out(const void* a, const void* xres, int in_bf16,
                             const int8_t* wo_t, const float* so, const float* bo,
                             float* r_buf, int B, int D, cudaStream_t st) {
   const size_t smem = (size_t)B * D * sizeof(float);
+  cudaError_t err = cudaSuccess;
   if (in_bf16)
-    attn_out_kernel<__nv_bfloat16><<<blocks_for(D), THREADS, smem, st>>>(
-        (const __nv_bfloat16*)a, (const __nv_bfloat16*)xres, wo_t, so, bo, r_buf, B, D);
+    DISPATCH_ROWS(B, err = launch<attn_out_kernel<__nv_bfloat16, NB>>(blocks_for(D), smem, st,
+                                  (const __nv_bfloat16*)a, (const __nv_bfloat16*)xres, wo_t,
+                                  so, bo, r_buf, B, D));
   else
-    attn_out_kernel<float><<<blocks_for(D), THREADS, smem, st>>>(
-        (const float*)a, (const float*)xres, wo_t, so, bo, r_buf, B, D);
-  return cudaGetLastError();
+    DISPATCH_ROWS(B, err = launch<attn_out_kernel<float, NB>>(blocks_for(D), smem, st,
+                                  (const float*)a, (const float*)xres, wo_t, so, bo, r_buf,
+                                  B, D));
+  return err;
 }
 
-cudaError_t launch_down(const float* h_buf, const float* r_buf, const int8_t* w2_t,
+cudaError_t launch_down(const __nv_bfloat16* h_buf, const float* r_buf, const int8_t* w2_t,
                         const float* s2, const float* b2, float* out, int B, int D, int I,
                         int tw, cudaStream_t st) {
-  const size_t smem = (size_t)B * I * sizeof(float);
-  down_kernel<<<blocks_for(D), THREADS, smem, st>>>(h_buf, r_buf, w2_t, s2, b2, out, B, D,
-                                                    I, tw);
-  return cudaGetLastError();
+  const size_t smem = (size_t)B * I * sizeof(__nv_bfloat16);
+  cudaError_t err = cudaSuccess;
+  DISPATCH_ROWS(B, err = launch<down_kernel<NB>>(blocks_for(D), smem, st, h_buf, r_buf, w2_t,
+                                s2, b2, out, B, D, I, tw));
+  return err;
 }
 
 }  // namespace
 
 // The wrapper (kernels/fused_layer.py) checks shapes, types, 16-byte
-// alignment, B <= MAX_B, K % K_STEP == 0, tw % K_STEP == 0 and I % tw == 0,
-// and that each launch's shared memory fits the 48 KB a block may take
-// without an opt-in. Each function returns cudaGetLastError() after its
-// launches.
+// alignment, 1 <= B <= 16, K % K_STEP == 0, tw % K_STEP == 0 and
+// I % tw == 0, and that each launch's shared memory fits the 227 KB a block
+// may opt in to. h_buf is (B, I) bf16 scratch, r_buf (B, D) f32. Each
+// function returns the first CUDA error of its launches (0 on success).
 extern "C" {
 
 int ln_qkv_int8_launch(const void* x, int x_bf16, const float* g, const float* b,
@@ -341,15 +444,14 @@ int attnout_ln_mlp_int8_launch(const void* a, const void* xres, int in_bf16,
                                const float* g2, const float* be2,
                                const int8_t* w1_t, const float* s1, const float* b1,
                                const int8_t* w2_t, const float* s2, const float* b2,
-                               float* r_buf, float* h_buf, float* out,
+                               float* r_buf, __nv_bfloat16* h_buf, float* out,
                                int B, int D, int I, float eps, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = launch_attn_out(a, xres, in_bf16, wo_t, so, bo, r_buf, B, D, st);
   if (err != cudaSuccess) return (int)err;
   const size_t smem_ln = ((size_t)B * D + WARPS) * sizeof(float);
-  ln_fc_in_kernel<<<blocks_for(I), THREADS, smem_ln, st>>>(r_buf, g2, be2, w1_t, s1, b1,
-                                                           h_buf, B, D, I, eps);
-  err = cudaGetLastError();
+  DISPATCH_ROWS(B, err = launch<ln_fc_in_kernel<NB>>(blocks_for(I), smem_ln, st, r_buf, g2,
+                                be2, w1_t, s1, b1, h_buf, B, D, I, eps));
   if (err != cudaSuccess) return (int)err;
   return (int)launch_down(h_buf, r_buf, w2_t, s2, b2, out, B, D, I, I, st);
 }
@@ -359,15 +461,14 @@ int attnout_rms_glu_int8_launch(const void* a, const void* xres, int in_bf16,
                                 const int8_t* wg_t, const float* sg,
                                 const int8_t* wu_t, const float* su,
                                 const int8_t* wd_t, const float* sd,
-                                float* r_buf, float* h_buf, float* out,
+                                float* r_buf, __nv_bfloat16* h_buf, float* out,
                                 int B, int D, int I, int tw, float eps, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = launch_attn_out(a, xres, in_bf16, wo_t, so, nullptr, r_buf, B, D, st);
   if (err != cudaSuccess) return (int)err;
   const size_t smem_ln = ((size_t)B * D + WARPS) * sizeof(float);
-  rms_glu_kernel<<<blocks_for(I), THREADS, smem_ln, st>>>(r_buf, g2, wg_t, sg, wu_t, su,
-                                                          h_buf, B, D, I, eps);
-  err = cudaGetLastError();
+  DISPATCH_ROWS(B, err = launch<rms_glu_kernel<NB>>(blocks_for(I), smem_ln, st, r_buf, g2,
+                                wg_t, sg, wu_t, su, h_buf, B, D, I, eps));
   if (err != cudaSuccess) return (int)err;
   return (int)launch_down(h_buf, r_buf, wd_t, sd, nullptr, out, B, D, I, tw, st);
 }

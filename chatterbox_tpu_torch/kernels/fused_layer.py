@@ -20,6 +20,9 @@ Weights are int8 and stored OUT-MAJOR, (N, K) with K contiguous (`*_t`), the
 layout the CUDA kernels stream; scales, biases and norm parameters are (N,)
 float32; outputs are float32.
 
+Each kernel call takes 1 to MAX_B = 16 rows (one request, a CFG pair, or
+the batched engine's rows).
+
 Dispatch: a CPU tensor takes the plain PyTorch version (`*_plain`), a CUDA
 tensor launches the kernel, and anything else raises. `launches` counts the
 kernel calls made by each wrapper (one per layer and step; each second-half
@@ -34,9 +37,9 @@ import torch
 launches = {"ln_qkv_int8": 0, "attnout_ln_mlp_int8": 0,
             "rms_qkv_int8": 0, "attnout_rms_glu_int8": 0}
 
-MAX_B = 2            # rows a kernel call takes (csrc MAX_B)
+MAX_B = 16           # rows a kernel call takes (csrc: row instances 2-16)
 K_STEP = 512         # contraction bytes a warp reads per iteration
-SMEM_LIMIT = 48 * 1024
+SMEM_LIMIT = 227 * 1024   # dynamic shared memory a block opts in to
 WARPS = 8
 
 _lib = None
@@ -206,7 +209,7 @@ def attnout_ln_mlp_int8(a, xres, wo_t, so, bo, g2, be2, w1_t, s1, b1,
     I = w1_t.shape[0]
     _shape_limits(B, D, "attnout_ln_mlp_int8")
     _shape_limits(B, I, "attnout_ln_mlp_int8")
-    if (B * D + WARPS) * 4 > SMEM_LIMIT or B * I * 4 > SMEM_LIMIT:
+    if (B * D + WARPS) * 4 > SMEM_LIMIT or B * I * 2 > SMEM_LIMIT:
         raise ValueError("attnout_ln_mlp_int8: rows exceed shared memory")
     dev = a.device
     _check("a", a, (B, D), _ACT, dev)
@@ -220,7 +223,7 @@ def attnout_ln_mlp_int8(a, xres, wo_t, so, bo, g2, be2, w1_t, s1, b1,
     for name, t in (("s1", s1), ("b1", b1)):
         _check(name, t, (I,), _F32, dev)
     r_buf = torch.empty((B, D), dtype=torch.float32, device=dev)
-    h_buf = torch.empty((B, I), dtype=torch.float32, device=dev)
+    h_buf = torch.empty((B, I), dtype=torch.bfloat16, device=dev)
     out = torch.empty((B, D), dtype=torch.float32, device=dev)
     err = _kernels().attnout_ln_mlp_int8_launch(
         a.data_ptr(), xres.data_ptr(), int(a.dtype == torch.bfloat16),
@@ -277,7 +280,7 @@ def attnout_rms_glu_int8(a, xres, wo_t, so, g2, wg_t, sg, wu_t, su, wd_t, sd,
     if tw % K_STEP or I % tw:
         raise ValueError(f"attnout_rms_glu_int8: tile {tw} must be a multiple "
                          f"of {K_STEP} dividing {I}")
-    if (B * D + WARPS) * 4 > SMEM_LIMIT or B * I * 4 > SMEM_LIMIT:
+    if (B * D + WARPS) * 4 > SMEM_LIMIT or B * I * 2 > SMEM_LIMIT:
         raise ValueError("attnout_rms_glu_int8: rows exceed shared memory")
     dev = a.device
     _check("a", a, (B, D), _ACT, dev)
@@ -291,7 +294,7 @@ def attnout_rms_glu_int8(a, xres, wo_t, so, g2, wg_t, sg, wu_t, su, wd_t, sd,
     for name, t in (("sg", sg), ("su", su)):
         _check(name, t, (I,), _F32, dev)
     r_buf = torch.empty((B, D), dtype=torch.float32, device=dev)
-    h_buf = torch.empty((B, I), dtype=torch.float32, device=dev)
+    h_buf = torch.empty((B, I), dtype=torch.bfloat16, device=dev)
     out = torch.empty((B, D), dtype=torch.float32, device=dev)
     err = _kernels().attnout_rms_glu_int8_launch(
         a.data_ptr(), xres.data_ptr(), int(a.dtype == torch.bfloat16),

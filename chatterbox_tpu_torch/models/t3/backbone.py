@@ -3,14 +3,21 @@ family) with a preallocated, in-place KV cache.
 
 The counterpart of chatterbox_tpu/models/t3/backbone.py
 (`backbone_apply_unrolled`):
-  * prefill runs the unfused layer over the dense prefix (int8 `linear`
-    is a plain large matrix product);
+  * prefill runs the unfused layer over the prefix (int8 `linear` is a
+    plain large matrix product);
   * a single-token decode step runs each layer as its family's two fused
-    int8 kernels (kernels/fused_layer.py) around plain attention; llama
-    applies RoPE to q and k between the two;
-  * the KV cache is one (L, B, H_kv, T_max, head_dim) bf16 pair written in
-    place; attention reads keys [0, cur] only, so no mask is needed at
-    decode and prefill masks causally.
+    int8 kernels (kernels/fused_layer.py) around attention; llama applies
+    RoPE to q and k between the two;
+  * the KV cache is one (L, B, H_kv, T_max, head_dim) bf16 pair
+    (`KVCache`), or int8 values with one bf16 scale per position
+    (`KVCacheInt8`), written in place at one offset shared by every row;
+  * attention over the cache: with `fused_attn` a single-token step takes
+    the decode-attention kernels (kernels/decode_attention.py): B4 over the
+    int8 cache (MHA heads, tile-aligned cache), B3 over a tile-aligned bf16
+    cache, B7 over an unaligned one; otherwise plain attention (`nn.mha`)
+    over keys [0, end), the int8 cache dequantized first;
+  * `kv_lo` (B,) is the batched layout's per-row left pad: keys below it
+    are masked (and skipped by B3 / B4), positions are given per row.
 """
 from __future__ import annotations
 
@@ -20,6 +27,9 @@ import numpy as np
 import torch
 
 from ...nn import core as nn
+from ...kernels.decode_attention import (TT, decode_attention,
+                                         decode_attention_streamed,
+                                         decode_attention_streamed_int8)
 from ...kernels.fused_layer import (apply_fused_gpt2_mlp_int8,
                                     apply_fused_gpt2_qkv_int8,
                                     apply_fused_llama_mlp_int8,
@@ -124,6 +134,38 @@ class KVCache:
         return self.k.shape[3]
 
 
+class KVCacheInt8:
+    """Int8 KV cache: k_q, v_q (L, B, H_kv, T_max, head_dim) int8 and one
+    scale per position, k_s, v_s (L, B, H_kv, T_max, 1) bf16; updated in
+    place. Half the bytes a decode step reads from the bf16 cache."""
+
+    def __init__(self, k_q: torch.Tensor, v_q: torch.Tensor, k_s: torch.Tensor,
+                 v_s: torch.Tensor):
+        self.k_q, self.v_q, self.k_s, self.v_s = k_q, v_q, k_s, v_s
+
+    @classmethod
+    def zeros(cls, cfg: BackboneConfig, batch: int, max_len: int, device,
+              dtype=torch.bfloat16) -> "KVCacheInt8":
+        shape = (cfg.num_layers, batch, kv_heads(cfg), max_len, cfg.head_dim)
+        z = lambda shp, dt: torch.zeros(shp, dtype=dt, device=device)
+        return cls(z(shape, torch.int8), z(shape, torch.int8),
+                   z(shape[:-1] + (1,), dtype), z(shape[:-1] + (1,), dtype))
+
+    @property
+    def max_len(self) -> int:
+        return self.k_q.shape[3]
+
+
+def quantize_kv(x: torch.Tensor):
+    """x (..., D), e.g. (B, H, t, D) -> (int8 values, (..., 1) f32 scales): symmetric
+    per-position max-abs scaling, s = max|x| / 127 in f32 and
+    q = round(x / max(s, 1e-8)) clipped to +-127 (round half to even)."""
+    xf = x.float()
+    s = xf.abs().amax(-1, keepdim=True) / 127.0
+    q = torch.round(xf / torch.clamp(s, min=1e-8))
+    return q.clamp(-127, 127).to(torch.int8), s
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -177,42 +219,97 @@ def _after_attn(lp: dict, cfg: BackboneConfig, x: torch.Tensor, attn: torch.Tens
                          nn.silu(nn.linear(lp["gate"], y)) * nn.linear(lp["up"], y))
 
 
+def _attn_core(q, ck, cv, cur, mask, end: int, fused: bool, kv_lo=None):
+    """Attention of q (B, H, t, hd) over the cache ck, cv (B, H_kv, T, hd),
+    whose heads repeat to H (GQA). Single-token steps with `fused` take a
+    decode-attention kernel over the whole cache with cur (B,) int32: B3
+    when T is tile-aligned, else B7 when no lower bound is given. Otherwise
+    `nn.mha` over keys [0, end) in q's type, under `mask` (None: every one
+    of those keys attends)."""
+    rep = q.shape[1] // ck.shape[1]
+    if rep > 1:
+        ck, cv = ck.repeat_interleave(rep, dim=1), cv.repeat_interleave(rep, dim=1)
+    if fused and q.shape[2] == 1:
+        if ck.shape[2] % TT == 0:
+            return decode_attention_streamed(q, ck, cv, cur, lo=kv_lo)
+        if kv_lo is None:
+            return decode_attention(q, ck, cv, cur)
+    return nn.mha(q, ck[:, :, :end].to(q.dtype), cv[:, :, :end].to(q.dtype), mask=mask)
+
+
+def _keep_mask(start: int, t: int, end: int, kv_lo, device):
+    """Keep-mask of queries at slots [start, end) over keys [0, end):
+    causal, and keys at or above each row's kv_lo. None when every key
+    attends (a single-token step without a lower bound)."""
+    k_pos = torch.arange(end, device=device)
+    mask = None
+    if t > 1:
+        mask = k_pos[None, :] <= torch.arange(start, end, device=device)[:, None]
+    if kv_lo is not None:
+        lo_ok = (k_pos[None, :] >= kv_lo[:, None])[:, None, None]   # (B, 1, 1, end)
+        mask = lo_ok if mask is None else mask & lo_ok
+    return mask
+
+
 def backbone_apply(params: dict, cfg: BackboneConfig, embeds: torch.Tensor,
-                   positions: torch.Tensor, cache: KVCache,
-                   start: int) -> torch.Tensor:
+                   positions: torch.Tensor, cache, start: int, kv_lo=None,
+                   fused_attn: bool = False) -> torch.Tensor:
     """Run the layers over embeds (B, t, D) at cache offset `start` (a host
-    int: every row is at the same position), writing K/V into
-    cache[:, :, :, start:start+t]. Query i attends to keys [0, start+i].
-    positions (B, t) index the learned (GPT-2) or rotary (llama) positions.
-    Returns the final-norm hidden states (B, t, D)."""
+    int shared by every row), writing K/V into cache[:, :, :, start:start+t]
+    (`KVCache`, or `KVCacheInt8` quantized by `quantize_kv`). Query i
+    attends to keys [kv_lo[b], start+i] (kv_lo (B,) device ints, default
+    0). positions (B, t) index the learned (GPT-2) or rotary (llama)
+    positions. fused_attn lets single-token steps take the decode-attention
+    kernels (see `_attn_core`). Returns the final-norm hidden states
+    (B, t, D)."""
     B, t, D = embeds.shape
     end = start + t
     if end > cache.max_len:
         raise ValueError(f"cache of {cache.max_len} positions cannot hold {end}")
     x = embeds
+    dev = x.device
     rope = None
     if cfg.is_gpt:
         x = x + nn.embedding(params["wpe"], positions).to(x.dtype)
     else:
         # cos and sin in the activation type, as the JAX package casts them
         rope = tuple(c.to(x.dtype) for c in
-                     rope_cos_sin(inv_freq_tensor(cfg, x.device), positions))
-    mask = None
-    if t > 1:
-        q_pos = torch.arange(start, end, device=x.device)[:, None]
-        mask = torch.arange(end, device=x.device)[None, :] <= q_pos
-    rep = cfg.num_heads // kv_heads(cfg)
+                     rope_cos_sin(inv_freq_tensor(cfg, dev), positions))
+    int8 = isinstance(cache, KVCacheInt8)
+    mha_heads = cfg.num_heads == kv_heads(cfg)
+    fused_step = fused_attn and t == 1
+    cur = torch.full((B,), start, dtype=torch.int32, device=dev) if fused_step else None
+    mask = _keep_mask(start, t, end, kv_lo, dev)
+    stop = cache.max_len if fused_step else end     # the kernels take the whole cache
     for i, lp in enumerate(params["layers"]):
         fused = "fused" in lp and t == 1
         q, k, v = _qkv(lp, cfg, x, fused, rope)
-        cache.k[i, :, :, start:end] = k
-        cache.v[i, :, :, start:end] = v
-        ck = cache.k[i, :, :, :end].to(q.dtype)
-        cv = cache.v[i, :, :, :end].to(q.dtype)
-        if rep > 1:
-            ck, cv = ck.repeat_interleave(rep, dim=1), cv.repeat_interleave(rep, dim=1)
-        attn = nn.merge_heads(nn.mha(q, ck, cv, mask=mask))
-        x = _after_attn(lp, cfg, x, attn, fused)
+        if fused_step:
+            q = q.contiguous()     # the kernels take (B, H, 1, hd) packed
+        if int8:
+            kvq, kvs = quantize_kv(torch.stack((k, v)))     # K and V in one pass
+            kvs = kvs.to(cache.k_s.dtype)
+            cache.k_q[i, :, :, start:end] = kvq[0]
+            cache.v_q[i, :, :, start:end] = kvq[1]
+            cache.k_s[i, :, :, start:end] = kvs[0]
+            cache.v_s[i, :, :, start:end] = kvs[1]
+            if fused_step and mha_heads and cache.max_len % TT == 0:
+                attn = decode_attention_streamed_int8(
+                    q, cache.k_q[i], cache.k_s[i][..., 0], cache.v_q[i],
+                    cache.v_s[i][..., 0], cur, lo=kv_lo)
+            else:
+                # dequantized and rounded in the activation type, as the
+                # JAX package does
+                deq = lambda c_q, c_s: (c_q[i, :, :, :stop].to(q.dtype)
+                                        * c_s[i, :, :, :stop].to(q.dtype))
+                attn = _attn_core(q, deq(cache.k_q, cache.k_s), deq(cache.v_q, cache.v_s),
+                                  cur, mask, end, fused_step, kv_lo)
+        else:
+            cache.k[i, :, :, start:end] = k
+            cache.v[i, :, :, start:end] = v
+            attn = _attn_core(q, cache.k[i, :, :, :stop], cache.v[i, :, :, :stop], cur,
+                              mask, end, fused_step, kv_lo)
+        x = _after_attn(lp, cfg, x, nn.merge_heads(attn), fused)
     if cfg.is_gpt:
         return nn.layer_norm(params["ln_f"], x, cfg.layer_norm_eps)
     return nn.rms_norm(params["norm"], x, cfg.rms_norm_eps)

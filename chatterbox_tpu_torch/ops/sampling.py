@@ -6,6 +6,9 @@ sample is a gumbel-max, argmax(logits + g).
 Two processor orders, as in the reference:
   * 520M CFG: cfg combine -> repetition penalty -> temperature -> min_p -> top_p
   * Turbo:    temperature -> top_k -> top_p -> repetition penalty
+
+SamplerParams fields are floats (shared by every row) or, for the batched
+engine, (B, 1) tensors (one value per row).
 """
 from __future__ import annotations
 
@@ -33,24 +36,30 @@ def apply_repetition_penalty(logits, seen, penalty):
     return torch.where(seen, penalized, logits)
 
 
-def _top_p_threshold(sorted_l, probs, top_p: float, keep=None):
+def _shared_keep_all(top_p) -> bool:
+    return not torch.is_tensor(top_p) and top_p >= 1.0
+
+
+def _top_p_threshold(sorted_l, probs, top_p, keep=None):
     """The smallest kept logit of a descending sort: a token is kept while
     the probability mass before it is below top_p. top_p >= 1 keeps every
     token (HF skips the warper there; the cumulative formula alone would
     drop a tail whose mass saturates to exactly 1.0 in f32)."""
-    if top_p < 1.0:
+    if not _shared_keep_all(top_p):
         cum = torch.cumsum(probs, dim=-1)
         in_p = (cum - probs) < top_p
+        if torch.is_tensor(top_p):
+            in_p = in_p | (top_p >= 1.0)
         keep = in_p if keep is None else keep & in_p
     if keep is None:
         return sorted_l[..., -1:]
     return torch.where(keep, sorted_l, torch.inf).amin(dim=-1, keepdim=True)
 
 
-def apply_top_p(logits, top_p: float):
+def apply_top_p(logits, top_p):
     """HF TopPLogitsWarper: keep the smallest prefix of the descending sort
     whose cumulative probability first reaches top_p."""
-    if top_p >= 1.0:
+    if _shared_keep_all(top_p):
         return logits
     sorted_l = torch.sort(logits, dim=-1, descending=True).values
     threshold = _top_p_threshold(sorted_l, torch.softmax(sorted_l, dim=-1), top_p)

@@ -23,6 +23,12 @@ cache holds exactly prefix + max_new_tokens positions and attention reads
 only the filled ones, so the JAX package's bucketed engine
 (`t3_generate_bucketed`, a static-shape schedule for XLA) has no
 counterpart here.
+
+Decode-attention knobs, as in the JAX engine: kv_int8 keeps the cache in
+int8 with a bf16 scale per position (`bb.KVCacheInt8`); fused_attn lets each
+decode step take the decode-attention kernels and rounds the cache length up
+to a multiple of their tile (256 keys). The pipelines pass
+kv_int8=kv_int8, fused_attn=kv_int8.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..kernels.decode_attention import TT
 from ..models.t3 import backbone as bb
 from ..models.t3 import model as t3m
 from ..models.t3.config import T3Config
@@ -63,14 +70,21 @@ def build_prefix(params: dict, hp: T3Config, cond: t3m.T3CondTensors,
     return torch.cat(parts, dim=1)
 
 
+def cache_len(n: int, fused_attn: bool) -> int:
+    """Cache positions for n tokens: rounded up to the decode-attention
+    tile when the kernels read it."""
+    return -(-n // TT) * TT if fused_attn else n
+
+
 def decode_step(params: dict, hp: T3Config, token: torch.Tensor, step: int,
-                cache: bb.KVCache, pos: int) -> torch.Tensor:
+                cache, pos: int, fused_attn: bool = False) -> torch.Tensor:
     """Feed `token` (a () or (B,) long) as generated token `step` at cache
     position `pos`; returns the next logits (B, V) f32."""
-    B = cache.k.shape[1]
+    B = (cache.k_q if isinstance(cache, bb.KVCacheInt8) else cache.k).shape[1]
     emb = t3m.speech_embed_token(params, hp, token.reshape(-1).expand(B), step + 1)
     hidden = bb.backbone_apply(params["backbone"], hp.backbone, emb,
-                               torch.full((B, 1), pos, device=emb.device), cache, pos)
+                               torch.full((B, 1), pos, device=emb.device), cache, pos,
+                               fused_attn=fused_attn)
     return t3m.speech_logits(params, hidden[:, 0]).float()
 
 
@@ -81,24 +95,30 @@ def t3_generate(params: dict, hp: T3Config, cond: t3m.T3CondTensors,
                 cfg_mode: bool = False, cfg_batch2: bool = True,
                 ignore_eos: bool = False,
                 generator: Optional[torch.Generator] = None,
-                gumbel: Optional[torch.Tensor] = None) -> GenResult:
+                gumbel: Optional[torch.Tensor] = None,
+                fused_attn: Optional[bool] = None,
+                kv_int8: bool = False) -> GenResult:
     """Generate speech tokens for one utterance.
 
     text_tokens: (1, Lt) long, the unpadded text ids (SOT/EOT framed for
     the CFG family).
     gumbel: optional (max_new_tokens, V) draws used instead of drawing from
     `generator` (lets a test replay another engine's random numbers).
+    fused_attn (None means False): decode steps take the decode-attention
+    kernels over a tile-aligned cache. kv_int8: the int8 KV cache.
     """
     cfg = hp.backbone
     dev = params["speech_emb"]["w"].device
     V = hp.speech_tokens_dict_size
     stop = hp.stop_speech_token
     B = 2 if cfg_mode and cfg_batch2 else 1
+    fused_attn = bool(fused_attn)
 
     # ---- dense prefix and prefill -----------------------------------------
     x = build_prefix(params, hp, cond, text_tokens, B, cfg_mode)   # (B, P, D)
     P = x.shape[1]
-    cache = bb.KVCache.zeros(cfg, B, P + max_new_tokens, dev)
+    cache_cls = bb.KVCacheInt8 if kv_int8 else bb.KVCache
+    cache = cache_cls.zeros(cfg, B, cache_len(P + max_new_tokens, fused_attn), dev)
     positions = torch.arange(P, device=dev)[None].expand(B, -1)
     hidden = bb.backbone_apply(params["backbone"], cfg, x, positions, cache, 0)
     logits = t3m.speech_logits(params, hidden[:, -1]).float()  # (B, V)
@@ -140,6 +160,6 @@ def t3_generate(params: dict, hp: T3Config, cond: t3m.T3CondTensors,
             break
         if not ignore_eos and (step + 1) % DONE_CHECK_EVERY == 0 and bool(done):
             break
-        logits = decode_step(params, hp, tok, step, cache, P + step)
+        logits = decode_step(params, hp, tok, step, cache, P + step, fused_attn)
         n_forward += 1
     return GenResult(tokens, n_tokens, n_forward)

@@ -2,40 +2,62 @@
 """Smoke run of the PyTorch/CUDA port (chatterbox_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ab <other checkout>
 
-Two paths, each at full width with random weights from a seed, served as
-bench.py serves them (T3 cast to bf16 and quantized int8_fused, S3Gen in
-float32 with default FlowDims and HiFT base 512):
+The second form runs phases 1 and 2, then times the fused decode-layer
+kernels (B1, B2, B5, B6) of this checkout against those of the other at 1
+and 2 rows, in turns on the same operands, and stops.
+
+The port's paths, each at full width with random weights from a seed,
+served as bench.py serves them (T3 cast to bf16 and quantized int8_fused,
+S3Gen in float32 with default FlowDims and HiFT base 512):
   * Turbo: GPT-2-medium T3 (24 layers), meanflow S3Gen; kernels B1, B2;
   * 520M CFG: T3Config.english_only() (Llama-520M, 30 layers, perceiver,
     emotion input, learned positions), batch-2 CFG decode, 10-step CFG
-    S3Gen; kernels B5, B6.
+    S3Gen; kernels B5, B6;
+  * both with kv_int8=True: the int8 KV cache read by B4;
+  * t3_generate(fused_attn=True) on the bf16 cache: B3 (tile-aligned
+    cache), B7 (a cache of another length);
+  * the batched engine behind BatchDecoder with the int8 cache: 8 Turbo
+    requests, 4 CFG requests (8 rows); B1 / B2 or B5 / B6 at 8 rows, B4
+    with each row's left pad as its lower bound.
 
 Phases, in order; any failure exits non-zero without the final "ok" line:
   1. device: the card's name and power limit (nvidia-smi), torch / CUDA /
      nvcc versions; build every CUDA kernel from csrc/ (one nvcc each,
      started together);
   2. models: both pipelines;
-  3. kernels: each kernel against its plain PyTorch version on the card, at
-     its path's shapes (Turbo B=1; CFG B=2, and B=1 for cfg_weight 0) and
-     on the real layers' weights; kernel, plain and library (torch.matmul on
-     pre-dequantized bf16 weights) times over all the layers (more weight
-     bytes than the 50 MB L2), by CUDA-graph replay;
+  3. kernels: each kernel against its plain PyTorch version on the card,
+     timed (kernel, plain, library) over all the layers by CUDA-graph
+     replay: B1 / B2 on the real Turbo weights at 1, 2, 8 and 16 rows,
+     B5 / B6 on the real 520M weights at 2, 1, 8 and 16 rows (library:
+     torch.matmul on pre-dequantized bf16 weights); B3 / B4 / B7 on every
+     layer's own random cache at the paths' shapes: Turbo B=1, T=768 at
+     positions in cache tiles 1-3, 520M B=2, T=512, the batched B=8 with
+     distinct left pads (one past a whole tile), B7 at T=657 (library:
+     scaled_dot_product_attention on the valid window, on a dequantized
+     bf16 copy for B4);
   4. reference: the CUDA path against the CPU path (plain kernel versions)
      on small models, same weights and noise: Turbo T3 teacher-forced
-     logits and meanflow S3Gen waveform; 520M-family T3 teacher-forced CFG
-     logits at batch 2 and 10-step CFG S3Gen waveform;
+     logits on the bf16 and the int8 cache and meanflow S3Gen waveform;
+     520M-family T3 teacher-forced CFG logits at batch 2 on both caches,
+     a batched int8-cache CFG decode of 3 requests of distinct text
+     lengths, and 10-step CFG S3Gen waveform;
   5. main paths, each with the launch counts set to 0 just before and read
-     just after its three timed runs (its own kernels launched layers x
-     decode steps times, the other path's not at all):
+     just after it (its own kernels launched layers x decode steps times,
+     every other kernel not at all):
      ChatterboxTurboTTS.generate with bench.py's Turbo settings (synthetic
      conditionals, P=125, 250 tokens with EOS ignored, top_k 1000,
      temperature 0.8, top_p 0.95, repetition penalty 1.2) and
      ChatterboxTTS.generate with bench.py's 520M settings (cfg_weight 0.5,
      temperature 0.8, top_p 1.0, min_p 0.05, repetition penalty 1.2,
-     exaggeration 0.5, 30 text tokens, 250 tokens with EOS ignored); each
-     once to warm up, three timed runs, one split run for T3 and S3Gen
-     times, and a profile of the decode step.
+     exaggeration 0.5, 30 text tokens, 250 tokens with EOS ignored), on
+     the bf16 cache and with kv_int8=True; each once to warm up, three
+     timed runs, one split run for T3 and S3Gen times, and a profile of
+     the decode step. Then t3_generate(fused_attn=True) of each family,
+     a teacher-forced Turbo decode over an unaligned cache, and each
+     BatchDecoder serving its batch once and then timed for 250 tokens
+     with EOS ignored.
 The line before the last is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}.
 """
@@ -110,17 +132,25 @@ def device_time_ms(fn, reps: int) -> float:
 # phase 3: kernels against their plain versions, timed over the real layers
 # ---------------------------------------------------------------------------
 
+FUSED_SRC = "chatterbox_tpu_torch/csrc/fused_layer.cu"
+ATTN_SRC = "chatterbox_tpu_torch/csrc/decode_attention.cu"
+
+
 class KernelSpec:
     """One kernel on its path's layers: call(i, f) runs f (the kernel's
     wrapper or its plain version) on layer i's operands at batch B;
-    library(i) is one PyTorch call (or a few) computing the same products;
-    bytes_ and ops are what the function must move and compute at this
-    batch."""
+    library(i) is one PyTorch call (or a few) computing the same function
+    (None where there is none); bytes_ and ops are what the function must
+    move and compute at this batch, ops at the `peak` rate. tol bounds the
+    max abs error, times max|plain| when `relative`."""
 
-    def __init__(self, name, replaces, call, library, bytes_, ops, tol, kernel, plain):
+    def __init__(self, name, replaces, call, library, bytes_, ops, tol, kernel, plain,
+                 peak=None, source=FUSED_SRC, relative=False):
         self.name, self.replaces, self.call, self.library = name, replaces, call, library
         self.bytes_, self.ops, self.tol = bytes_, ops, tol
         self.kernel, self.plain = kernel, plain
+        self.peak = peak or PEAK_INT8_OPS
+        self.source, self.relative = source, relative
 
 
 def _inputs(L, B, D, I, seed):
@@ -228,26 +258,29 @@ def llama_specs(tts, K, B=2):
 
 
 def check_specs(specs, L, label) -> dict:
-    """Max abs error of each kernel against its plain version over L layers."""
+    """Max abs error of each kernel against its plain version over L layers
+    (compared in f32)."""
     import torch
     errs = {}
     for sp in specs:
-        e = 0.0
+        e, scale = 0.0, 0.0
         for i in range(L):
             out, ref = sp.call(i, sp.kernel), sp.call(i, sp.plain)
             torch.cuda.synchronize()
             if not torch.isfinite(out).all():
                 raise AssertionError(f"{sp.name} layer {i}: non-finite output")
-            e = max(e, (out - ref).abs().max().item())
+            e = max(e, (out.float() - ref.float()).abs().max().item())
+            scale = max(scale, ref.float().abs().max().item())
+        tol = sp.tol * scale if sp.relative else sp.tol
         log(f"kernel check {sp.name} ({label}): max_abs_err {e:.3e} over {L} layers "
-            f"(tol {sp.tol})")
-        if not e <= sp.tol:
+            f"(tol {tol:.3e}{f' = {sp.tol} of {scale:.3f}' if sp.relative else ''})")
+        if not e <= tol:
             raise AssertionError(f"{sp.name} disagrees with its plain version: {e}")
         errs[sp.name] = e
     return errs
 
 
-def time_specs(specs, L, errs, source) -> list:
+def time_specs(specs, L, errs, label="") -> list:
     rows = []
     reps = {"kernel": 50, "plain": 5, "library": 50}
     for sp in specs:
@@ -258,31 +291,169 @@ def time_specs(specs, L, errs, source) -> list:
         ms = device_time_ms(all_layers(lambda i: sp.call(i, sp.kernel)), reps["kernel"]) / L
         plain_ms = device_time_ms(all_layers(lambda i: sp.call(i, sp.plain)),
                                   reps["plain"]) / L
-        lib_ms = device_time_ms(all_layers(sp.library), reps["library"]) / L
+        lib_ms = (None if sp.library is None else
+                  device_time_ms(all_layers(sp.library), reps["library"]) / L)
         t_bytes = sp.bytes_ / HBM_BYTES_PER_S * 1e3
-        t_ops = sp.ops / PEAK_INT8_OPS * 1e3
-        rows.append({"name": sp.name, "route": "cuda", "source": source,
+        t_ops = sp.ops / sp.peak * 1e3
+        rows.append({"name": sp.name, "route": "cuda", "source": sp.source,
                      "replaces": sp.replaces, "launches": 0,
                      "max_abs_err": errs[sp.name], "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                      "library_ms": lib_ms})
-        log(f"kernel time {sp.name}: {ms * 1e3:.2f} us/call on the card (plain "
-            f"{plain_ms * 1e3:.2f}, library {lib_ms * 1e3:.2f}, bound "
+        lib = "none" if lib_ms is None else f"{lib_ms * 1e3:.2f}"
+        log(f"kernel time {sp.name}{f' ({label})' if label else ''}: {ms * 1e3:.2f} "
+            f"us/call on the card (plain {plain_ms * 1e3:.2f}, library {lib}, bound "
             f"{max(t_bytes, t_ops) * 1e3:.2f} us for {sp.bytes_ / 1e6:.3f} MB); "
             f"{eager_ms * 1e3:.2f} us/call launched from Python")
     return rows
 
 
 def check_kernels(turbo, cfg520, K) -> list:
-    source = "chatterbox_tpu_torch/csrc/fused_layer.cu"
+    """B1, B2 at Turbo's B=1 and B5, B6 at CFG's B=2 give the rows of the
+    kernels line; the other row counts are checked and timed for the
+    record: B1 / B2 at 2, 8 and 16 rows, B5 / B6 at 1, 8 and 16 (8: eight
+    Turbo requests or four CFG requests; 16: eight CFG requests)."""
     L1, L2 = turbo.hp.backbone.num_layers, cfg520.hp.backbone.num_layers
-    g_specs = gpt2_specs(turbo, K, B=1)
-    rows = time_specs(g_specs, L1, check_specs(g_specs, L1, "Turbo, B=1"), source)
-    del g_specs
-    check_specs(llama_specs(cfg520, K, B=1), L2, "520M, B=1 (cfg_weight 0)")
-    l_specs = llama_specs(cfg520, K, B=2)
-    rows += time_specs(l_specs, L2, check_specs(l_specs, L2, "520M, B=2 (CFG)"), source)
+    rows = []
+    for B in (1, 2, 8, 16):
+        g_specs = gpt2_specs(turbo, K, B=B)
+        r = time_specs(g_specs, L1, check_specs(g_specs, L1, f"Turbo family, B={B}"),
+                       f"B={B}")
+        rows += r if B == 1 else []
+        del g_specs
+    for B in (2, 1, 8, 16):
+        l_specs = llama_specs(cfg520, K, B=B)
+        r = time_specs(l_specs, L2, check_specs(l_specs, L2, f"520M family, B={B}"),
+                       f"B={B}")
+        rows += r if B == 2 else []
+        del l_specs
+    return rows
+
+
+def _load_other_kernels(root: str):
+    """Another checkout's kernels/fused_layer.py, imported as a package of
+    its own (its csrc/ builds into its own _build/)."""
+    import importlib
+    import types
+    from pathlib import Path
+    pkg = types.ModuleType("other_kernels")
+    pkg.__path__ = [str(Path(root).resolve() / "chatterbox_tpu_torch" / "kernels")]
+    sys.modules["other_kernels"] = pkg
+    return importlib.import_module("other_kernels.fused_layer")
+
+
+def ab_fused(turbo, cfg520, K, root: str) -> None:
+    """B1, B2 (Turbo weights) and B5, B6 (520M weights) of this checkout
+    against those of the checkout at `root`, at 1 and 2 rows on the same
+    operands: each checked against this checkout's plain version, then
+    timed by CUDA-graph replay in turns (other, this, this, other)."""
+    other = _load_other_kernels(root)
+    L1, L2 = turbo.hp.backbone.num_layers, cfg520.hp.backbone.num_layers
+    for B in (1, 2):
+        for L, specs in ((L1, gpt2_specs(turbo, K, B=B)), (L2, llama_specs(cfg520, K, B=B))):
+            for sp in specs:
+                fns = {"this": sp.kernel, "other": getattr(other, sp.name)}
+                for label, f in fns.items():
+                    check_specs([KernelSpec(sp.name, sp.replaces, sp.call, None, 0, 0,
+                                            sp.tol, f, sp.plain)], L, f"{label}, B={B}")
+                us = {"this": [], "other": []}
+                for label in ("other", "this", "this", "other"):
+                    f = fns[label]
+                    us[label].append(device_time_ms(
+                        lambda: [sp.call(i, f) for i in range(L)], 50) / L * 1e3)
+                a, b = sum(us["other"]) / 2, sum(us["this"]) / 2
+                log(f"A/B {sp.name} B={B}: other {us['other'][0]:.2f} / "
+                    f"{us['other'][1]:.2f} us, this {us['this'][0]:.2f} / "
+                    f"{us['this'][1]:.2f} us per call -> this / other {b / a:.3f}")
+
+
+# Attention tolerance: the outputs are bf16, compared in f32; the kernel and
+# its plain version sum in another order and may round to neighbouring bf16
+# values: one bf16 ulp of the output's magnitude.
+TOL_ATTN = 2.0 ** -7
+PEAK_F32_OPS = 67e12           # float32 outside the tensor cores (data sheet)
+
+
+def attention_specs(A, bb, L, B, H, T, D, cur, lo, seed, which=("B3", "B4", "B7")):
+    """The decode-attention kernels on L layers' own random caches (bf16,
+    and int8 quantized from it by the engine's quantize_kv) at one shape;
+    cur and lo are per-row host ints (lo None: windows from 0). The library
+    call is scaled_dot_product_attention on the valid window where every
+    row's window is the same (on a dequantized bf16 copy for B4)."""
+    import torch
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device="cuda").bfloat16()
+    layers = []
+    for _ in range(L):
+        q, k, v = r(B, H, 1, D), r(B, H, T, D), r(B, H, T, D)
+        (kq, ks), (vq, vs) = bb.quantize_kv(k), bb.quantize_kv(v)
+        ks, vs = ks[..., 0].bfloat16().contiguous(), vs[..., 0].bfloat16().contiguous()
+        layers.append((q, k, v, kq, ks, vq, vs,
+                       (kq.bfloat16() * ks[..., None]), (vq.bfloat16() * vs[..., None])))
+    cur_t = torch.tensor(cur, dtype=torch.int32, device="cuda")
+    lo_h = lo or [0] * B
+    lo_t = None if lo is None else torch.tensor(lo, dtype=torch.int32, device="cuda")
+    keys = sum(min(c, T - 1) - l + 1 for c, l in zip(cur, lo_h))   # per head
+    same = len(set(cur)) == 1 and len(set(lo_h)) == 1
+    a, c = lo_h[0], min(cur[0], T - 1) + 1
+
+    def sdpa(kk, vv):
+        return lambda i: F.scaled_dot_product_attention(
+            layers[i][0], layers[i][kk][:, :, a:c], layers[i][vv][:, :, a:c])
+
+    qo = 2 * B * H * D * 2                     # q read and out written, bf16
+    ops = 4 * H * D * keys                     # score and value products
+    specs = {
+        "B3": KernelSpec(
+            "decode_attention_streamed", "chatterbox_tpu/ops/pallas_attention.py:133",
+            lambda i, f: f(*layers[i][:3], cur_t, lo_t), sdpa(1, 2) if same else None,
+            2 * H * D * 2 * keys + qo, ops, TOL_ATTN, A.decode_attention_streamed,
+            A.decode_attention_streamed_plain, PEAK_F32_OPS, ATTN_SRC, True),
+        "B4": KernelSpec(
+            "decode_attention_streamed_int8", "chatterbox_tpu/ops/pallas_attention.py:255",
+            lambda i, f: f(layers[i][0], *layers[i][3:7], cur_t, lo_t),
+            sdpa(7, 8) if same else None, 2 * H * (D + 2) * keys + qo, ops, TOL_ATTN,
+            A.decode_attention_streamed_int8, A.decode_attention_streamed_int8_plain,
+            PEAK_F32_OPS, ATTN_SRC, True),
+        "B7": KernelSpec(
+            "decode_attention", "chatterbox_tpu/ops/pallas_attention.py:320",
+            lambda i, f: f(*layers[i][:3], cur_t), sdpa(1, 2) if same else None,
+            2 * H * D * 2 * keys + qo, ops, TOL_ATTN, A.decode_attention,
+            A.decode_attention_plain, PEAK_F32_OPS, ATTN_SRC, True),
+    }
+    return [specs[w] for w in which]
+
+
+def check_attention(turbo, cfg520, A, bb) -> list:
+    """B3, B4 and B7 against their plain versions over every layer at the
+    paths' shapes; the rows of the kernels line at Turbo's single stream
+    (B=1, cache 768 for B3 / B4 and an unaligned 657 for B7, position 530)."""
+    L1, L2 = turbo.hp.backbone.num_layers, cfg520.hp.backbone.num_layers
+    H, D = turbo.hp.backbone.num_heads, turbo.hp.backbone.head_dim
+    for cur in (200, 400, 700):                     # cache tiles 1, 2 and 3
+        check_specs(attention_specs(A, bb, L1, 1, H, 768, D, [cur], None, cur, ("B3", "B4")),
+                    L1, f"Turbo B=1, T=768, cur {cur}")
+    specs = attention_specs(A, bb, L1, 1, H, 768, D, [530], None, 1, ("B3", "B4"))
+    rows = time_specs(specs, L1, check_specs(specs, L1, "Turbo B=1, T=768, cur 530"),
+                      "Turbo B=1, T=768, cur 530")
+    specs = attention_specs(A, bb, L1, 1, H, 657, D, [530], None, 2, ("B7",))
+    rows += time_specs(specs, L1, check_specs(specs, L1, "B=1, T=657, cur 530"),
+                       "B=1, T=657, cur 530")
+    # 520M CFG: two rows at one position; prefix 66 + 250 tokens in 512
+    specs = attention_specs(A, bb, L2, 2, cfg520.hp.backbone.num_heads, 512,
+                            cfg520.hp.backbone.head_dim, [190, 190], None, 3, ("B3", "B4"))
+    time_specs(specs, L2, check_specs(specs, L2, "520M B=2, T=512, cur 190"),
+               "520M B=2, T=512, cur 190")
+    # the batched engine: eight left-padded rows, one pad past a whole tile
+    lo = [0, 3, 9, 17, 40, 100, 257, 300]
+    specs = attention_specs(A, bb, L1, 8, H, 768, D, [540] * 8, lo, 4, ("B3", "B4"))
+    time_specs(specs, L1, check_specs(specs, L1, f"batched B=8, T=768, cur 540, lo {lo}"),
+               "batched B=8, T=768, cur 540")
+    specs = attention_specs(A, bb, L1, 8, H, 657, D, [300 + 40 * i for i in range(8)],
+                            None, 5, ("B7",))
+    check_specs(specs, L1, "B=8, T=657")
     return rows
 
 
@@ -304,30 +475,50 @@ def _to(tree, device):
     return tree.to(device) if torch.is_tensor(tree) else tree
 
 
-def _teacher_forced(params, hp, cond, text, forced, batch, cfg_mode, dev):
+def _teacher_forced(params, hp, cond, text, forced, batch, cfg_mode, dev, kv_int8=False):
     """Prefill the dense prefix, then one decode step per forced token:
-    (steps, batch, V) logits on the host."""
+    (steps, batch, V) logits on the host. kv_int8: the int8 cache in a
+    tile-aligned length, decode steps with fused attention (B4 on the card)."""
     import torch
     from chatterbox_tpu_torch.models.t3 import backbone as bb
     from chatterbox_tpu_torch.models.t3 import model as t3m
-    from chatterbox_tpu_torch.sampling.decode import build_prefix, decode_step
+    from chatterbox_tpu_torch.sampling.decode import build_prefix, cache_len, decode_step
     x = build_prefix(params, hp, cond, text.to(dev), batch, cfg_mode)
     Pn = x.shape[1]
-    cache = bb.KVCache.zeros(hp.backbone, batch, Pn + len(forced), dev)
+    cache_cls = bb.KVCacheInt8 if kv_int8 else bb.KVCache
+    cache = cache_cls.zeros(hp.backbone, batch, cache_len(Pn + len(forced), kv_int8), dev)
     h = bb.backbone_apply(params["backbone"], hp.backbone, x,
                           torch.arange(Pn, device=dev)[None].expand(batch, -1), cache, 0)
     out = [t3m.speech_logits(params, h[:, -1]).float()]
     for i, tok in enumerate(forced[:-1]):
-        out.append(decode_step(params, hp, torch.tensor(tok, device=dev), i, cache, Pn + i))
+        out.append(decode_step(params, hp, torch.tensor(tok, device=dev), i, cache, Pn + i,
+                               fused_attn=kv_int8))
     return torch.stack(out).cpu()
 
 
-def _t3_reference(hp, batch, cfg_mode, seed, label):
+def _small_t3(hp, seed):
+    from chatterbox_tpu_torch.models.t3 import model as t3m
+    from chatterbox_tpu_torch.utils.quantize import quantize_t3_backbone
+    return quantize_t3_backbone(t3m.t3_init(hp, seed=seed, device="cpu"), mode="int8_fused")
+
+
+def _compare_logits(ref, out, label):
+    import torch
+    err = (out - ref).abs().max().item() / ref.abs().max().item()
+    log(f"reference T3 ({label}): teacher-forced logits cuda vs cpu, max err "
+        f"{err:.3e} of scale")
+    # bf16 roundings inside the kernels and the bf16 cache may land on the
+    # other side for another summation order (same bound as the CPU tests);
+    # so may an int8 code of the int8 cache
+    if not (bool(torch.isfinite(out).all()) and err <= 3e-3):
+        raise AssertionError(f"T3 logits on the card disagree with the CPU path: {err}")
+
+
+def _t3_reference(hp, batch, cfg_mode, seed, label, kv_int8=False):
     import numpy as np
     import torch
     from chatterbox_tpu_torch.models.t3 import model as t3m
-    from chatterbox_tpu_torch.utils.quantize import quantize_t3_backbone
-    cpu = quantize_t3_backbone(t3m.t3_init(hp, seed=seed, device="cpu"), mode="int8_fused")
+    cpu = _small_t3(hp, seed)
     rng = np.random.default_rng(seed)
     spk = torch.from_numpy(rng.standard_normal((1, 256)).astype(np.float32))
     prompt = torch.from_numpy(rng.integers(0, 6561, (1, 8)))
@@ -337,17 +528,57 @@ def _t3_reference(hp, batch, cfg_mode, seed, label):
 
     def logits(params, dev):
         cond = t3m.T3CondTensors(spk.to(dev), prompt.to(dev), emo.to(dev))
-        return _teacher_forced(params, hp, cond, text, forced, batch, cfg_mode, dev)
+        return _teacher_forced(params, hp, cond, text, forced, batch, cfg_mode, dev,
+                               kv_int8)
 
     with torch.no_grad():
         ref, out = logits(cpu, "cpu"), logits(_to(cpu, "cuda"), "cuda")
-    err = (out - ref).abs().max().item() / ref.abs().max().item()
-    log(f"reference T3 ({label}): teacher-forced logits cuda vs cpu, max err "
-        f"{err:.3e} of scale")
-    # bf16 roundings inside the kernels and the bf16 cache may land on the
-    # other side for another summation order (same bound as the CPU tests)
-    if not err <= 3e-3:
-        raise AssertionError(f"T3 logits on the card disagree with the CPU path: {err}")
+    _compare_logits(ref, out, label)
+
+
+def _batched_reference(hp, seed, label):
+    """The batched engine with the int8 cache, CFG, three requests of
+    distinct text lengths (left pads 0, 3 and 7): its prefill, then
+    teacher-forced decode steps through the engine's backbone call (B4 with
+    lo = pad and the fused kernels at six rows on the card)."""
+    import numpy as np
+    import torch
+    from chatterbox_tpu_torch.models.t3 import backbone as bb
+    from chatterbox_tpu_torch.models.t3 import model as t3m
+    from chatterbox_tpu_torch.sampling.batched import t3_prefill_batched
+    from chatterbox_tpu_torch.sampling.decode import cache_len
+    cpu = _small_t3(hp, seed)
+    rng = np.random.default_rng(seed)
+    lens = [12, 9, 5]
+    text = np.zeros((3, 12), np.int64)
+    for i, n in enumerate(lens):
+        text[i, :n] = rng.integers(1, 64, n)
+    spk = rng.standard_normal((3, 256)).astype(np.float32)
+    prompt = rng.integers(0, 6561, (3, 8))
+    forced = rng.integers(0, 6561, (10, 3))
+
+    def logits(params, dev):
+        cond = t3m.T3CondTensors(torch.from_numpy(spk).to(dev),
+                                 torch.from_numpy(prompt).to(dev),
+                                 torch.full((3, 1, 1), 0.5, device=dev))
+        P = t3m.cond_len(hp) + 12 + 2
+        st = t3_prefill_batched(params, hp, cond, torch.from_numpy(text).to(dev), lens,
+                                [torch.Generator(device=dev) for _ in lens],
+                                t_cap=cache_len(P + len(forced), True),
+                                max_new_tokens=len(forced), cfg_mode=True, kv_int8=True)
+        out = [st.logits]
+        for s, tok in enumerate(forced[:-1]):
+            tok = torch.from_numpy(np.concatenate([tok, tok])).to(dev)
+            emb = t3m.speech_embed_token(params, hp, tok, s + 1)
+            h = bb.backbone_apply(params["backbone"], hp.backbone, emb,
+                                  (st.prefix_lens + s)[:, None], st.cache, st.p_pad + s,
+                                  kv_lo=st.pad, fused_attn=True)
+            out.append(t3m.speech_logits(params, h[:, 0]).float())
+        return torch.stack(out).cpu()
+
+    with torch.no_grad():
+        ref, out = logits(cpu, "cpu"), logits(_to(cpu, "cuda"), "cuda")
+    _compare_logits(ref, out, label)
 
 
 def _s3gen_reference(meanflow, seed, label, **tail):
@@ -383,17 +614,24 @@ def _s3gen_reference(meanflow, seed, label, **tail):
 
 def check_reference():
     from chatterbox_tpu_torch.models.t3.config import T3Config
-    _t3_reference(T3Config(text_tokens_dict_size=64, backbone_name="GPT2_fused_test",
-                           speech_tokens_dict_size=6564, input_pos_emb=None,
-                           speech_cond_prompt_len=8, use_perceiver_resampler=False,
-                           emotion_adv=False),
-                  batch=1, cfg_mode=False, seed=3, label="Turbo family, GPT2_fused_test")
+    turbo_hp = T3Config(text_tokens_dict_size=64, backbone_name="GPT2_fused_test",
+                        speech_tokens_dict_size=6564, input_pos_emb=None,
+                        speech_cond_prompt_len=8, use_perceiver_resampler=False,
+                        emotion_adv=False)
+    cfg_hp = T3Config(text_tokens_dict_size=64, backbone_name="Llama_fused_test",
+                      speech_tokens_dict_size=6564, speech_cond_prompt_len=8,
+                      max_text_tokens=64, max_speech_tokens=128)
+    _t3_reference(turbo_hp, batch=1, cfg_mode=False, seed=3,
+                  label="Turbo family, GPT2_fused_test")
+    _t3_reference(turbo_hp, batch=1, cfg_mode=False, seed=7,
+                  label="Turbo family, GPT2_fused_test, int8 KV", kv_int8=True)
     _s3gen_reference(True, 4, "meanflow, 2 steps", append_sil=3)
-    _t3_reference(T3Config(text_tokens_dict_size=64, backbone_name="Llama_fused_test",
-                           speech_tokens_dict_size=6564, speech_cond_prompt_len=8,
-                           max_text_tokens=64, max_speech_tokens=128),
-                  batch=2, cfg_mode=True, seed=5,
+    _t3_reference(cfg_hp, batch=2, cfg_mode=True, seed=5,
                   label="520M family, Llama_fused_test, CFG batch 2")
+    _t3_reference(cfg_hp, batch=2, cfg_mode=True, seed=8,
+                  label="520M family, Llama_fused_test, CFG batch 2, int8 KV", kv_int8=True)
+    _batched_reference(cfg_hp, seed=9,
+                       label="batched int8-KV CFG, Llama_fused_test, 3 requests")
     _s3gen_reference(False, 6, "CFG, 10 steps", cfg_slice=True)
 
 
@@ -440,7 +678,31 @@ def vocoded_tokens(res, cfg_slice: bool) -> int:
     return max(int((toks < S3_VOCAB).sum()), 1)
 
 
-def run_path(tts, K, label, kernels, other, gen_kw, decode_kw, cfg_slice):
+COUNTERS = []                  # the launch-count dicts of the kernel modules
+
+
+def reset_counts():
+    for c in COUNTERS:
+        for k in c:
+            c[k] = 0
+
+
+def read_counts() -> dict:
+    return {k: v for c in COUNTERS for k, v in c.items()}
+
+
+def check_counts(counts, label, expected: dict):
+    """Each named kernel launched exactly as often as expected; every other
+    kernel not at all."""
+    for name in counts:
+        want = expected.get(name, 0)
+        log(f"launches {name} ({label}): {counts[name]} (expected {want})")
+        if counts[name] != want:
+            raise AssertionError(f"{name} launched {counts[name]} times on the {label} "
+                                 f"path, expected {want}")
+
+
+def run_path(tts, label, kernels, gen_kw, decode_kw, cfg_slice):
     """Warm-up, three timed generate runs with the launch counts set to 0
     just before and read just after, then a split run and a decode-step
     profile. Returns the launch counts of the timed runs."""
@@ -450,8 +712,7 @@ def run_path(tts, K, label, kernels, other, gen_kw, decode_kw, cfg_slice):
     text = "The quick brown fox jumps over the lazy dog near the river bank."
     tts.generate(text, **gen_kw)                               # warm-up
     torch.cuda.synchronize()
-    for k in K.launches:
-        K.launches[k] = 0
+    reset_counts()
     totals, forwards, audio_s = [], 0, None
     for _ in range(3):
         t0 = time.perf_counter()
@@ -465,26 +726,19 @@ def run_path(tts, K, label, kernels, other, gen_kw, decode_kw, cfg_slice):
             raise AssertionError(f"{label}: waveform {wav.shape} (expected {expect}), "
                                  f"finite={np.isfinite(wav).all()}")
         audio_s = n_voc / 25.0
-    counts = dict(K.launches)
+    counts = read_counts()
     L = tts.hp.backbone.num_layers
-    for name in kernels:
-        log(f"launches {name} ({label}): {counts[name]} (expected {L} x {forwards} "
-            f"decode steps)")
-        if counts[name] != L * forwards:
-            raise AssertionError(f"{name} launched {counts[name]} times, "
-                                 f"expected {L * forwards}")
-    for name in other:
-        if counts[name]:
-            raise AssertionError(f"{name} launched {counts[name]} times on the "
-                                 f"{label} path, which does not run it")
+    check_counts(counts, f"{label}, {L} layers x {forwards} decode steps",
+                 {name: L * forwards for name in kernels})
     best = min(totals)
     log(f"{label} generate: {[round(t, 4) for t in totals]} s for {audio_s:.2f} s of "
         f"audio ({n_voc} vocoded tokens of {N_TOKENS}) -> x-realtime "
         f"{audio_s / best:.3f} (best of 3)")
 
     # split run: T3 decode and S3Gen vocode timed apart
-    ids = torch.as_tensor(decode_kw.pop("ids"), device="cuda").long()
-    sp = decode_kw.pop("sp")
+    ids = torch.as_tensor(decode_kw["ids"], device="cuda").long()
+    sp = decode_kw["sp"]
+    decode_kw = {k: v for k, v in decode_kw.items() if k not in ("ids", "sp")}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = t3_generate(tts.t3_params, tts.hp, tts.conds.t3.as_tensors("cuda"), ids, sp,
@@ -543,29 +797,180 @@ def profile_decode(tts, ids, sp, decode_kw, step_s: float, label: str,
         log(f"  {us:9.2f} us/step {100 * us / total:5.1f} % {calls:7.1f} calls/step  {key[:80]}")
 
 
-def main_paths(turbo, cfg520, K, rows):
+GPT2 = ("ln_qkv_int8", "attnout_ln_mlp_int8")
+LLAMA = ("rms_qkv_int8", "attnout_rms_glu_int8")
+B3, B4, B7 = "decode_attention_streamed", "decode_attention_streamed_int8", "decode_attention"
+
+
+def main_paths(turbo, cfg520) -> dict:
+    """Both pipelines on the bf16 cache (the default) and with kv_int8=True;
+    returns the launch counts summed over the paths."""
     from chatterbox_tpu_torch.ops.sampling import SamplerParams
-    gpt2 = ("ln_qkv_int8", "attnout_ln_mlp_int8")
-    llama = ("rms_qkv_int8", "attnout_rms_glu_int8")
     text = "The quick brown fox jumps over the lazy dog near the river bank."
-    counts = run_path(
-        turbo, K, "Turbo", gpt2, llama,
-        dict(max_new_tokens=N_TOKENS, top_k=1000, temperature=0.8, top_p=0.95,
-             repetition_penalty=1.2, ignore_eos=True),
-        dict(ids=turbo.tokenizer.text_to_tokens(text), sp=SamplerParams(0.8, 0.95, 1.2),
-             top_k=1000), cfg_slice=False)
+    turbo_gen = dict(max_new_tokens=N_TOKENS, top_k=1000, temperature=0.8, top_p=0.95,
+                     repetition_penalty=1.2, ignore_eos=True)
+    turbo_dec = dict(ids=turbo.tokenizer.text_to_tokens(text),
+                     sp=SamplerParams(0.8, 0.95, 1.2), top_k=1000)
     kw = dict(temperature=0.8, top_p=1.0, min_p=0.05, repetition_penalty=1.2,
               cfg_weight=0.5)
-    counts_cfg = run_path(
-        cfg520, K, "520M CFG", llama, gpt2,
-        dict(max_new_tokens=N_TOKENS, exaggeration=0.5, ignore_eos=True, **kw),
-        dict(ids=cfg520.frame_text(text), sp=SamplerParams(**kw), cfg_mode=True),
-        cfg_slice=True)
-    for r in rows:
-        r["launches"] = (counts if r["name"] in gpt2 else counts_cfg)[r["name"]]
+    cfg_gen = dict(max_new_tokens=N_TOKENS, exaggeration=0.5, ignore_eos=True, **kw)
+    cfg_dec = dict(ids=cfg520.frame_text(text), sp=SamplerParams(**kw), cfg_mode=True)
+    int8 = dict(kv_int8=True, fused_attn=True)
+    paths = [
+        (turbo, "Turbo", GPT2, turbo_gen, turbo_dec, False),
+        (cfg520, "520M CFG", LLAMA, cfg_gen, cfg_dec, True),
+        (turbo, "Turbo kv_int8", GPT2 + (B4,), dict(turbo_gen, kv_int8=True),
+         dict(turbo_dec, **int8), False),
+        (cfg520, "520M CFG kv_int8", LLAMA + (B4,), dict(cfg_gen, kv_int8=True),
+         dict(cfg_dec, **int8), True),
+    ]
+    totals = {}
+    for tts, label, kernels, gen_kw, dec_kw, cfg_slice in paths:
+        counts = run_path(tts, label, kernels, gen_kw, dec_kw, cfg_slice)
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+    return totals
 
 
-def main() -> int:
+def fused_attention_paths(turbo, cfg520) -> dict:
+    """t3_generate(fused_attn=True) on the bf16 cache of each family (B3 on
+    the tile-aligned cache), and a teacher-forced Turbo decode through
+    backbone_apply(fused_attn=True) over an unaligned cache (B7)."""
+    import torch
+    from chatterbox_tpu_torch.models.t3 import backbone as bb
+    from chatterbox_tpu_torch.ops.sampling import SamplerParams
+    from chatterbox_tpu_torch.sampling.decode import build_prefix, decode_step, t3_generate
+    text = "The quick brown fox jumps over the lazy dog near the river bank."
+    totals = {}
+    for tts, label, kernels, ids, kw in (
+            (turbo, "Turbo", GPT2, turbo.tokenizer.text_to_tokens(text),
+             dict(sp=SamplerParams(0.8, 0.95, 1.2), top_k=1000)),
+            (cfg520, "520M CFG", LLAMA, cfg520.frame_text(text),
+             dict(sp=SamplerParams(0.8, 1.0, 1.2, 0.05, 0.5), cfg_mode=True))):
+        ids = torch.as_tensor(ids, device="cuda").long()
+        cond = tts.conds.t3.as_tensors("cuda")
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = t3_generate(tts.t3_params, tts.hp, cond, ids, max_new_tokens=N_TOKENS,
+                          ignore_eos=True, generator=tts.generator, fused_attn=True, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        L = tts.hp.backbone.num_layers
+        counts = read_counts()
+        check_counts(counts, f"{label} t3_generate(fused_attn=True), {L} layers x "
+                     f"{res.n_forward} decode steps",
+                     {k: L * res.n_forward for k in kernels + (B3,)})
+        log(f"{label} T3 decode, bf16 cache with fused attention: {dt:.4f} s for "
+            f"{N_TOKENS} tokens ({dt / N_TOKENS * 1e3:.3f} ms/token)")
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    # teacher-forced Turbo over a cache whose length is not a multiple of 256
+    hp, params = turbo.hp, turbo.t3_params
+    cond = turbo.conds.t3.as_tensors("cuda")
+    ids = torch.as_tensor(turbo.tokenizer.text_to_tokens(text), device="cuda").long()
+    with torch.no_grad():
+        x = build_prefix(params, hp, cond, ids, 1, False)
+        P, n = x.shape[1], 40
+        T = P + n + (1 if (P + n) % 256 == 0 else 0)
+        cache = bb.KVCache.zeros(hp.backbone, 1, T, "cuda")
+        bb.backbone_apply(params["backbone"], hp.backbone, x,
+                          torch.arange(P, device="cuda")[None], cache, 0)
+        reset_counts()
+        tok = torch.tensor(100, device="cuda")
+        for i in range(n):
+            logits = decode_step(params, hp, tok, i, cache, P + i, fused_attn=True)
+            tok = logits[0].argmax()
+        torch.cuda.synchronize()
+    L = hp.backbone.num_layers
+    counts = read_counts()
+    check_counts(counts, f"Turbo teacher-forced over an unaligned {T}-slot cache, "
+                 f"{L} layers x {n} steps", {k: L * n for k in GPT2 + (B7,)})
+    if not torch.isfinite(logits).all():
+        raise AssertionError("non-finite logits over the unaligned cache")
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+    return totals
+
+
+def batched_paths(turbo, cfg520) -> dict:
+    """BatchDecoder with the int8 cache: eight Turbo requests of 12-30 text
+    tokens, then four 520M CFG requests (eight rows). Each serves its batch
+    once (EOS honoured, every result checked), then the same batch is timed
+    for N_TOKENS tokens with EOS ignored, launch counts checked."""
+    import numpy as np
+    import torch
+    from chatterbox_tpu_torch.sampling.batched import t3_generate_batched
+    from chatterbox_tpu_torch.serve.batching import BatchDecoder, TTSRequest
+    texts = ["The quick brown fox jumps over the lazy dog near the river bank.",
+             "A stitch in time saves nine, or so the old saying goes.",
+             "Please call Stella and ask her to bring these things.",
+             "It was the best of times, it was the worst of times.",
+             "Rain fell softly on the quiet harbour all night long.",
+             "Numbers like 1999 and 2024 should read naturally too.",
+             "She sells sea shells by the sea shore every summer.",
+             "The meeting starts at nine; please do not be late."]
+    turbo_reqs = [TTSRequest(_Tokenizer(12 + 18 * i // 7, 50000).text_to_tokens(t)[0],
+                             turbo.conds.t3, request_id=i, seed=100 + i)
+                  for i, t in enumerate(texts)]
+    hp = cfg520.hp           # SOT/EOT framing, as ChatterboxTTS.frame_text
+    cfg_reqs = [TTSRequest(np.concatenate([[hp.start_text_token],
+                                           _Tokenizer(10 + 6 * i, 704).text_to_tokens(t)[0],
+                                           [hp.stop_text_token]]),
+                           cfg520.conds.t3, request_id=i, seed=200 + i)
+                for i, t in enumerate(texts[:4])]
+    totals = {}
+    for tts, label, kernels, reqs, dec in (
+            (turbo, "Turbo BatchDecoder, 8 requests", GPT2, turbo_reqs,
+             BatchDecoder(turbo.t3_params, turbo.hp, max_batch=8, max_new_tokens=N_TOKENS,
+                          kv_int8=True)),
+            (cfg520, "520M CFG BatchDecoder, 4 requests", LLAMA, cfg_reqs,
+             BatchDecoder(cfg520.t3_params, cfg520.hp, cfg=True, max_batch=4,
+                          max_new_tokens=N_TOKENS, kv_int8=True))):
+        t0 = time.perf_counter()
+        results = dec.decode_batch(reqs)
+        served = time.perf_counter() - t0
+        if [r.request_id for r in results] != [r.request_id for r in reqs]:
+            raise AssertionError(f"{label}: results out of order")
+        for r in results:
+            t = r.speech_tokens
+            if not (t.ndim == 1 and ((t >= 0) & (t < S3_VOCAB)).all()):
+                raise AssertionError(f"{label}: request {r.request_id} has invalid tokens")
+        log(f"{label}: served in {served:.3f} s, tokens per request "
+            f"{[len(r.speech_tokens) for r in results]}")
+        inputs = dec.batch_inputs(reqs)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = t3_generate_batched(tts.t3_params, tts.hp, *inputs, max_new_tokens=N_TOKENS,
+                                  top_k=dec.top_k, cfg_mode=dec.cfg, kv_int8=True,
+                                  ignore_eos=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        toks = res.tokens.cpu().numpy()
+        if not ((toks >= 0) & (toks < tts.hp.speech_tokens_dict_size)).all():
+            raise AssertionError(f"{label}: invalid token ids")
+        L = tts.hp.backbone.num_layers
+        counts = read_counts()
+        check_counts(counts, f"{label}, {L} layers x {res.n_forward} decode steps",
+                     {k: L * res.n_forward for k in kernels + (B4,)})
+        B = toks.shape[0]
+        log(f"{label} decode, {B} requests ({B * (2 if dec.cfg else 1)} rows), "
+            f"{N_TOKENS} tokens each, EOS ignored: {dt:.4f} s -> {B * N_TOKENS / dt:.1f} "
+            f"tok/s aggregate ({dt / N_TOKENS * 1e3:.3f} ms/step)")
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+    return totals
+
+
+def main(argv) -> int:
+    ab_root = None
+    if argv:
+        if len(argv) != 2 or argv[0] != "--ab":
+            print(__doc__, file=sys.stderr)
+            return 2
+        ab_root = argv[1]
     try:
         import torch
     except ImportError:
@@ -578,10 +983,13 @@ def main() -> int:
     try:
         from chatterbox_tpu_torch import ChatterboxTTS, ChatterboxTurboTTS
         from chatterbox_tpu_torch.kernels import build
+        from chatterbox_tpu_torch.kernels import decode_attention as A
         from chatterbox_tpu_torch.kernels import fused_layer as K
+        from chatterbox_tpu_torch.models.t3 import backbone as bb
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 2
+    COUNTERS[:] = [K.launches, A.launches]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -605,10 +1013,27 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"models built in {time.perf_counter() - t0:.1f} s (T3 {turbo.hp.backbone_name} "
         f"and {cfg520.hp.backbone_name} bf16 int8_fused, S3Gen float32)")
+    if ab_root is not None:
+        ab_fused(turbo, cfg520, K, ab_root)
+        return 0
 
-    rows = check_kernels(turbo, cfg520, K)
+    t0 = time.perf_counter()
+    rows = check_kernels(turbo, cfg520, K) + check_attention(turbo, cfg520, A, bb)
+    log(f"phase 3 (kernels) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     check_reference()
-    main_paths(turbo, cfg520, K, rows)
+    log(f"phase 4 (reference) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches = {}
+    for part in (main_paths(turbo, cfg520), fused_attention_paths(turbo, cfg520),
+                 batched_paths(turbo, cfg520)):
+        for k, v in part.items():
+            launches[k] = launches.get(k, 0) + v
+    log(f"phase 5 (main paths) {time.perf_counter() - t0:.1f} s")
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+        if not r["launches"]:
+            raise AssertionError(f"{r['name']} was not launched on any main path")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
@@ -620,4 +1045,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -7,6 +7,8 @@ Without a CUDA device every test skips."""
 import pytest
 import torch
 
+from chatterbox_tpu_torch.kernels import build
+from chatterbox_tpu_torch.kernels import decode_attention as A
 from chatterbox_tpu_torch.kernels import fused_layer as K
 
 pytestmark = pytest.mark.cuda
@@ -125,8 +127,8 @@ def test_launch_counts_follow_kernel_calls(dev):
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x, g, b, w, s, bias = _b1_operands(dev, 1, 1024, torch.bfloat16)
-    with pytest.raises(ValueError):          # batch above the kernel's 2 rows
-        K.ln_qkv_int8(x.expand(3, -1).contiguous(), g, b, w, s, bias, EPS)
+    with pytest.raises(ValueError):          # batch above the kernels' 16 rows
+        K.ln_qkv_int8(x.expand(17, -1).contiguous(), g, b, w, s, bias, EPS)
     with pytest.raises(ValueError):          # non-contiguous weight
         K.ln_qkv_int8(x, g, b, w.T.contiguous().T, s, bias, EPS)
     with pytest.raises(TypeError):           # float weight instead of int8
@@ -143,3 +145,98 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     ops = _b6_operands(dev, 2, 1024, 4096, torch.bfloat16)
     with pytest.raises(ValueError):          # hidden tile not dividing I
         K.attnout_rms_glu_int8(*ops, EPS, 1536)
+
+
+# The batched engine's rows: 4 and 8 (Turbo requests, or CFG pairs), 16
+# (eight CFG requests); a row count between instances (5, 13) runs the next
+# instance up with its last rows skipped. Tolerances as above.
+@pytest.mark.parametrize("B", [4, 5, 8, 13, 16])
+def test_fused_kernels_at_batched_rows_match_plain(dev, B):
+    ops = _b1_operands(dev, B, 1024, torch.bfloat16)
+    assert (K.ln_qkv_int8(*ops, EPS) - K.ln_qkv_int8_plain(*ops, EPS)).abs().max() <= 1e-3
+    ops = _b2_operands(dev, B, 1024, 4096, torch.bfloat16)
+    err = (K.attnout_ln_mlp_int8(*ops, EPS) - K.attnout_ln_mlp_int8_plain(*ops, EPS))
+    assert err.abs().max() <= 1e-2
+    ops = _b5_operands(dev, B, 1024, 3072, torch.bfloat16)
+    assert (K.rms_qkv_int8(*ops, EPS) - K.rms_qkv_int8_plain(*ops, EPS)).abs().max() <= 1e-3
+    ops = _b6_operands(dev, B, 1024, 4096, torch.bfloat16)
+    err = K.attnout_rms_glu_int8(*ops, EPS, 1024) - K.attnout_rms_glu_int8_plain(*ops, EPS, 1024)
+    assert err.abs().max() <= 1e-2
+    torch.cuda.synchronize()
+
+
+def _attn_operands(dev, B, H, T, D, qdtype, seed=4):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device=dev)
+    i8 = lambda *s: torch.randint(-127, 128, s, generator=g, device=dev, dtype=torch.int8)
+    scale = lambda: (torch.rand((B, H, T), generator=g, device=dev) * 0.02).bfloat16()
+    return (r(B, H, 1, D).to(qdtype), r(B, H, T, D).bfloat16(), r(B, H, T, D).bfloat16(),
+            i8(B, H, T, D), scale(), i8(B, H, T, D), scale())
+
+
+def _attn_close(out, ref):
+    """bf16 outputs: one bf16 ulp of their magnitude (the two sum in
+    another order, then round); f32 outputs: 1e-5 of it."""
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    assert torch.isfinite(out).all()
+    tol = (2.0 ** -7 if out.dtype == torch.bfloat16 else 1e-5) * ref.float().abs().max()
+    assert (out.float() - ref.float()).abs().max() <= tol
+
+
+# The paths' shapes: Turbo B=1, T=768; 520M CFG B=2, T=512; the batched
+# engine B=8 with distinct left pads, one past a whole tile; head widths
+# 32 and 128; f32 queries.
+@pytest.mark.parametrize("B,H,T,D,cur,lo,qdtype", [
+    (1, 16, 768, 64, [530], None, torch.bfloat16),
+    (2, 16, 512, 64, [300, 300], None, torch.bfloat16),
+    (8, 16, 512, 64, [400] * 8, [0, 3, 17, 40, 100, 257, 260, 399], torch.bfloat16),
+    (2, 4, 256, 32, [10, 255], [4, 0], torch.bfloat16),
+    (1, 4, 512, 128, [300], [200], torch.float32),
+])
+def test_streamed_attention_kernels_match_plain(dev, B, H, T, D, cur, lo, qdtype):
+    q, k, v, k_q, k_s, v_q, v_s = _attn_operands(dev, B, H, T, D, qdtype)
+    cur = torch.tensor(cur, device=dev, dtype=torch.int32)
+    lo = None if lo is None else torch.tensor(lo, device=dev, dtype=torch.int32)
+    before = dict(A.launches)
+    _attn_close(A.decode_attention_streamed(q, k, v, cur, lo),
+                A.decode_attention_streamed_plain(q, k, v, cur, lo))
+    _attn_close(A.decode_attention_streamed_int8(q, k_q, k_s, v_q, v_s, cur, lo),
+                A.decode_attention_streamed_int8_plain(q, k_q, k_s, v_q, v_s, cur, lo))
+    torch.cuda.synchronize()
+    assert A.launches["decode_attention_streamed"] == before["decode_attention_streamed"] + 1
+    assert (A.launches["decode_attention_streamed_int8"]
+            == before["decode_attention_streamed_int8"] + 1)
+
+
+@pytest.mark.parametrize("B,T,cur", [(1, 657, [600]), (2, 100, [5, 99]), (1, 512, [511])])
+def test_whole_slice_attention_kernel_matches_plain(dev, B, T, cur):
+    q, k, v, *_ = _attn_operands(dev, B, 16, T, 64, torch.bfloat16)
+    cur = torch.tensor(cur, device=dev, dtype=torch.int32)
+    _attn_close(A.decode_attention(q, k, v, cur), A.decode_attention_plain(q, k, v, cur))
+    torch.cuda.synchronize()
+
+
+def test_attention_wrappers_refuse_what_the_kernel_does_not_take(dev):
+    q, k, v, k_q, k_s, v_q, v_s = _attn_operands(dev, 1, 4, 512, 64, torch.bfloat16)
+    cur = torch.tensor([100], device=dev)
+    with pytest.raises(ValueError):          # cache length not a multiple of 256
+        A.decode_attention_streamed(q, k[:, :, :300].contiguous(),
+                                    v[:, :, :300].contiguous(), cur)
+    with pytest.raises(TypeError):           # f32 cache instead of bf16
+        A.decode_attention_streamed(q, k.float(), v.float(), cur)
+    with pytest.raises(ValueError):          # head width the template lacks
+        A.decode_attention(q[..., :16].contiguous(), k[..., :16].contiguous(),
+                           v[..., :16].contiguous(), cur)
+    with pytest.raises(ValueError):          # scales left on the CPU
+        A.decode_attention_streamed_int8(q, k_q, k_s.cpu(), v_q, v_s, cur)
+
+
+def test_a_build_failure_raises_rather_than_falling_back(dev, tmp_path, monkeypatch):
+    (tmp_path / "decode_attention.cu").write_text("this is not CUDA C++\n")
+    monkeypatch.setattr(build, "SRC_DIR", tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(build, "_libs", {})
+    monkeypatch.setattr(A, "_lib", None)
+    q, k, v, *_ = _attn_operands(dev, 1, 4, 256, 64, torch.bfloat16)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        A.decode_attention_streamed(q, k, v, torch.tensor([10], device=dev))

@@ -1,0 +1,140 @@
+"""The port's decode-attention functions (kernels/decode_attention.py: B3
+`decode_attention_streamed`, B4 `decode_attention_streamed_int8`, B7
+`decode_attention`) held against the Pallas kernels of
+chatterbox_tpu/ops/pallas_attention.py in interpret mode, at the shapes of
+tests/test_pallas_kernels.py; and the int8 cache quantizer against the JAX
+one. The port's functions run as their plain versions (CPU tensors).
+
+Tolerances: with f32 inputs both sides compute the same f32 arithmetic in
+another summation order (errors of ~1e-7 on outputs below 1): 1e-5. With
+bf16 inputs the output is rounded to bf16, and an f32 difference in the last
+bits can round to the neighbouring bf16 value: one bf16 ulp of the output's
+magnitude (2**-7 relative, 8e-3)."""
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from chatterbox_tpu.models.t3.backbone import quantize_kv as jquantize_kv  # noqa: E402
+from chatterbox_tpu.ops import pallas_attention as J  # noqa: E402
+
+from chatterbox_tpu_torch.kernels import decode_attention as A  # noqa: E402
+from chatterbox_tpu_torch.models.t3.backbone import quantize_kv  # noqa: E402
+
+TT = A.TT
+
+
+def _both(a, dtype):
+    """numpy f32 -> (jax array, torch tensor) of `dtype` ("f32" / "bf16")."""
+    if dtype == "bf16":
+        return jnp.asarray(a, jnp.bfloat16), torch.from_numpy(a).bfloat16()
+    return jnp.asarray(a), torch.from_numpy(a)
+
+
+def _inputs(seed, B, H, T, D, dtype, scale=1.0):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal(s).astype(np.float32) * c for s, c in
+               (((B, H, 1, D), 1.0), ((B, H, T, D), scale), ((B, H, T, D), scale)))
+    return _both(q, dtype), _both(k, dtype), _both(v, dtype)
+
+
+def _close(out, ref, dtype):
+    out = out.float().numpy()
+    ref = np.asarray(jnp.asarray(ref, jnp.float32))
+    assert out.shape == ref.shape and np.isfinite(out).all()
+    if dtype == "bf16":
+        np.testing.assert_allclose(out, ref, rtol=0, atol=2.0 ** -7 * np.abs(ref).max())
+    else:
+        np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
+
+
+# (B, H, T, D, cur, lo): one- and two-tile rows; a dense row, a pad inside
+# tile 0 and a pad past a whole tile (tests/test_pallas_kernels.py:82-83);
+# a single-key window
+STREAMED = [(2, 4, 2 * TT, 16, [7, TT + 13], None),
+            (3, 4, 3 * TT, 16, [TT - 1, TT + 40, 2 * TT + 9], [0, 17, TT + 5]),
+            (2, 2, TT, 64, [100, 200], [100, 3])]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("B,H,T,D,cur,lo", STREAMED)
+def test_streamed_matches_pallas(B, H, T, D, cur, lo, dtype):
+    (jq, tq), (jk, tk), (jv, tv) = _inputs(B * T + D, B, H, T, D, dtype)
+    jlo = None if lo is None else jnp.asarray(lo, jnp.int32)
+    ref = J.decode_attention_streamed(jq, jk, jv, jnp.asarray(cur, jnp.int32),
+                                      interpret=True, lo=jlo)
+    before = dict(A.launches)
+    out = A.decode_attention_streamed(tq, tk, tv, torch.tensor(cur),
+                                      None if lo is None else torch.tensor(lo))
+    assert out.dtype == tq.dtype and A.launches == before   # plain version on the CPU
+    _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("B,H,T,D,cur,lo", STREAMED)
+def test_streamed_int8_matches_pallas(B, H, T, D, cur, lo, dtype):
+    """Scales stored in bf16 as the int8 cache holds them; K's scale on the
+    scores, V's on the weights after the running sum."""
+    (jq, tq), (jk, _), (jv, _) = _inputs(B * T + D + 1, B, H, T, D, "f32", scale=0.3)
+    if dtype == "bf16":
+        jq, tq = jq.astype(jnp.bfloat16), tq.bfloat16()
+    k_q, k_s = jquantize_kv(jk)
+    v_q, v_s = jquantize_kv(jv)
+    k_s, v_s = k_s[..., 0].astype(jnp.bfloat16), v_s[..., 0].astype(jnp.bfloat16)
+    jlo = None if lo is None else jnp.asarray(lo, jnp.int32)
+    ref = J.decode_attention_streamed_int8(jq, k_q, k_s, v_q, v_s,
+                                           jnp.asarray(cur, jnp.int32),
+                                           interpret=True, lo=jlo)
+    t = lambda a: torch.from_numpy(np.array(jnp.asarray(a, jnp.float32)))
+    out = A.decode_attention_streamed_int8(
+        tq, torch.from_numpy(np.array(k_q)), t(k_s).bfloat16(),
+        torch.from_numpy(np.array(v_q)), t(v_s).bfloat16(), torch.tensor(cur),
+        None if lo is None else torch.tensor(lo))
+    _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("B,H,T,D,cur", [(2, 4, 32, 16, [10, 31]),
+                                         (1, 4, 300, 64, [257])])
+def test_whole_slice_matches_pallas(B, H, T, D, cur, dtype):
+    """B7 at cache lengths that are not a multiple of the tile."""
+    (jq, tq), (jk, tk), (jv, tv) = _inputs(T + D, B, H, T, D, dtype)
+    ref = J.decode_attention(jq, jk, jv, jnp.asarray(cur, jnp.int32), interpret=True)
+    out = A.decode_attention(tq, tk, tv, torch.tensor(cur))
+    _close(out, ref, dtype)
+
+
+def test_streamed_refuses_an_unaligned_cache_on_the_kernel_route():
+    """The tile precondition is the JAX package's; on the CPU the plain
+    version runs whatever T, and a device that is neither CPU nor CUDA
+    raises rather than falling back."""
+    (_, tq), (_, tk), (_, tv) = _inputs(0, 1, 2, 100, 16, "f32")
+    out = A.decode_attention_streamed(tq, tk, tv, torch.tensor([50]))
+    assert out.shape == (1, 2, 1, 16)
+    with pytest.raises(ValueError):
+        A.decode_attention_streamed(tq.to("meta"), tk.to("meta"), tv.to("meta"),
+                                    torch.tensor([50]))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_quantize_kv_matches_jax_exactly(dtype):
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((2, 4, 9, 16)).astype(np.float32) * 3
+    x[0, 0, 0] = 0.0                               # an all-zero position
+    jx, tx = _both(x, dtype)
+    jq, js = jquantize_kv(jx)
+    q, s = quantize_kv(tx)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    assert q.dtype == torch.int8 and s.shape == (2, 4, 9, 1)
+
+
+def test_window_check_raises_on_an_empty_window():
+    A.check_window([0, 17, TT + 5], TT + 5)
+    A.check_window([3, 4], [3, 9])
+    with pytest.raises(ValueError, match="rows \\[1\\]"):
+        A.check_window([0, 10], [5, 9])
+    with pytest.raises(ValueError):
+        A.check_window([300], 299)
