@@ -5,13 +5,19 @@ Layouts that change on the way:
   * conv weights (K, Cin, Cout) -> torch's (Cout, Cin, K);
   * transposed-conv weights, stored pre-flipped as an input-dilated conv
     (K, Cin, Cout) -> torch ConvTranspose1d's (Cin, Cout, K), un-flipped;
-  * the fused decode-layer operands (GPT-2 or llama, told apart by their
-    keys): the 8-row broadcast vectors become (N,) and the int8 weights move
-    to out-major (N, K) storage, which the layer's own (in, out) "w_q" then
-    views (llama's q, k and v view row slices of the fused q|k|v);
+  * int4 leaves (`w_q4`, `w_q4c` and their `w_scale4*` scales) keep their
+    shapes but are stored out-major (their .T contiguous), the layout the
+    int4 kernels stream;
+  * the fused decode-layer operands (GPT-2 int8, GPT-2 int4 or llama int8,
+    told apart by their keys: "qkv_wp" is int4, "wg" llama): the 8-row
+    broadcast vectors become (N,) and the weights and int4 scales move to
+    out-major storage, which the layer's own leaves then view (llama's q,
+    k and v view row slices of the fused q|k|v);
   * bfloat16 leaves stay bfloat16.
 Every key is checked against the port's own schema (its init on the meta
-device): a missing, unexpected or misshaped leaf raises.
+device): a missing, unexpected or misshaped leaf raises. A packed int4
+weight stands for the float weight it unpacks to ((K/2, N) row split and
+(K, N/2) column split for (K, N)), and its two scales must agree with it.
 
 `kv_cache_from_jax` carries a decode state's KV cache (a JAX KVCache or
 KVCacheInt8 with numpy leaves) into the port's cache.
@@ -21,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..kernels.fused_layer import INT4_FUSED_LAYOUT
 from ..models.s3gen.flow import FlowDims
 from ..models.s3gen.model import s3gen_init
 from ..models.t3 import backbone as bb
@@ -48,6 +55,22 @@ _LLAMA_FUSED_MAP = {
     "wu": ("wu_t", "transpose"), "su_8": ("su", "row"),
     "wd": ("wd_t", "transpose"), "sd_8": ("sd", "row"),
 }
+_INT4_FUSED_MAP = {
+    "g1_8": ("g1", "row"), "b1_8": ("b1", "row"),
+    "qkv_wp": ("qkv_wpt", "transpose"), "qkv_slo": ("qkv_slo", "transpose"),
+    "qkv_shi": ("qkv_shi", "transpose"), "qkv_b8": ("qkv_b", "row"),
+    "wo_wp": ("wo_wpt", "transpose"), "wo_slo": ("wo_slo", "transpose"),
+    "wo_shi": ("wo_shi", "transpose"), "wo_b8": ("wo_b", "row"),
+    "g2_8": ("g2", "row"), "b2_8": ("b2", "row"),
+    "w1c": ("w1c_t", "transpose"), "s1_lo": ("s1_lo", "transpose"),
+    "s1_hi": ("s1_hi", "transpose"), "fc1_b8": ("fc1_b", "row"),
+    "w2p": ("w2p_t", "transpose"), "s2_lo": ("s2_lo", "transpose"),
+    "s2_hi": ("s2_hi", "transpose"), "fc2_b8": ("fc2_b", "row"),
+}
+# packed int4 weight leaf -> (its scale leaves, the axis it halves)
+_INT4_LEAVES = {"w_q4": (("w_scale4_lo", "w_scale4_hi"), 0),
+                "w_q4c": (("w_scale4c_lo", "w_scale4c_hi"), 1)}
+_INT4_SCALES = {k for scales, _ in _INT4_LEAVES.values() for k in scales}
 # layer linear -> the fused out-major weight its "w_q" views
 _GPT2_LINKS = {"qkv": "qkv_wt", "attn_out": "wo_t", "fc_in": "w1_t",
                "fc_out": "w2_t"}
@@ -58,11 +81,13 @@ def _tensor(a, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
-    return torch.from_numpy(np.array(a)).to(device)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
 def _leaf(path: tuple, a, device) -> torch.Tensor:
     a = np.asarray(a)
+    if path[-1] in _INT4_LEAVES or path[-1] in _INT4_SCALES:
+        return _tensor(a.T, device).T        # out-major storage
     if path[-1] == "w" and a.ndim == 3:
         if "ups" in path:                    # transposed conv, un-flip
             a = a[::-1].transpose(1, 2, 0)
@@ -72,7 +97,8 @@ def _leaf(path: tuple, a, device) -> torch.Tensor:
 
 
 def _fused(path: tuple, fl: dict, device) -> dict:
-    fmap = _LLAMA_FUSED_MAP if "wg" in fl else _GPT2_FUSED_MAP
+    fmap = (_LLAMA_FUSED_MAP if "wg" in fl
+            else _INT4_FUSED_MAP if "qkv_wp" in fl else _GPT2_FUSED_MAP)
     extra = set(fl) - set(fmap)
     missing = set(fmap) - set(fl)
     if extra or missing:
@@ -87,22 +113,27 @@ def _fused(path: tuple, fl: dict, device) -> dict:
 
 
 def _link_fused(layer: dict, where: str):
-    """Point the layer's "w_q" weights at views of its fused operands (the
+    """Point the layer's weight leaves at views of its fused operands (the
     JAX tree holds them as separate copies, which must be equal)."""
     fused = layer["fused"]
-    links = {name: (fused[key], None) for name, key in
-             (_LLAMA_LINKS if "wg_t" in fused else _GPT2_LINKS).items()}
+    if "qkv_wpt" in fused:
+        links = [(name, leaf, fused[key], None)
+                 for name, (leaves, keys) in INT4_FUSED_LAYOUT.items()
+                 for leaf, key in zip(leaves, keys)]
+    else:
+        links = [(name, "w_q", fused[key], None) for name, key in
+                 (_LLAMA_LINKS if "wg_t" in fused else _GPT2_LINKS).items()]
     if "wg_t" in fused:
         row = 0
         for name in ("q", "k", "v"):
             width = layer[name]["w_q"].shape[1]
-            links[name] = (fused["qkv_wt"], slice(row, row + width))
+            links.append((name, "w_q", fused["qkv_wt"], slice(row, row + width)))
             row += width
-    for name, (wt, rows) in links.items():
+    for name, leaf, wt, rows in links:
         view = (wt if rows is None else wt[rows]).T
-        if not torch.equal(layer[name]["w_q"], view):
-            raise ValueError(f"{where}/{name}: fused weight differs from the layer's")
-        layer[name]["w_q"] = view
+        if not torch.equal(layer[name][leaf], view):
+            raise ValueError(f"{where}/{name}/{leaf}: fused operand differs from the layer's")
+        layer[name][leaf] = view
 
 
 def _convert(node, device, path=()):
@@ -123,21 +154,39 @@ def _convert(node, device, path=()):
     return _leaf(path, node, device)
 
 
-def _float_form(node):
+def _unpacked(node: dict, key: str, where: str) -> torch.Tensor:
+    """The float weight a packed int4 leaf stands for, as a meta tensor of
+    its shape, after checking that its scales agree with it."""
+    (k_lo, k_hi), axis = _INT4_LEAVES[key]
+    w, lo, hi = node[key], node[k_lo], node[k_hi]
+    if not (w.dim() == lo.dim() == hi.dim() == 2 and lo.shape == hi.shape
+            and lo.shape[1] == w.shape[1] and lo.shape[0] > 0
+            and w.shape[0] % lo.shape[0] == 0):
+        raise ValueError(f"{where}: packed {key} {tuple(w.shape)} does not match its "
+                         f"scales {tuple(lo.shape)}, {tuple(hi.shape)}")
+    shape = list(w.shape)
+    shape[axis] *= 2
+    return torch.empty(shape, device="meta")
+
+
+def _float_form(node, path=()):
     """Schema view of a (possibly quantized) tree: {"w_q","w_scale"} read
-    as {"w"}, the fused operands dropped."""
+    as {"w"}, a packed int4 weight and its scales as the {"w"} it unpacks
+    to, the fused operands dropped."""
     if isinstance(node, dict):
         out = {}
         for k, v in node.items():
-            if k == "fused":
+            if k in ("fused", "w_scale") or k in _INT4_SCALES:
                 continue
             if k == "w_q":
                 out["w"] = v
-            elif k != "w_scale":
-                out[k] = _float_form(v)
+            elif k in _INT4_LEAVES:
+                out["w"] = _unpacked(node, k, "/".join(map(str, path + (k,))))
+            else:
+                out[k] = _float_form(v, path + (k,))
         return out
     if isinstance(node, list):
-        return [_float_form(v) for v in node]
+        return [_float_form(v, path + (i,)) for i, v in enumerate(node)]
     return node
 
 
@@ -163,8 +212,8 @@ def _check_schema(tree, template, path=()):
 
 
 def t3_from_jax(tree: dict, hp: T3Config, device="cuda") -> dict:
-    """A T3 tree (float, or int8-quantized with w_q/w_scale and optional
-    "fused" operands) -> the port's T3 tree on `device`."""
+    """A T3 tree (float, or quantized by `quantize_t3_backbone` in any mode,
+    with optional "fused" operands) -> the port's T3 tree on `device`."""
     out = _convert(tree, device)
     _check_schema(_float_form(out), t3m.t3_init(hp, device="meta"))
     return out

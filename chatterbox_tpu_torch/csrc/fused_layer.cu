@@ -1,6 +1,7 @@
 // Fused decode-layer kernels with int8 weights, for Hopper (sm_90a).
 //
-// Replaces the four Pallas TPU kernels of chatterbox_tpu/ops/fused_layer.py:
+// Replaces the four int8 Pallas TPU kernels of chatterbox_tpu/ops/fused_layer.py
+// and the one of chatterbox_tpu/ops/pallas_mlp.py:
 //   GPT-2 (Turbo T3, 24 layers):
 //   B1  ln_qkv_int8          (_ln_qkv_kernel_i8):
 //         out = (bf16(LN1(x)) @ Wqkv_int8) * s + bias
@@ -15,14 +16,18 @@
 //         r   = x + (bf16(a) @ Wo_int8) * so;   y = bf16(RMSNorm(r) * g2)
 //         h   = bf16(silu((y @ Wg_int8) * sg) * ((y @ Wu_int8) * su))
 //         out = r + sum over hidden tiles t of (h_t @ Wd_int8_t) * sd
+//   B11 fused_mlp_int8       (pallas_mlp.py, _mlp_kernel; a library kernel
+//       that nothing in the JAX package calls outside its own test):
+//         out = x + (bf16(gelu_new((bf16(LN(x)) @ W1_int8) * s1 + b1)) @ W2_int8) * s2 + b2
+//       in x's type: B2's second and third phases, with r = x.
 // Each decode step runs one pair once per layer, over 1-16 rows (one
-// request, a CFG pair, or the batched engine's rows).
+// request, a CFG pair, or the batched engine's rows). B11 takes 1-16 rows.
 //
 // What bounds them: at 1-16 rows they are matrix-vector products that read
 // every weight byte once and do 2 operations per byte and row, so the int8
 // weight bytes over the memory rate bound them. At D=1024, I=4096 B1 and B5
 // read 3.15 MB (0.94 us at the H100 SXM's 3.35 TB/s), B2 9.44 MB (2.82 us)
-// and B6 13.6 MB (4.07 us).
+// and B6 13.6 MB (4.07 us), B11 8.4 MB (2.5 us).
 //
 // Design (simple and right first; no TMA / wgmma / split-K yet):
 //   * Weights are stored OUT-MAJOR, (N, K) with K contiguous: the converter
@@ -53,104 +58,9 @@
 // Pallas grid does; B2 runs its fc_out as one tile (s2 on the full sum,
 // equal to the Pallas per-tile form up to f32 rounding).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
-
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int K_STEP = 32 * 16;           // bytes a warp reads per iteration
-constexpr int SMEM_MAX = 227 * 1024;      // dynamic shared memory a block may opt in to
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Sum over the block; every thread gets the result. red: WARPS floats.
-__device__ float block_sum(float v, float* red) {
-  v = warp_sum(v);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();  // red may still be read by a previous call
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float t = lane < WARPS ? red[lane] : 0.f;
-  return warp_sum(t);
-}
-
-// ys[r, :] = bf16(norm(x[r, :])) for the B rows, in shared memory, in f32:
-//   LayerNorm (RMS = false): mean, then the mean of squared deviations;
-//                            (x - mu) * rsqrt(var + eps) * g + b
-//   RMSNorm   (RMS = true):  x * rsqrt(mean(x^2) + eps) * g   (b unused)
-template <typename T, bool RMS>
-__device__ void norm_bf16(const T* __restrict__ x, const float* __restrict__ g,
-                          const float* __restrict__ b, int B, int D, float eps,
-                          float* ys, float* red) {
-  for (int r = 0; r < B; ++r) {
-    const T* xr = x + (size_t)r * D;
-    float* yr = ys + (size_t)r * D;
-    float s = 0.f;
-    for (int i = threadIdx.x; i < D; i += blockDim.x) {
-      const float v = to_f32(xr[i]);
-      yr[i] = v;
-      s += RMS ? v * v : v;
-    }
-    if (RMS) {
-      const float rs = rsqrtf(block_sum(s, red) / D + eps);
-      for (int i = threadIdx.x; i < D; i += blockDim.x)
-        yr[i] = round_bf16(yr[i] * rs * g[i]);
-    } else {
-      const float mu = block_sum(s, red) / D;
-      float q = 0.f;
-      for (int i = threadIdx.x; i < D; i += blockDim.x) {
-        const float d = yr[i] - mu;
-        q += d * d;
-      }
-      const float rs = rsqrtf(block_sum(q, red) / D + eps);
-      for (int i = threadIdx.x; i < D; i += blockDim.x)
-        yr[i] = round_bf16((yr[i] - mu) * rs * g[i] + b[i]);
-    }
-  }
-  __syncthreads();
-}
-
-// sum_j x[j] * w[j] over 16 consecutive entries of one row of xs (f32 or
-// bf16 in shared memory) and the 16 weights already converted to float.
-__device__ __forceinline__ float dot16(const float* x, const float w[16]) {
-  const float4* x4 = reinterpret_cast<const float4*>(x);
-  float s = 0.f;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const float4 xv = x4[q];
-    s += xv.x * w[4 * q] + xv.y * w[4 * q + 1] + xv.z * w[4 * q + 2] + xv.w * w[4 * q + 3];
-  }
-  return s;
-}
-
-__device__ __forceinline__ float dot16(const __nv_bfloat16* x, const float w[16]) {
-  const uint4* x4 = reinterpret_cast<const uint4*>(x);
-  float s = 0.f;
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const uint4 u = x4[q];
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(h[j]);
-      s += f.x * w[8 * q + 2 * j] + f.y * w[8 * q + 2 * j + 1];
-    }
-  }
-  return s;
-}
 
 // acc[r] = sum_k xs[r*ldx + k] * w[k], k < K, r < B, for one out-major
 // weight row, summed over the warp (every lane holds the totals). The row
@@ -194,11 +104,6 @@ __device__ __forceinline__ void warp_dot_i8(const int8_t* __restrict__ w, const 
   }
 #pragma unroll
   for (int r = 0; r < NB; ++r) acc[r] = warp_sum(acc[r]);
-}
-
-__device__ __forceinline__ float gelu_new(float x) {
-  const float c = 0.7978845608028654f;  // sqrt(2/pi)
-  return 0.5f * x * (1.0f + tanhf(c * (x + 0.044715f * x * x * x)));
 }
 
 __device__ __forceinline__ float silu(float x) { return x * (1.0f / (1.0f + expf(-x))); }
@@ -256,18 +161,18 @@ attn_out_kernel(const T* __restrict__ a, const T* __restrict__ xres,
   }
 }
 
-// B2 phase 2: h = bf16(gelu_new((bf16(LN2(r)) @ W1) * s1 + b1));
+// B2 / B11 phase 2: h = bf16(gelu_new((bf16(LN2(r)) @ W1) * s1 + b1));
 // grid = ceil(I / WARPS), one hidden unit per warp.
-template <int NB>
+template <typename T, int NB>
 __global__ void __launch_bounds__(THREADS)
-ln_fc_in_kernel(const float* __restrict__ r, const float* __restrict__ g2,
+ln_fc_in_kernel(const T* __restrict__ r, const float* __restrict__ g2,
                 const float* __restrict__ be2, const int8_t* __restrict__ w1_t,
                 const float* __restrict__ s1, const float* __restrict__ b1,
                 __nv_bfloat16* __restrict__ h, int B, int D, int I, float eps) {
   extern __shared__ float4 smem4[];
   float* ys = reinterpret_cast<float*>(smem4);
   float* red = ys + (size_t)B * D;
-  norm_bf16<float, false>(r, g2, be2, B, D, eps, ys, red);
+  norm_bf16<T, false>(r, g2, be2, B, D, eps, ys, red);
   const int j = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (j >= I) return;
   float acc[NB];
@@ -305,14 +210,14 @@ rms_glu_kernel(const float* __restrict__ r, const float* __restrict__ g2,
   }
 }
 
-// B2 / B6 phase 3: out = (r + b2) + sum over tw-wide tiles t of
-// (h_t @ W2_t) * s2, tiles added in order (b2 may be absent);
-// grid = ceil(D / WARPS).
-template <int NB>
+// B2 / B6 / B11 phase 3: out = (r + b2) + sum over tw-wide tiles t of
+// (h_t @ W2_t) * s2, tiles added in order (b2 may be absent); r and out of
+// type T (f32 for B2 / B6, x's type for B11); grid = ceil(D / WARPS).
+template <typename T, int NB>
 __global__ void __launch_bounds__(THREADS)
-down_kernel(const __nv_bfloat16* __restrict__ h, const float* __restrict__ r,
+down_kernel(const __nv_bfloat16* __restrict__ h, const T* __restrict__ r,
             const int8_t* __restrict__ w2_t, const float* __restrict__ s2,
-            const float* __restrict__ b2, float* __restrict__ out, int B, int D, int I,
+            const float* __restrict__ b2, T* __restrict__ out, int B, int D, int I,
             int tw) {
   extern __shared__ float4 smem4[];
   __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem4);
@@ -327,7 +232,7 @@ down_kernel(const __nv_bfloat16* __restrict__ h, const float* __restrict__ r,
   float o[NB], acc[NB];
 #pragma unroll
   for (int rr = 0; rr < NB; ++rr) {
-    o[rr] = rr < B ? r[(size_t)rr * D + n] : 0.f;
+    o[rr] = rr < B ? to_f32(r[(size_t)rr * D + n]) : 0.f;
     if (b2) o[rr] += b2[n];
   }
   for (int t0 = 0; t0 < I; t0 += tw) {
@@ -338,41 +243,9 @@ down_kernel(const __nv_bfloat16* __restrict__ h, const float* __restrict__ r,
   if ((threadIdx.x & 31) == 0) {
 #pragma unroll
     for (int rr = 0; rr < NB; ++rr)
-      if (rr < B) out[(size_t)rr * D + n] = o[rr];
+      if (rr < B) store(out + (size_t)rr * D + n, o[rr]);
   }
 }
-
-inline unsigned blocks_for(int n) { return (unsigned)((n + WARPS - 1) / WARPS); }
-
-// Launch Kernel<<<grid, THREADS, smem, st>>>(args...), first letting it
-// take up to SMEM_MAX of dynamic shared memory. The attribute belongs to the
-// current device, so it is set once per kernel and device, on the kernel's
-// first launch there (devices past MAX_DEVICES set it on every launch).
-constexpr int MAX_DEVICES = 64;
-
-template <auto Kernel, typename... Args>
-cudaError_t launch(unsigned grid, size_t smem, cudaStream_t st, Args... args) {
-  static bool opted_in[MAX_DEVICES] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= MAX_DEVICES || !opted_in[dev]) {
-    err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
-    if (err != cudaSuccess) return err;
-    if (dev < MAX_DEVICES) opted_in[dev] = true;
-  }
-  Kernel<<<grid, THREADS, smem, st>>>(args...);
-  return cudaGetLastError();
-}
-
-// The smallest row instance that holds B rows (the wrapper checks B <= 16).
-#define DISPATCH_ROWS(B, ...)                      \
-  do {                                             \
-    if ((B) <= 2) { constexpr int NB = 2; __VA_ARGS__; }       \
-    else if ((B) <= 4) { constexpr int NB = 4; __VA_ARGS__; }  \
-    else if ((B) <= 8) { constexpr int NB = 8; __VA_ARGS__; }  \
-    else { constexpr int NB = 16; __VA_ARGS__; }               \
-  } while (0)
 
 template <bool RMS>
 cudaError_t launch_norm_qkv(const void* x, int x_bf16, const float* g, const float* b,
@@ -406,14 +279,30 @@ cudaError_t launch_attn_out(const void* a, const void* xres, int in_bf16,
   return err;
 }
 
-cudaError_t launch_down(const __nv_bfloat16* h_buf, const float* r_buf, const int8_t* w2_t,
-                        const float* s2, const float* b2, float* out, int B, int D, int I,
+template <typename T>
+cudaError_t launch_down(const __nv_bfloat16* h_buf, const T* r_buf, const int8_t* w2_t,
+                        const float* s2, const float* b2, T* out, int B, int D, int I,
                         int tw, cudaStream_t st) {
   const size_t smem = (size_t)B * I * sizeof(__nv_bfloat16);
   cudaError_t err = cudaSuccess;
-  DISPATCH_ROWS(B, err = launch<down_kernel<NB>>(blocks_for(D), smem, st, h_buf, r_buf, w2_t,
-                                s2, b2, out, B, D, I, tw));
+  DISPATCH_ROWS(B, err = launch<down_kernel<T, NB>>(blocks_for(D), smem, st, h_buf, r_buf,
+                                w2_t, s2, b2, out, B, D, I, tw));
   return err;
+}
+
+// B11: phase 2 then phase 3 of B2 on x itself; eps is the Pallas kernel's
+// fixed 1e-5.
+template <typename T>
+cudaError_t launch_fused_mlp(const T* x, const float* g, const float* b, const int8_t* w1_t,
+                             const float* s1, const float* b1, const int8_t* w2_t,
+                             const float* s2, const float* b2, __nv_bfloat16* h_buf, T* out,
+                             int B, int D, int I, cudaStream_t st) {
+  const size_t smem_ln = ((size_t)B * D + WARPS) * sizeof(float);
+  cudaError_t err = cudaSuccess;
+  DISPATCH_ROWS(B, err = launch<ln_fc_in_kernel<T, NB>>(blocks_for(I), smem_ln, st, x, g, b,
+                                w1_t, s1, b1, h_buf, B, D, I, 1e-5f));
+  if (err != cudaSuccess) return err;
+  return launch_down<T>(h_buf, x, w2_t, s2, b2, out, B, D, I, I, st);
 }
 
 }  // namespace
@@ -421,7 +310,8 @@ cudaError_t launch_down(const __nv_bfloat16* h_buf, const float* r_buf, const in
 // The wrapper (kernels/fused_layer.py) checks shapes, types, 16-byte
 // alignment, 1 <= B <= 16, K % K_STEP == 0, tw % K_STEP == 0 and
 // I % tw == 0, and that each launch's shared memory fits the 227 KB a block
-// may opt in to. h_buf is (B, I) bf16 scratch, r_buf (B, D) f32. Each
+// may opt in to. h_buf is (B, I) bf16 scratch, r_buf (B, D) f32. B11's out
+// has x's type. Each
 // function returns the first CUDA error of its launches (0 on success).
 extern "C" {
 
@@ -450,10 +340,10 @@ int attnout_ln_mlp_int8_launch(const void* a, const void* xres, int in_bf16,
   cudaError_t err = launch_attn_out(a, xres, in_bf16, wo_t, so, bo, r_buf, B, D, st);
   if (err != cudaSuccess) return (int)err;
   const size_t smem_ln = ((size_t)B * D + WARPS) * sizeof(float);
-  DISPATCH_ROWS(B, err = launch<ln_fc_in_kernel<NB>>(blocks_for(I), smem_ln, st, r_buf, g2,
-                                be2, w1_t, s1, b1, h_buf, B, D, I, eps));
+  DISPATCH_ROWS(B, err = launch<ln_fc_in_kernel<float, NB>>(blocks_for(I), smem_ln, st, r_buf,
+                                g2, be2, w1_t, s1, b1, h_buf, B, D, I, eps));
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_down(h_buf, r_buf, w2_t, s2, b2, out, B, D, I, I, st);
+  return (int)launch_down<float>(h_buf, r_buf, w2_t, s2, b2, out, B, D, I, I, st);
 }
 
 int attnout_rms_glu_int8_launch(const void* a, const void* xres, int in_bf16,
@@ -470,7 +360,20 @@ int attnout_rms_glu_int8_launch(const void* a, const void* xres, int in_bf16,
   DISPATCH_ROWS(B, err = launch<rms_glu_kernel<NB>>(blocks_for(I), smem_ln, st, r_buf, g2,
                                 wg_t, sg, wu_t, su, h_buf, B, D, I, eps));
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_down(h_buf, r_buf, wd_t, sd, nullptr, out, B, D, I, tw, st);
+  return (int)launch_down<float>(h_buf, r_buf, wd_t, sd, nullptr, out, B, D, I, tw, st);
+}
+
+int fused_mlp_int8_launch(const void* x, int x_bf16, const float* g, const float* b,
+                          const int8_t* w1_t, const float* s1, const float* b1,
+                          const int8_t* w2_t, const float* s2, const float* b2,
+                          __nv_bfloat16* h_buf, void* out, int B, int D, int I, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (x_bf16)
+    return (int)launch_fused_mlp<__nv_bfloat16>((const __nv_bfloat16*)x, g, b, w1_t, s1, b1,
+                                                 w2_t, s2, b2, h_buf, (__nv_bfloat16*)out,
+                                                 B, D, I, st);
+  return (int)launch_fused_mlp<float>((const float*)x, g, b, w1_t, s1, b1, w2_t, s2, b2, h_buf,
+                                      (float*)out, B, D, I, st);
 }
 
 }  // extern "C"

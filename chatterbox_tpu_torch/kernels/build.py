@@ -1,9 +1,10 @@
 """Build the CUDA sources under csrc/ into shared libraries and load them.
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc` for
-Hopper (sm_90a) into `_build/lib<name>.so`, then loaded with ctypes. Nothing
-is built when a module is imported: the first call that needs a library
-builds it, and a library older than its source is rebuilt. `build_all()`
+Hopper (sm_90a) into `_build/lib<name>.so`, then loaded with ctypes; the
+sources share the helpers of `csrc/common.cuh`. Nothing is built when a
+module is imported: the first call that needs a library builds it, and a
+library older than its source or a header is rebuilt. `build_all()`
 starts one nvcc per source at once (used to front-load the build).
 """
 from __future__ import annotations
@@ -45,9 +46,12 @@ def _lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """The library is missing, or older than its source or a shared header."""
     lib = _lib_path(name)
-    src = SRC_DIR / f"{name}.cu"
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    if not lib.exists():
+        return True
+    deps = [SRC_DIR / f"{name}.cu", *SRC_DIR.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in deps)
 
 
 def _start(name: str):

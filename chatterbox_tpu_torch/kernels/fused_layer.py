@@ -1,13 +1,18 @@
-"""The fused int8 decode-layer kernels and their plain versions.
+"""The fused decode-layer kernels and their plain versions.
 
-Four functions carry every decode step, two per layer:
+Six functions carry every fused decode step, two per layer:
 
-GPT-2 (Turbo):
+GPT-2 (Turbo), int8 weights:
   ln_qkv_int8           out = (bf16(LN1(x)) @ Wqkv) * s + bias            (B, 3D)
   attnout_ln_mlp_int8   r = x + (bf16(a) @ Wo) * so + bo
                         out = r + b2 + bf16(gelu_new((bf16(LN2(r)) @ W1) * s1
                                                      + b1)) @ W2 * s2      (B, D)
-llama (520M CFG):
+GPT-2 (Turbo), int4 weights ("int4_fused"; group scales per 256 rows):
+  ln_qkv_int4           out = bias + bf16(LN1(x)) @ Wqkv                  (B, 3D)
+  attnout_ln_mlp_int4   r = x + bf16(a) @ Wo + bo
+                        out = r + b2 + bf16(gelu_new(b1 + bf16(LN2(r)) @ W1))
+                                       @ W2                                (B, D)
+llama (520M CFG), int8 weights:
   rms_qkv_int8          out = (bf16(RMSNorm(x) * g) @ [Wq|Wk|Wv]) * s      (B, N)
   attnout_rms_glu_int8  r = x + (bf16(a) @ Wo) * so;  y = bf16(RMSNorm(r) * g2)
                         h = bf16(silu((y @ Wg) * sg) * ((y @ Wu) * su))
@@ -15,10 +20,18 @@ llama (520M CFG):
                                                                           (B, D)
 
 They replace the Pallas TPU kernels of the same names in
-chatterbox_tpu/ops/fused_layer.py; the CUDA source is csrc/fused_layer.cu.
-Weights are int8 and stored OUT-MAJOR, (N, K) with K contiguous (`*_t`), the
-layout the CUDA kernels stream; scales, biases and norm parameters are (N,)
-float32; outputs are float32.
+chatterbox_tpu/ops/fused_layer.py; the CUDA sources are csrc/fused_layer.cu
+(int8) and csrc/int4.cu (int4, beside B8 of kernels/int4_matmul.py). The
+library of csrc/fused_layer.cu also holds B11 (kernels/fused_mlp.py).
+Weights are stored OUT-MAJOR, the contraction contiguous (`*_t`), the
+layout the CUDA kernels stream:
+  * int8: (N, K) int8 with one scale per output column;
+  * int4, row split (Wqkv, Wo, W2): (N, K/2) packed bytes, byte [n, r]
+    holding W[r, n] in the low nibble and W[r + K/2, n] in the high one,
+    and scales (N, K/2/256) for each half (`*_slo`, `*_shi`);
+  * int4, column split (W1): (I/2, D) packed bytes, byte [c, r] holding
+    W1[r, c] low and W1[r, c + I/2] high, scales (I/2, D/256) each.
+Biases and norm parameters are (N,) float32; outputs are float32.
 
 Each kernel call takes 1 to MAX_B = 16 rows (one request, a CFG pair, or
 the batched engine's rows).
@@ -35,14 +48,17 @@ import ctypes
 import torch
 
 launches = {"ln_qkv_int8": 0, "attnout_ln_mlp_int8": 0,
-            "rms_qkv_int8": 0, "attnout_rms_glu_int8": 0}
+            "rms_qkv_int8": 0, "attnout_rms_glu_int8": 0,
+            "ln_qkv_int4": 0, "attnout_ln_mlp_int4": 0}
 
 MAX_B = 16           # rows a kernel call takes (csrc: row instances 2-16)
 K_STEP = 512         # contraction bytes a warp reads per iteration
 SMEM_LIMIT = 227 * 1024   # dynamic shared memory a block opts in to
 WARPS = 8
+GROUP = 256          # contraction rows per int4 scale (INT4_GROUP)
 
 _lib = None
+_int4_lib = None
 
 
 def _kernels():
@@ -61,8 +77,29 @@ def _kernels():
         lib.attnout_rms_glu_int8_launch.argtypes = [
             P, P, I, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, P]
         lib.attnout_rms_glu_int8_launch.restype = I
+        lib.fused_mlp_int8_launch.argtypes = [P, I, P, P, P, P, P, P, P, P, P, P,
+                                              I, I, I, P]
+        lib.fused_mlp_int8_launch.restype = I
         _lib = lib
     return _lib
+
+
+def int4_kernels():
+    """The library of csrc/int4.cu (B8, B9, B10), built at first use."""
+    global _int4_lib
+    if _int4_lib is None:
+        from .build import load
+        lib = load("int4")
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.matmul_int4_launch.argtypes = [P, I, P, P, P, P, I, I, I, P]
+        lib.matmul_int4_launch.restype = I
+        lib.ln_qkv_int4_launch.argtypes = [P, I, P, P, P, P, P, P, P, I, I, I, F, P]
+        lib.ln_qkv_int4_launch.restype = I
+        lib.attnout_ln_mlp_int4_launch.argtypes = [
+            P, P, I, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, F, P]
+        lib.attnout_ln_mlp_int4_launch.restype = I
+        _int4_lib = lib
+    return _int4_lib
 
 
 # ---------------------------------------------------------------------------
@@ -128,6 +165,73 @@ def attnout_rms_glu_int8_plain(a, xres, wo_t, so, g2, wg_t, sg, wu_t, su,
     # kernel's grid steps
     for j in range(0, h.shape[1], tw):
         out = out + _dot_i8(h[:, j:j + tw], wd_t[:, j:j + tw]) * sd
+    return out
+
+
+def unpack_int4(w: torch.Tensor, dtype=torch.float32):
+    """Nibble-packed int8 bytes -> (low, high) values in [-7, 7] as `dtype`,
+    by int32 arithmetic as the Pallas kernels do (torch's int8 shifts wrap):
+    low = ((b & 15) ^ 8) - 8, high = b >> 4 (arithmetic)."""
+    w32 = w.to(torch.int32)
+    return (((w32 & 15) ^ 8) - 8).to(dtype), (w32 >> 4).to(dtype)
+
+
+def group_dots(x: torch.Tensor, w_t: torch.Tensor, s_t: torch.Tensor) -> torch.Tensor:
+    """(G, B, N): x (B, K) f32 against the out-major weight values w_t
+    (N, K), one f32 product per group of K / G contraction rows, each times
+    that group's scales s_t[:, g] (s_t (N, G))."""
+    N, K = w_t.shape
+    G = s_t.shape[1]
+    xg = x.reshape(x.shape[0], G, K // G).transpose(0, 1)
+    wg = w_t.reshape(N, G, K // G).permute(1, 2, 0)
+    return torch.bmm(xg, wg) * s_t.T.float()[:, None, :]
+
+
+def row_split_dots(x: torch.Tensor, wp_t: torch.Tensor, slo_t, shi_t):
+    """Row-split int4 product of x (B, K) f32 with the out-major packed
+    weight wp_t (N, K/2): the scaled group products (G, B, N) of the low
+    half (x[:, :K/2] with the low nibbles) and of the high half."""
+    K2 = wp_t.shape[1]
+    lo, hi = unpack_int4(wp_t)
+    return group_dots(x[:, :K2], lo, slo_t), group_dots(x[:, K2:], hi, shi_t)
+
+
+def ln_qkv_int4_plain(x, g, b, wp_t, slo_t, shi_t, bias, eps: float):
+    """out = bias, then + (low + high) group by group, as the Pallas grid
+    accumulates."""
+    lo, hi = row_split_dots(_ln_bf16(x, g, b, eps), wp_t, slo_t, shi_t)
+    out = bias.float().expand(x.shape[0], -1)
+    for k in range(lo.shape[0]):
+        out = out + (lo[k] + hi[k])
+    return out
+
+
+def attnout_ln_mlp_int4_plain(a, xres, wo_t, so_lo, so_hi, bo, g2, be2, w1c_t,
+                              s1_lo, s1_hi, b1, w2_t, s2_lo, s2_hi, b2, eps: float):
+    """The Pallas kernel's order: the attention projection's low and high
+    halves added group by group; each hidden unit's sum starts at its bias;
+    the output starts at r + b2 and takes W2's low and high halves group by
+    group (the hidden tiles cover the groups in order)."""
+    B = a.shape[0]
+    lo, hi = row_split_dots(a.to(torch.bfloat16).float(), wo_t, so_lo, so_hi)
+    acc = torch.zeros_like(lo[0])
+    for k in range(lo.shape[0]):
+        acc = acc + lo[k]
+        acc = acc + hi[k]
+    r = xres.float() + acc + bo
+    y2 = _ln_bf16(r, g2, be2, eps)
+    IH = w1c_t.shape[0]
+    lo1, hi1 = unpack_int4(w1c_t)
+    ua, ub = group_dots(y2, lo1, s1_lo), group_dots(y2, hi1, s1_hi)
+    u = [b1[:IH].float().expand(B, -1), b1[IH:].float().expand(B, -1)]
+    for k in range(ua.shape[0]):
+        u = [u[0] + ua[k], u[1] + ub[k]]
+    h = _gelu_new_f32(torch.cat(u, dim=-1)).to(torch.bfloat16).float()
+    lo2, hi2 = row_split_dots(h, w2_t, s2_lo, s2_hi)
+    out = r + b2
+    for k in range(lo2.shape[0]):
+        out = out + lo2[k]
+        out = out + hi2[k]
     return out
 
 
@@ -308,6 +412,94 @@ def attnout_rms_glu_int8(a, xres, wo_t, so, g2, wg_t, sg, wu_t, su, wd_t, sd,
     return out
 
 
+def _int4_limits(B, K2, what):
+    if not 1 <= B <= MAX_B:
+        raise ValueError(f"{what}: batch {B} outside 1..{MAX_B}")
+    if K2 <= 0 or K2 % GROUP:
+        raise ValueError(f"{what}: packed half {K2} is not a multiple of {GROUP} rows")
+
+
+def ln_qkv_int4(x, g, b, wp_t, slo_t, shi_t, bias, eps: float):
+    """x (B, D) bf16/f32 -> bias + bf16(LN(x)) @ W, (B, N) f32. W is int4,
+    row split, out-major: wp_t (N, D/2) int8, slo_t / shi_t (N, D/512) f32;
+    g, b (D,) and bias (N,) f32."""
+    if not _check_device(x):
+        return ln_qkv_int4_plain(x, g, b, wp_t, slo_t, shi_t, bias, eps)
+    B, D = x.shape
+    N = wp_t.shape[0]
+    _int4_limits(B, D // 2, "ln_qkv_int4")
+    if (B * D + WARPS) * 4 > SMEM_LIMIT:
+        raise ValueError("ln_qkv_int4: LayerNorm rows exceed shared memory")
+    dev = x.device
+    _check("x", x, (B, D), _ACT, dev)
+    for name, t in (("g", g), ("b", b)):
+        _check(name, t, (D,), _F32, dev)
+    _check("wp_t", wp_t, (N, D // 2), _I8, dev)
+    for name, t in (("slo_t", slo_t), ("shi_t", shi_t)):
+        _check(name, t, (N, D // 2 // GROUP), _F32, dev)
+    _check("bias", bias, (N,), _F32, dev)
+    out = torch.empty((B, N), dtype=torch.float32, device=dev)
+    err = int4_kernels().ln_qkv_int4_launch(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), g.data_ptr(), b.data_ptr(),
+        wp_t.data_ptr(), slo_t.data_ptr(), shi_t.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), B, D, N, eps, torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"ln_qkv_int4 launch failed: CUDA error {err}")
+    launches["ln_qkv_int4"] += 1
+    return out
+
+
+def attnout_ln_mlp_int4(a, xres, wo_t, so_lo, so_hi, bo, g2, be2, w1c_t, s1_lo,
+                        s1_hi, b1, w2_t, s2_lo, s2_hi, b2, eps: float):
+    """Second half of an int4 GPT-2 decode layer: a, xres (B, D) bf16/f32
+    (same type) -> new residual stream (B, D) f32. Out-major int4: wo_t
+    (D, D/2) and w2_t (D, I/2) row split with scales (D, D/512) and
+    (D, I/512); w1c_t (I/2, D) column split with scales (I/2, D/256); bo,
+    g2, be2, b2 (D,) and b1 (I,) f32."""
+    if not _check_device(a):
+        return attnout_ln_mlp_int4_plain(a, xres, wo_t, so_lo, so_hi, bo, g2, be2,
+                                         w1c_t, s1_lo, s1_hi, b1, w2_t, s2_lo,
+                                         s2_hi, b2, eps)
+    B, D = a.shape
+    IH = w1c_t.shape[0]
+    I = 2 * IH
+    _int4_limits(B, D // 2, "attnout_ln_mlp_int4")
+    _int4_limits(B, IH, "attnout_ln_mlp_int4")
+    if D % GROUP:
+        raise ValueError(f"attnout_ln_mlp_int4: width {D} is not a multiple of {GROUP}")
+    if (B * D + WARPS) * 4 > SMEM_LIMIT or B * I * 2 > SMEM_LIMIT:
+        raise ValueError("attnout_ln_mlp_int4: rows exceed shared memory")
+    dev = a.device
+    _check("a", a, (B, D), _ACT, dev)
+    _check("xres", xres, (B, D), (a.dtype,), dev)
+    _check("wo_t", wo_t, (D, D // 2), _I8, dev)
+    _check("w1c_t", w1c_t, (IH, D), _I8, dev)
+    _check("w2_t", w2_t, (D, IH), _I8, dev)
+    for name, t, shape in (("so_lo", so_lo, (D, D // 2 // GROUP)),
+                           ("so_hi", so_hi, (D, D // 2 // GROUP)),
+                           ("s1_lo", s1_lo, (IH, D // GROUP)),
+                           ("s1_hi", s1_hi, (IH, D // GROUP)),
+                           ("s2_lo", s2_lo, (D, IH // GROUP)),
+                           ("s2_hi", s2_hi, (D, IH // GROUP)),
+                           ("bo", bo, (D,)), ("g2", g2, (D,)), ("be2", be2, (D,)),
+                           ("b1", b1, (I,)), ("b2", b2, (D,))):
+        _check(name, t, shape, _F32, dev)
+    r_buf = torch.empty((B, D), dtype=torch.float32, device=dev)
+    h_buf = torch.empty((B, I), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((B, D), dtype=torch.float32, device=dev)
+    err = int4_kernels().attnout_ln_mlp_int4_launch(
+        a.data_ptr(), xres.data_ptr(), int(a.dtype == torch.bfloat16),
+        wo_t.data_ptr(), so_lo.data_ptr(), so_hi.data_ptr(), bo.data_ptr(),
+        g2.data_ptr(), be2.data_ptr(), w1c_t.data_ptr(), s1_lo.data_ptr(),
+        s1_hi.data_ptr(), b1.data_ptr(), w2_t.data_ptr(), s2_lo.data_ptr(),
+        s2_hi.data_ptr(), b2.data_ptr(), r_buf.data_ptr(), h_buf.data_ptr(),
+        out.data_ptr(), B, D, I, eps, torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"attnout_ln_mlp_int4 launch failed: CUDA error {err}")
+    launches["attnout_ln_mlp_int4"] += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # operands
 # ---------------------------------------------------------------------------
@@ -408,3 +600,61 @@ def apply_fused_llama_mlp_int8(fl: dict, attn2d, xres2d, eps: float, tw: int):
     return attnout_rms_glu_int8(
         attn2d, xres2d, fl["wo_t"], fl["wo_s"], fl["g2"], fl["wg_t"], fl["sg"],
         fl["wu_t"], fl["su"], fl["wd_t"], fl["sd"], eps, tw)
+
+
+# int4 GPT-2 operands ("int4_fused"): (layer linear, its packed-weight and
+# scale leaves) -> (fused keys of weight, low and high scales, bias)
+INT4_FUSED_LAYOUT = {
+    "qkv": (("w_q4", "w_scale4_lo", "w_scale4_hi"), ("qkv_wpt", "qkv_slo", "qkv_shi", "qkv_b")),
+    "attn_out": (("w_q4", "w_scale4_lo", "w_scale4_hi"), ("wo_wpt", "wo_slo", "wo_shi", "wo_b")),
+    "fc_in": (("w_q4c", "w_scale4c_lo", "w_scale4c_hi"), ("w1c_t", "s1_lo", "s1_hi", "fc1_b")),
+    "fc_out": (("w_q4", "w_scale4_lo", "w_scale4_hi"), ("w2p_t", "s2_lo", "s2_hi", "fc2_b")),
+}
+
+
+def fused_gpt2_supported(cfg) -> bool:
+    """The widths the int4 GPT-2 kernel pair takes (the JAX package's
+    tiles): D a multiple of 512, 3D of its 512-column tile, I/2 of its
+    512-unit hidden tile."""
+    return cfg.is_gpt and gpt2_int4_widths_ok(cfg.hidden_size, cfg.intermediate_size)
+
+
+def gpt2_int4_widths_ok(D: int, I: int) -> bool:
+    return (D % (2 * GROUP) == 0 and (3 * D) % 512 == 0 and I % 2 == 0
+            and (I // 2) % 512 == 0)
+
+
+def prepare_fused_gpt2_layer(lp: dict) -> dict:
+    """Fused-kernel operands from an int4_fused GPT-2 layer dict
+    ({"ln1","qkv","attn_out","ln2","fc_in","fc_out"}; qkv, attn_out and
+    fc_out row split {"w_q4","w_scale4_lo","w_scale4_hi","b"}, fc_in column
+    split {"w_q4c","w_scale4c_lo","w_scale4c_hi","b"}). Packed weights and
+    scales move to out-major storage and the layer's own leaves become
+    transposed views of it (no copy where they already are)."""
+    for name, ((kw, _, _), _) in INT4_FUSED_LAYOUT.items():
+        if kw not in lp[name]:
+            raise ValueError(f"{name}: quantize int4_fused first (needs {kw!r})")
+    f32 = lambda t: t.float().contiguous()
+    fused = {"g1": f32(lp["ln1"]["g"]), "b1": f32(lp["ln1"]["b"]),
+             "g2": f32(lp["ln2"]["g"]), "b2": f32(lp["ln2"]["b"])}
+    for name, (leaves, (fw, fs_lo, fs_hi, fb)) in INT4_FUSED_LAYOUT.items():
+        p = lp[name]
+        for leaf, key in zip(leaves, (fw, fs_lo, fs_hi)):
+            fused[key] = p[leaf].T.contiguous()
+            p[leaf] = fused[key].T
+        fused[fb] = f32(p["b"])
+    return fused
+
+
+def apply_fused_gpt2_qkv(fl: dict, x2d, eps: float):
+    """(B, D) -> (B, 3D) f32 (B9)."""
+    return ln_qkv_int4(x2d, fl["g1"], fl["b1"], fl["qkv_wpt"], fl["qkv_slo"],
+                       fl["qkv_shi"], fl["qkv_b"], eps)
+
+
+def apply_fused_gpt2_mlp(fl: dict, attn2d, xres2d, eps: float):
+    """(B, D) attention output + residual -> new residual (B, D) f32 (B10)."""
+    return attnout_ln_mlp_int4(
+        attn2d, xres2d, fl["wo_wpt"], fl["wo_slo"], fl["wo_shi"], fl["wo_b"],
+        fl["g2"], fl["b2"], fl["w1c_t"], fl["s1_lo"], fl["s1_hi"], fl["fc1_b"],
+        fl["w2p_t"], fl["s2_lo"], fl["s2_hi"], fl["fc2_b"], eps)

@@ -5,9 +5,11 @@ The counterpart of chatterbox_tpu/models/t3/backbone.py
 (`backbone_apply_unrolled`):
   * prefill runs the unfused layer over the prefix (int8 `linear` is a
     plain large matrix product);
-  * a single-token decode step runs each layer as its family's two fused
-    int8 kernels (kernels/fused_layer.py) around attention; llama applies
-    RoPE to q and k between the two;
+  * a single-token decode step runs each layer that carries "fused"
+    operands as its family's two fused kernels (kernels/fused_layer.py)
+    around attention: the int8 pair, or GPT-2's int4 pair where the
+    operands are int4 ("qkv_wpt"); llama applies RoPE to q and k between
+    the two. Unfused int4 layers reach B8 through `nn.linear`;
   * the KV cache is one (L, B, H_kv, T_max, head_dim) bf16 pair
     (`KVCache`), or int8 values with one bf16 scale per position
     (`KVCacheInt8`), written in place at one offset shared by every row;
@@ -30,8 +32,8 @@ from ...nn import core as nn
 from ...kernels.decode_attention import (TT, decode_attention,
                                          decode_attention_streamed,
                                          decode_attention_streamed_int8)
-from ...kernels.fused_layer import (apply_fused_gpt2_mlp_int8,
-                                    apply_fused_gpt2_qkv_int8,
+from ...kernels.fused_layer import (apply_fused_gpt2_mlp, apply_fused_gpt2_mlp_int8,
+                                    apply_fused_gpt2_qkv, apply_fused_gpt2_qkv_int8,
                                     apply_fused_llama_mlp_int8,
                                     apply_fused_llama_qkv_int8, llama_mlp_tile)
 from .config import BackboneConfig
@@ -175,7 +177,9 @@ def _qkv(lp: dict, cfg: BackboneConfig, x: torch.Tensor, fused: bool, rope):
     D = cfg.hidden_size
     if cfg.is_gpt:
         if fused:
-            qkv = apply_fused_gpt2_qkv_int8(lp["fused"], x[:, 0], cfg.layer_norm_eps)
+            f_qkv = (apply_fused_gpt2_qkv if "qkv_wpt" in lp["fused"]
+                     else apply_fused_gpt2_qkv_int8)
+            qkv = f_qkv(lp["fused"], x[:, 0], cfg.layer_norm_eps)
             qkv = qkv.to(x.dtype)[:, None, :]
         else:
             qkv = nn.linear(lp["qkv"], nn.layer_norm(lp["ln1"], x, cfg.layer_norm_eps))
@@ -201,8 +205,9 @@ def _after_attn(lp: dict, cfg: BackboneConfig, x: torch.Tensor, attn: torch.Tens
     """Attention output projection, residual and MLP: the new x (B, t, D)."""
     if fused:
         if cfg.is_gpt:
-            out = apply_fused_gpt2_mlp_int8(lp["fused"], attn[:, 0].to(x.dtype),
-                                            x[:, 0], cfg.layer_norm_eps)
+            f_mlp = (apply_fused_gpt2_mlp if "qkv_wpt" in lp["fused"]
+                     else apply_fused_gpt2_mlp_int8)
+            out = f_mlp(lp["fused"], attn[:, 0].to(x.dtype), x[:, 0], cfg.layer_norm_eps)
         else:
             out = apply_fused_llama_mlp_int8(lp["fused"], attn[:, 0].to(x.dtype),
                                              x[:, 0], cfg.rms_norm_eps,

@@ -5,7 +5,11 @@ Layouts follow the JAX package at every public function, so the two can be
 compared like with like:
   * activations are channels-last (B, T, C);
   * linear weights are (in, out): `x @ w`;
-  * int8 linear weights are {"w_q" (in, out) int8, "w_scale" (out,) f32}.
+  * int8 linear weights are {"w_q" (in, out) int8, "w_scale" (out,) f32};
+  * int4 linear weights are nibble-packed as in the JAX package:
+    {"w_q4" (in/2, out), "w_scale4_lo", "w_scale4_hi"} split by rows, or
+    {"w_q4c" (in, out/2), "w_scale4c_lo", "w_scale4c_hi"} split by columns
+    (kernels/int4_matmul.py), stored out-major underneath.
 Convolution weights are the one exception: they are carried in torch's own
 layout, (Cout, Cin, K) for a conv and (Cin, Cout, K) for a transposed conv
 (convert/from_jax.py transposes them once).
@@ -19,6 +23,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..kernels.int4_matmul import (MAX_ROWS, matmul_int4, matmul_int4_dense,
+                                   matmul_int4c_dense)
 
 F32_MIN = torch.finfo(torch.float32).min
 
@@ -41,6 +48,18 @@ def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
         # per-output-channel scale is applied in that type
         y = matmul(x, p["w_q"])
         y = y * p["w_scale"].to(y.dtype)
+    elif "w_q4" in p or "w_q4c" in p:
+        # weight-only int4: inputs of at most 8 rows (decode) take B8, larger
+        # ones (prefill) and the column split (a fused layer's fc_in at
+        # prefill) the dense paths; the f32 result is cast to x's type
+        x2 = x.reshape(-1, x.shape[-1])
+        if "w_q4c" in p:
+            y = matmul_int4c_dense(x2, p["w_q4c"], p["w_scale4c_lo"], p["w_scale4c_hi"])
+        elif x2.shape[0] <= MAX_ROWS:
+            y = matmul_int4(x2.contiguous(), p["w_q4"], p["w_scale4_lo"], p["w_scale4_hi"])
+        else:
+            y = matmul_int4_dense(x2, p["w_q4"], p["w_scale4_lo"], p["w_scale4_hi"])
+        y = y.to(x.dtype).reshape(*x.shape[:-1], -1)
     else:
         y = matmul(x, p["w"])
     if "b" in p:

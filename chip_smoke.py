@@ -10,7 +10,8 @@ and 2 rows, in turns on the same operands, and stops.
 
 The port's paths, each at full width with random weights from a seed,
 served as bench.py serves them (T3 cast to bf16 and quantized int8_fused,
-S3Gen in float32 with default FlowDims and HiFT base 512):
+S3Gen in float32 with default FlowDims and HiFT base 512), and the same T3
+weights quantized to int4:
   * Turbo: GPT-2-medium T3 (24 layers), meanflow S3Gen; kernels B1, B2;
   * 520M CFG: T3Config.english_only() (Llama-520M, 30 layers, perceiver,
     emotion input, learned positions), batch-2 CFG decode, 10-step CFG
@@ -20,7 +21,11 @@ S3Gen in float32 with default FlowDims and HiFT base 512):
     cache), B7 (a cache of another length);
   * the batched engine behind BatchDecoder with the int8 cache: 8 Turbo
     requests, 4 CFG requests (8 rows); B1 / B2 or B5 / B6 at 8 rows, B4
-    with each row's left pad as its lower bound.
+    with each row's left pad as its lower bound;
+  * Turbo on an int4_fused T3: B9, B10 (one pair per layer and step);
+  * 520M CFG on an int4 T3: B8 (the seven linears of every layer, 2 rows).
+B11 (fused_mlp_int8) is on no path: nothing in the JAX package calls it
+outside its own test. Phase 3 holds it against its plain version.
 
 Phases, in order; any failure exits non-zero without the final "ok" line:
   1. device: the card's name and power limit (nvidia-smi), torch / CUDA /
@@ -30,8 +35,12 @@ Phases, in order; any failure exits non-zero without the final "ok" line:
   3. kernels: each kernel against its plain PyTorch version on the card,
      timed (kernel, plain, library) over all the layers by CUDA-graph
      replay: B1 / B2 on the real Turbo weights at 1, 2, 8 and 16 rows,
-     B5 / B6 on the real 520M weights at 2, 1, 8 and 16 rows (library:
-     torch.matmul on pre-dequantized bf16 weights); B3 / B4 / B7 on every
+     B5 / B6 on the real 520M weights at 2, 1, 8 and 16 rows; B9 / B10 on
+     the Turbo int4_fused weights at 1, 2, 8 and 16 rows; B8 on every
+     linear of the 520M int4 weights at 2, 1 and 8 rows; B11 on the Turbo
+     int8 layers' ln2 / fc_in / fc_out at 1, 2, 8 and 16 rows, float32
+     input as the JAX package's own test of it (library: torch.matmul on
+     pre-dequantized bf16 weights); B3 / B4 / B7 on every
      layer's own random cache at the paths' shapes: Turbo B=1, T=768 at
      positions in cache tiles 1-3, 520M B=2, T=512, the batched B=8 with
      distinct left pads (one past a whole tile), B7 at T=657 (library:
@@ -42,17 +51,19 @@ Phases, in order; any failure exits non-zero without the final "ok" line:
      logits on the bf16 and the int8 cache and meanflow S3Gen waveform;
      520M-family T3 teacher-forced CFG logits at batch 2 on both caches,
      a batched int8-cache CFG decode of 3 requests of distinct text
-     lengths, and 10-step CFG S3Gen waveform;
+     lengths, and 10-step CFG S3Gen waveform; Turbo int4_fused and
+     520M-family int4 (CFG, batch 2) teacher-forced logits;
   5. main paths, each with the launch counts set to 0 just before and read
      just after it (its own kernels launched layers x decode steps times,
-     every other kernel not at all):
+     B8 seven times that, every other kernel not at all):
      ChatterboxTurboTTS.generate with bench.py's Turbo settings (synthetic
      conditionals, P=125, 250 tokens with EOS ignored, top_k 1000,
      temperature 0.8, top_p 0.95, repetition penalty 1.2) and
      ChatterboxTTS.generate with bench.py's 520M settings (cfg_weight 0.5,
      temperature 0.8, top_p 1.0, min_p 0.05, repetition penalty 1.2,
      exaggeration 0.5, 30 text tokens, 250 tokens with EOS ignored), on
-     the bf16 cache and with kv_int8=True; each once to warm up, three
+     the bf16 cache, with kv_int8=True, and on the int4 T3s (Turbo
+     int4_fused, 520M int4); each once to warm up, three
      timed runs, one split run for T3 and S3Gen times, and a profile of
      the decode step. Then t3_generate(fused_attn=True) of each family,
      a teacher-forced Turbo decode over an unaligned cache, and each
@@ -134,6 +145,8 @@ def device_time_ms(fn, reps: int) -> float:
 
 FUSED_SRC = "chatterbox_tpu_torch/csrc/fused_layer.cu"
 ATTN_SRC = "chatterbox_tpu_torch/csrc/decode_attention.cu"
+INT4_SRC = "chatterbox_tpu_torch/csrc/int4.cu"
+PEAK_BF16_OPS = 989e12         # dense bf16 tensor-core rate (data sheet)
 
 
 class KernelSpec:
@@ -257,6 +270,131 @@ def llama_specs(tts, K, B=2):
     ]
 
 
+def _deq4(w, s_lo, s_hi, axis: int):
+    """A packed int4 weight in the JAX layout and its two group scales ->
+    the bf16 weight it stands for: row split (axis 0, (K/2, N) -> (K, N))
+    or column split (axis 1, (K, N/2) -> (K, N))."""
+    import torch
+    from chatterbox_tpu_torch.utils.quantize import unpack_int4
+    halves = []
+    for v, s in zip(unpack_int4(w), (s_lo, s_hi)):
+        R, C = v.shape
+        G = s.shape[0]
+        halves.append((v.reshape(G, R // G, C) * s[:, None, :]).reshape(R, C))
+    return torch.cat(halves, dim=axis).bfloat16()
+
+
+def _deq_leaf(p):
+    if "w_q4c" in p:
+        return _deq4(p["w_q4c"], p["w_scale4c_lo"], p["w_scale4c_hi"], 1)
+    return _deq4(p["w_q4"], p["w_scale4_lo"], p["w_scale4_hi"], 0)
+
+
+def _int4_bytes(K, N):
+    """Bytes of a (K, N) int4 weight: packed values and both halves' group
+    scales (one f32 per 256 contraction rows and output column)."""
+    return K * N // 2 + K * N // 256 * VEC
+
+
+def int4_gpt2_specs(tts, K, B=1):
+    """B9 / B10 on the Turbo int4_fused layers."""
+    layers = tts.t3_params["backbone"]["layers"]
+    fls = [lp["fused"] for lp in layers]
+    cfg = tts.hp.backbone
+    D, I, N, eps = cfg.hidden_size, cfg.intermediate_size, 3 * cfg.hidden_size, \
+        cfg.layer_norm_eps
+    xs, as_, hs = _inputs(len(layers), B, D, I, seed=3)
+    lib9 = [_deq_leaf(lp["qkv"]) for lp in layers]
+    lib10 = [tuple(_deq_leaf(lp[n]) for n in ("attn_out", "fc_in", "fc_out")) for lp in layers]
+
+    def b9(i, f):
+        fl = fls[i]
+        return f(xs[i], fl["g1"], fl["b1"], fl["qkv_wpt"], fl["qkv_slo"], fl["qkv_shi"],
+                 fl["qkv_b"], eps)
+
+    def b10(i, f):
+        fl = fls[i]
+        return f(as_[i], xs[i], fl["wo_wpt"], fl["wo_slo"], fl["wo_shi"], fl["wo_b"],
+                 fl["g2"], fl["b2"], fl["w1c_t"], fl["s1_lo"], fl["s1_hi"], fl["fc1_b"],
+                 fl["w2p_t"], fl["s2_lo"], fl["s2_hi"], fl["fc2_b"], eps)
+
+    def lib_b10(i):
+        import torch
+        wo, w1, w2 = lib10[i]
+        torch.matmul(as_[i], wo)
+        torch.matmul(xs[i], w1)
+        torch.matmul(hs[i], w2)
+
+    import torch
+    return [
+        KernelSpec("ln_qkv_int4", "chatterbox_tpu/ops/fused_layer.py:111", b9,
+                   lambda i: torch.matmul(xs[i], lib9[i]),
+                   _int4_bytes(D, N) + (2 * D + N) * VEC + B * D * 2 + B * N * 4,
+                   2 * B * D * N, TOL_QKV, K.ln_qkv_int4, K.ln_qkv_int4_plain,
+                   PEAK_BF16_OPS, INT4_SRC),
+        KernelSpec("attnout_ln_mlp_int4", "chatterbox_tpu/ops/fused_layer.py:228", b10,
+                   lib_b10,
+                   _int4_bytes(D, D) + 2 * _int4_bytes(D, I) + (4 * D + I) * VEC
+                   + 2 * B * D * 2 + B * D * 4,
+                   2 * B * (D * D + 2 * D * I), TOL_MLP, K.attnout_ln_mlp_int4,
+                   K.attnout_ln_mlp_int4_plain, PEAK_BF16_OPS, INT4_SRC),
+    ]
+
+
+LLAMA_LINEARS = ("q", "k", "v", "o", "gate", "up", "down")
+
+
+def b8_specs(tts, M, B=2):
+    """B8 on every linear of the 520M int4 layers, in the order a decode
+    step calls them; returns ([spec], number of linears). Bytes and
+    operations are the mean over a layer's seven linears."""
+    import torch
+    ps = [lp[n] for lp in tts.t3_params["backbone"]["layers"] for n in LLAMA_LINEARS]
+    g = torch.Generator(device="cuda").manual_seed(4)
+    xs = [torch.randn((B, 2 * p["w_q4"].shape[0]), generator=g, device="cuda").bfloat16()
+          for p in ps]
+    lib = [_deq_leaf(p) for p in ps]
+    shapes = [(2 * p["w_q4"].shape[0], p["w_q4"].shape[1]) for p in ps[:len(LLAMA_LINEARS)]]
+    n = len(shapes)
+
+    def b8(i, f):
+        p = ps[i]
+        return f(xs[i], p["w_q4"], p["w_scale4_lo"], p["w_scale4_hi"])
+
+    spec = KernelSpec("matmul_int4", "chatterbox_tpu/ops/int4_matmul.py:77", b8,
+                      lambda i: torch.matmul(xs[i], lib[i]),
+                      sum(_int4_bytes(k, c) + B * k * 2 + B * c * 4 for k, c in shapes) / n,
+                      sum(2 * B * k * c for k, c in shapes) / n, TOL_QKV, M.matmul_int4,
+                      M.matmul_int4_plain, PEAK_BF16_OPS, INT4_SRC)
+    return [spec], len(ps)
+
+
+def b11_specs(tts, FM, B=1):
+    """B11 on the Turbo int8 layers' ln2 / fc_in / fc_out, x in float32 (so
+    its output, in x's type, is compared in f32)."""
+    import torch
+    layers = tts.t3_params["backbone"]["layers"]
+    cfg = tts.hp.backbone
+    D, I = cfg.hidden_size, cfg.intermediate_size
+    f32 = lambda t: t.float().contiguous()
+    ops = [(f32(lp["ln2"]["g"]), f32(lp["ln2"]["b"]), lp["fc_in"]["w_q"],
+            f32(lp["fc_in"]["w_scale"]), f32(lp["fc_in"]["b"]), lp["fc_out"]["w_q"],
+            f32(lp["fc_out"]["w_scale"]), f32(lp["fc_out"]["b"])) for lp in layers]
+    xs, _, hs = _inputs(len(layers), B, D, I, seed=5)
+    x32 = [x.float() for x in xs]
+    lib = [(_deq(lp["fc_in"]["w_q"].T, f32(lp["fc_in"]["w_scale"])),
+            _deq(lp["fc_out"]["w_q"].T, f32(lp["fc_out"]["w_scale"]))) for lp in layers]
+
+    def lib_b11(i):
+        torch.matmul(xs[i], lib[i][0])
+        torch.matmul(hs[i], lib[i][1])
+
+    return [KernelSpec("fused_mlp_int8", "chatterbox_tpu/ops/pallas_mlp.py:56",
+                       lambda i, f: f(x32[i], *ops[i]), lib_b11,
+                       2 * D * I + (2 * I + 4 * D) * VEC + 2 * B * D * 4, 4 * B * D * I,
+                       TOL_MLP, FM.fused_mlp_int8, FM.fused_mlp_int8_plain)]
+
+
 def check_specs(specs, L, label) -> dict:
     """Max abs error of each kernel against its plain version over L layers
     (compared in f32)."""
@@ -328,6 +466,31 @@ def check_kernels(turbo, cfg520, K) -> list:
                        f"B={B}")
         rows += r if B == 2 else []
         del l_specs
+    return rows
+
+
+def check_int4_kernels(turbo4, cfg4, turbo, K, M, FM) -> list:
+    """B9, B10 at Turbo's B=1, B8 at CFG's B=2 and B11 at B=1 give the rows
+    of the kernels line; the other row counts are checked and timed for the
+    record (B8 takes at most 8 rows: nn.linear sends it no more)."""
+    L = turbo4.hp.backbone.num_layers
+    rows = []
+    for B in (1, 2, 8, 16):
+        specs = int4_gpt2_specs(turbo4, K, B=B)
+        r = time_specs(specs, L, check_specs(specs, L, f"Turbo int4_fused, B={B}"), f"B={B}")
+        rows += r if B == 1 else []
+        del specs
+    for B in (2, 1, 8):
+        specs, n = b8_specs(cfg4, M, B=B)
+        r = time_specs(specs, n, check_specs(specs, n, f"520M int4, {n} linears, B={B}"),
+                       f"B={B}")
+        rows += r if B == 2 else []
+        del specs
+    for B in (1, 2, 8, 16):
+        specs = b11_specs(turbo, FM, B=B)
+        r = time_specs(specs, L, check_specs(specs, L, f"Turbo int8 MLP, f32 x, B={B}"),
+                       f"B={B}")
+        rows += r if B == 1 else []
     return rows
 
 
@@ -465,9 +628,10 @@ def _to(tree, device):
     import torch
     if isinstance(tree, dict):
         out = {k: _to(v, device) for k, v in tree.items() if k != "fused"}
-        if "fused" in tree:        # keep the layer's w_q views of the fused copies
+        if "fused" in tree:        # keep the layer's weight views of the fused copies
             from chatterbox_tpu_torch.kernels import fused_layer as K
-            out["fused"] = (K.prepare_fused_gpt2_layer_int8(out) if "qkv" in out
+            out["fused"] = (K.prepare_fused_gpt2_layer(out) if "qkv_wpt" in tree["fused"]
+                            else K.prepare_fused_gpt2_layer_int8(out) if "qkv" in out
                             else K.prepare_fused_llama_layer_int8(out))
         return out
     if isinstance(tree, list):
@@ -496,10 +660,10 @@ def _teacher_forced(params, hp, cond, text, forced, batch, cfg_mode, dev, kv_int
     return torch.stack(out).cpu()
 
 
-def _small_t3(hp, seed):
+def _small_t3(hp, seed, mode="int8_fused"):
     from chatterbox_tpu_torch.models.t3 import model as t3m
     from chatterbox_tpu_torch.utils.quantize import quantize_t3_backbone
-    return quantize_t3_backbone(t3m.t3_init(hp, seed=seed, device="cpu"), mode="int8_fused")
+    return quantize_t3_backbone(t3m.t3_init(hp, seed=seed, device="cpu"), mode=mode)
 
 
 def _compare_logits(ref, out, label):
@@ -514,11 +678,11 @@ def _compare_logits(ref, out, label):
         raise AssertionError(f"T3 logits on the card disagree with the CPU path: {err}")
 
 
-def _t3_reference(hp, batch, cfg_mode, seed, label, kv_int8=False):
+def _t3_reference(hp, batch, cfg_mode, seed, label, kv_int8=False, mode="int8_fused"):
     import numpy as np
     import torch
     from chatterbox_tpu_torch.models.t3 import model as t3m
-    cpu = _small_t3(hp, seed)
+    cpu = _small_t3(hp, seed, mode)
     rng = np.random.default_rng(seed)
     spk = torch.from_numpy(rng.standard_normal((1, 256)).astype(np.float32))
     prompt = torch.from_numpy(rng.integers(0, 6561, (1, 8)))
@@ -633,6 +797,10 @@ def check_reference():
     _batched_reference(cfg_hp, seed=9,
                        label="batched int8-KV CFG, Llama_fused_test, 3 requests")
     _s3gen_reference(False, 6, "CFG, 10 steps", cfg_slice=True)
+    _t3_reference(turbo_hp, batch=1, cfg_mode=False, seed=11,
+                  label="Turbo family, GPT2_fused_test, int4_fused", mode="int4_fused")
+    _t3_reference(cfg_hp, batch=2, cfg_mode=True, seed=12,
+                  label="520M family, Llama_fused_test, CFG batch 2, int4", mode="int4")
 
 
 # ---------------------------------------------------------------------------
@@ -705,7 +873,9 @@ def check_counts(counts, label, expected: dict):
 def run_path(tts, label, kernels, gen_kw, decode_kw, cfg_slice):
     """Warm-up, three timed generate runs with the launch counts set to 0
     just before and read just after, then a split run and a decode-step
-    profile. Returns the launch counts of the timed runs."""
+    profile. `kernels`: the kernels each layer launches once per decode
+    step, or {name: launches per layer and step}. Returns the launch counts
+    of the timed runs."""
     import numpy as np
     import torch
     from chatterbox_tpu_torch.sampling.decode import t3_generate
@@ -728,8 +898,9 @@ def run_path(tts, label, kernels, gen_kw, decode_kw, cfg_slice):
         audio_s = n_voc / 25.0
     counts = read_counts()
     L = tts.hp.backbone.num_layers
+    per_layer = kernels if isinstance(kernels, dict) else dict.fromkeys(kernels, 1)
     check_counts(counts, f"{label}, {L} layers x {forwards} decode steps",
-                 {name: L * forwards for name in kernels})
+                 {name: n * L * forwards for name, n in per_layer.items()})
     best = min(totals)
     log(f"{label} generate: {[round(t, 4) for t in totals]} s for {audio_s:.2f} s of "
         f"audio ({n_voc} vocoded tokens of {N_TOKENS}) -> x-realtime "
@@ -799,12 +970,19 @@ def profile_decode(tts, ids, sp, decode_kw, step_s: float, label: str,
 
 GPT2 = ("ln_qkv_int8", "attnout_ln_mlp_int8")
 LLAMA = ("rms_qkv_int8", "attnout_rms_glu_int8")
+GPT2_INT4 = ("ln_qkv_int4", "attnout_ln_mlp_int4")
 B3, B4, B7 = "decode_attention_streamed", "decode_attention_streamed_int8", "decode_attention"
+B8 = "matmul_int4"
+# kernels on no main path, with the reason
+PHASE3_ONLY = {"fused_mlp_int8": "phase 3 only: a library kernel that nothing in the "
+                                 "JAX package calls outside its own test"}
 
 
-def main_paths(turbo, cfg520) -> dict:
-    """Both pipelines on the bf16 cache (the default) and with kv_int8=True;
-    returns the launch counts summed over the paths."""
+def main_paths(turbo, cfg520, turbo4, cfg4) -> dict:
+    """Both pipelines on the bf16 cache (the default), with kv_int8=True,
+    and on the int4 T3s (Turbo int4_fused: B9 and B10 per layer and step;
+    520M int4: B8 for each of a layer's seven linears); returns the launch
+    counts summed over the paths."""
     from chatterbox_tpu_torch.ops.sampling import SamplerParams
     text = "The quick brown fox jumps over the lazy dog near the river bank."
     turbo_gen = dict(max_new_tokens=N_TOKENS, top_k=1000, temperature=0.8, top_p=0.95,
@@ -823,6 +1001,8 @@ def main_paths(turbo, cfg520) -> dict:
          dict(turbo_dec, **int8), False),
         (cfg520, "520M CFG kv_int8", LLAMA + (B4,), dict(cfg_gen, kv_int8=True),
          dict(cfg_dec, **int8), True),
+        (turbo4, "Turbo int4_fused", GPT2_INT4, turbo_gen, turbo_dec, False),
+        (cfg4, "520M CFG int4", {B8: len(LLAMA_LINEARS)}, cfg_gen, cfg_dec, True),
     ]
     totals = {}
     for tts, label, kernels, gen_kw, dec_kw, cfg_slice in paths:
@@ -964,6 +1144,18 @@ def batched_paths(turbo, cfg520) -> dict:
     return totals
 
 
+def int4_pipeline(tts, mode: str, seed: int):
+    """The pipeline `tts` with its T3 weights drawn again from `seed` (as
+    random_init draws them), cast to bf16 and quantized in `mode`; the S3Gen
+    engine, tokenizer and conditionals shared."""
+    import torch
+    from chatterbox_tpu_torch.models.t3 import model as t3m
+    from chatterbox_tpu_torch.utils.quantize import cast_params, quantize_t3_backbone
+    params = quantize_t3_backbone(
+        cast_params(t3m.t3_init(tts.hp, seed=seed, device="cuda"), torch.bfloat16), mode=mode)
+    return type(tts)(params, tts.hp, tts.s3gen, tts.tokenizer, tts.conds, seed=seed)
+
+
 def main(argv) -> int:
     ab_root = None
     if argv:
@@ -985,11 +1177,13 @@ def main(argv) -> int:
         from chatterbox_tpu_torch.kernels import build
         from chatterbox_tpu_torch.kernels import decode_attention as A
         from chatterbox_tpu_torch.kernels import fused_layer as K
+        from chatterbox_tpu_torch.kernels import fused_mlp as FM
+        from chatterbox_tpu_torch.kernels import int4_matmul as M
         from chatterbox_tpu_torch.models.t3 import backbone as bb
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 2
-    COUNTERS[:] = [K.launches, A.launches]
+    COUNTERS[:] = [K.launches, A.launches, M.launches, FM.launches]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -1016,23 +1210,32 @@ def main(argv) -> int:
     if ab_root is not None:
         ab_fused(turbo, cfg520, K, ab_root)
         return 0
+    t0 = time.perf_counter()
+    turbo4, cfg4 = int4_pipeline(turbo, "int4_fused", 0), int4_pipeline(cfg520, "int4", 10)
+    torch.cuda.synchronize()
+    log(f"int4 T3s built in {time.perf_counter() - t0:.1f} s (the same seeds' weights, "
+        f"{turbo.hp.backbone_name} int4_fused, {cfg520.hp.backbone_name} int4; "
+        f"the S3Gen engines and conditionals shared)")
 
     t0 = time.perf_counter()
-    rows = check_kernels(turbo, cfg520, K) + check_attention(turbo, cfg520, A, bb)
+    rows = (check_kernels(turbo, cfg520, K) + check_attention(turbo, cfg520, A, bb)
+            + check_int4_kernels(turbo4, cfg4, turbo, K, M, FM))
     log(f"phase 3 (kernels) {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     check_reference()
     log(f"phase 4 (reference) {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches = {}
-    for part in (main_paths(turbo, cfg520), fused_attention_paths(turbo, cfg520),
-                 batched_paths(turbo, cfg520)):
+    for part in (main_paths(turbo, cfg520, turbo4, cfg4),
+                 fused_attention_paths(turbo, cfg520), batched_paths(turbo, cfg520)):
         for k, v in part.items():
             launches[k] = launches.get(k, 0) + v
     log(f"phase 5 (main paths) {time.perf_counter() - t0:.1f} s")
     for r in rows:
         r["launches"] = launches[r["name"]]
-        if not r["launches"]:
+        if r["name"] in PHASE3_ONLY:
+            r["path"] = PHASE3_ONLY[r["name"]]
+        elif not r["launches"]:
             raise AssertionError(f"{r['name']} was not launched on any main path")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"total {time.perf_counter() - t_start:.1f} s")

@@ -240,3 +240,122 @@ def test_a_build_failure_raises_rather_than_falling_back(dev, tmp_path, monkeypa
     q, k, v, *_ = _attn_operands(dev, 1, 4, 256, 64, torch.bfloat16)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         A.decode_attention_streamed(q, k, v, torch.tensor([10], device=dev))
+
+
+# ---------------------------------------------------------------------------
+# int4 weights (B8, B9, B10) and the fused int8 MLP (B11)
+# ---------------------------------------------------------------------------
+
+def _packed(g, dev, N, K2):
+    """Random packed int4 bytes stored out-major (N, K2) and per-group
+    scales (N, K2 / 256) for each half."""
+    G = K2 // 256
+    w = torch.randint(-128, 128, (N, K2), generator=g, device=dev, dtype=torch.int8)
+    s = lambda: torch.rand((N, G), generator=g, device=dev) * 1e-2
+    return w, s(), s()
+
+
+def _b8_operands(dev, B, K, N, dtype, seed=5):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    wt, slo, shi = _packed(g, dev, N, K // 2)
+    x = torch.randn((B, K), generator=g, device=dev).to(dtype)
+    return x, wt.T, slo.T, shi.T              # the JAX layout, stored out-major
+
+
+def _b9_operands(dev, B, D, dtype, seed=6):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device=dev)
+    return (r(B, D).to(dtype), 1 + 0.1 * r(D), 0.1 * r(D), *_packed(g, dev, 3 * D, D // 2),
+            0.01 * r(3 * D))
+
+
+def _b10_operands(dev, B, D, I, dtype, seed=7):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device=dev)
+    return ((0.5 * r(B, D)).to(dtype), r(B, D).to(dtype), *_packed(g, dev, D, D // 2),
+            0.01 * r(D), 1 + 0.1 * r(D), 0.1 * r(D), *_packed(g, dev, I // 2, D),
+            0.01 * r(I), *_packed(g, dev, D, I // 2), 0.01 * r(D))
+
+
+def _b11_operands(dev, B, D, I, dtype, seed=8):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device=dev)
+    i8 = lambda *s: torch.randint(-127, 128, s, generator=g, device=dev, dtype=torch.int8)
+    u = lambda n: torch.rand(n, generator=g, device=dev) * 1e-3
+    return ((0.5 * r(B, D)).to(dtype), 1 + 0.1 * r(D), 0.1 * r(D), i8(I, D).T, u(I),
+            0.01 * r(I), i8(D, I).T, u(D), 0.01 * r(D))
+
+
+# B8 / B9 sum exact f32 products in another order (outputs of order 1-10);
+# B10 also rounds LN2 and the hidden units to bf16 (~1e-4 where a value
+# crosses a rounding boundary). The shapes: every linear of the 520M layer
+# (q/k/v/o 1024x1024, gate/up 1024x4096, down 4096x1024) at its decode rows.
+@pytest.mark.parametrize("B,K,N,dtype", [(1, 1024, 1024, torch.bfloat16),
+                                         (2, 1024, 4096, torch.bfloat16),
+                                         (2, 4096, 1024, torch.bfloat16),
+                                         (8, 4096, 1024, torch.bfloat16),
+                                         (3, 512, 512, torch.float32)])
+def test_matmul_int4_kernel_matches_plain(dev, B, K, N, dtype):
+    from chatterbox_tpu_torch.kernels import int4_matmul as M
+    ops = _b8_operands(dev, B, K, N, dtype)
+    before = M.launches["matmul_int4"]
+    out = M.matmul_int4(*ops)
+    ref = M.matmul_int4_plain(*ops)
+    torch.cuda.synchronize()
+    assert M.launches["matmul_int4"] == before + 1
+    assert out.shape == (B, N) and torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("B,D,I,dtype", [(1, 1024, 4096, torch.bfloat16),
+                                         (2, 1024, 4096, torch.bfloat16),
+                                         (5, 1024, 4096, torch.bfloat16),
+                                         (16, 1024, 4096, torch.bfloat16),
+                                         (2, 512, 2048, torch.float32)])
+def test_int4_fused_kernels_match_plain(dev, B, D, I, dtype):
+    before = dict(K.launches)
+    ops = _b9_operands(dev, B, D, dtype)
+    out, ref = K.ln_qkv_int4(*ops, EPS), K.ln_qkv_int4_plain(*ops, EPS)
+    assert out.shape == (B, 3 * D) and (out - ref).abs().max().item() <= 1e-3
+    ops = _b10_operands(dev, B, D, I, dtype)
+    out, ref = K.attnout_ln_mlp_int4(*ops, EPS), K.attnout_ln_mlp_int4_plain(*ops, EPS)
+    torch.cuda.synchronize()
+    assert out.shape == (B, D) and torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= 1e-2
+    assert K.launches["ln_qkv_int4"] == before["ln_qkv_int4"] + 1
+    assert K.launches["attnout_ln_mlp_int4"] == before["attnout_ln_mlp_int4"] + 1
+
+
+# f32 outputs as B2's; bf16 outputs (x's type) within one bf16 ulp of their
+# magnitude, where the f32 sums of the two orders round apart.
+@pytest.mark.parametrize("B,dtype", [(1, torch.float32), (2, torch.float32),
+                                     (8, torch.bfloat16), (16, torch.bfloat16)])
+def test_fused_mlp_kernel_matches_plain(dev, B, dtype):
+    from chatterbox_tpu_torch.kernels import fused_mlp as FM
+    ops = _b11_operands(dev, B, 1024, 4096, dtype)
+    before = FM.launches["fused_mlp_int8"]
+    out, ref = FM.fused_mlp_int8(*ops), FM.fused_mlp_int8_plain(*ops)
+    torch.cuda.synchronize()
+    assert FM.launches["fused_mlp_int8"] == before + 1
+    assert out.shape == (B, 1024) and out.dtype == dtype and torch.isfinite(out).all()
+    tol = 1e-2 if dtype == torch.float32 else 2.0 ** -8 * ref.float().abs().max().item()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+def test_int4_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    from chatterbox_tpu_torch.kernels import int4_matmul as M
+    x, w, slo, shi = _b8_operands(dev, 2, 1024, 1024, torch.bfloat16)
+    with pytest.raises(ValueError):          # more rows than B8 takes
+        M.matmul_int4(x[:1].expand(9, -1).contiguous(), w, slo, shi)
+    with pytest.raises(ValueError):          # weight stored in-major
+        M.matmul_int4(x, w.contiguous(), slo, shi)
+    x, w, slo, shi = _b8_operands(dev, 1, 768, 512, torch.bfloat16)
+    with pytest.raises(ValueError):          # packed half of 384 rows
+        M.matmul_int4(x, w, slo, shi)
+    ops = list(_b9_operands(dev, 1, 1024, torch.bfloat16))
+    ops[4] = ops[4].cpu()                    # scales left on the CPU
+    with pytest.raises(ValueError):
+        K.ln_qkv_int4(*ops, EPS)
+    ops = list(_b10_operands(dev, 17, 512, 2048, torch.float32))
+    with pytest.raises(ValueError):          # batch above 16 rows
+        K.attnout_ln_mlp_int4(*ops, EPS)

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
 
 from chatterbox_tpu.api.pipelines import ChatterboxTTS as JCfgTTS  # noqa: E402
 from chatterbox_tpu.api.pipelines import ChatterboxTurboTTS as JTTS  # noqa: E402
@@ -56,12 +57,16 @@ def _conds(rng):
             port.Conditionals(port.T3CondHost(*t3, 0.0), port.RefDict(*gen)))
 
 
-def _pipelines():
+def _pipelines(mode="int8_fused", head_spread=0.0):
     jhp = JT3Config(**HP_KW)
-    qp = jquant(jt3m.t3_init(jax.random.key(0), jhp), mode="int8_fused")
+    qp = jquant(jt3m.t3_init(jax.random.key(0), jhp), mode=mode)
     # keep greedy decoding on ordinary speech tokens (no EOS, nothing the
-    # vocoder filters), so both engines vocode exactly N_NEW + 3 tokens
-    qp["speech_head"]["b"] = qp["speech_head"]["b"].at[6561:].set(-1e4)
+    # vocoder filters), so both engines vocode exactly N_NEW + 3 tokens;
+    # `head_spread` adds seeded noise of that size to the speech logits,
+    # which keeps the top two tokens apart
+    b = qp["speech_head"]["b"] + head_spread * jnp.asarray(
+        np.random.default_rng(5).standard_normal(6564), jnp.float32)
+    qp["speech_head"]["b"] = b.at[6561:].set(-1e4)
     k1, k2 = jax.random.split(jax.random.key(1))
     dims, jdims = FlowDims.tiny_test(), jflow.FlowDims.tiny_test()
     sp = {"flow": jflow.flow_init(k1, meanflow=True, dims=jdims),
