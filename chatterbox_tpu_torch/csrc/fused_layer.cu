@@ -29,12 +29,14 @@
 // read 3.15 MB (0.94 us at the H100 SXM's 3.35 TB/s), B2 9.44 MB (2.82 us)
 // and B6 13.6 MB (4.07 us), B11 8.4 MB (2.5 us).
 //
-// Design (simple and right first; no TMA / wgmma / split-K yet):
-//   * Weights are stored OUT-MAJOR, (N, K) with K contiguous: the converter
-//     transposes the JAX (K, N) layout once. One warp owns one output
-//     column and streams its K int8 weights with 16-byte loads: a warp reads
-//     512 contiguous bytes per iteration, and every warp of the grid is
-//     resident at once, so all weight loads are in flight together.
+// Weights are stored OUT-MAJOR, (N, K) with K contiguous: the converter
+// transposes the JAX (K, N) layout once. B1 and B5 share a tensor-core
+// kernel with its own note (norm_qkv_tc_kernel below). The design of B2, B6
+// and B11 (simple and right first; no TMA / wgmma / split-K yet):
+//   * One warp owns one output column and streams its K int8 weights with
+//     16-byte loads: a warp reads 512 contiguous bytes per iteration, and
+//     every warp of the grid is resident at once, so all weight loads are in
+//     flight together.
 //   * Every kernel is a template on NB, the rows it unrolls (2, 4, 8, 16);
 //     a call of B rows runs the smallest instance with NB >= B, and rows
 //     past B are skipped inside the loop, so each weight byte is read once
@@ -108,30 +110,304 @@ __device__ __forceinline__ void warp_dot_i8(const int8_t* __restrict__ w, const 
 
 __device__ __forceinline__ float silu(float x) { return x * (1.0f / (1.0f + expf(-x))); }
 
-// B1 / B5: out = (bf16(norm(x)) @ W) * s (+ bias for the LayerNorm form);
-// grid = ceil(N / WARPS); block = WARPS warps, one output column each.
+// ---------------------------------------------------------------------------
+// B1 / B5 on the tensor cores: out = (bf16(norm(x)) @ W) * s (+ bias for
+// the LayerNorm form). Bound: the int8 weight bytes (3.15 MB at D = 1024,
+// N = 3072: 0.94 us at 3.35 TB/s) at every row count 1-16.
+//
+// The first design of these kernels (one warp per output column, the norm
+// first, rows on the CUDA cores) took 7.43 us (B1, 1 row) and 10.60 us (B5,
+// 2 rows), and grew to 67.26 / 60.20 us at 16 rows (NVIDIA H100 80GB HBM3,
+// 700 W power limit; chip_smoke.py phase 3). This design:
+//   * The weight stream starts first. A block owns QKV_COLS = 32 output
+//     columns (96 blocks at N = 3072, one per SM); at entry one thread asks
+//     for its whole slab (32 contiguous out-major columns x K bytes, 32 KB at
+//     K = 1024) as one 1-D bulk copy (TMA) into shared memory, completing on
+//     an mbarrier, and for g (and b) the same way on a second barrier. The
+//     grid's slabs are in flight at once while the norm runs.
+//   * The norm runs one row per warp (rows w, w + 8), with shuffle
+//     reductions only. A bf16 x row is read from device memory once, into
+//     its norm row in shared memory, and normalised there in place; f32 x
+//     (on no main path) is reread from device memory in each pass. The bf16
+//     result is exact (the Pallas kernels round y to bf16 before the
+//     product); rows B..NB-1 are zero. One __syncthreads, then each thread
+//     waits on the weights.
+//   * The rows go through the tensor cores: mma.sync m16n8k16 bf16 with f32
+//     accumulation, A = 16 weight columns (int8 -> bf16 in registers, exact),
+//     B = 8 norm rows (two tiles for 9-16 rows), so 1 and 8 rows cost the
+//     same. Both operands take one permutation of k: over a 64-wide chunk,
+//     lane (g, t) holds the MMA's k slots {2t, 2t+1, 2t+8, 2t+9} of k-step j
+//     at physical k 16t + 4j + {0, 1, 2, 3}, so it reads 16 contiguous weight
+//     bytes per column and 16 contiguous bf16 per row. The eight warps split
+//     K; their partial sums meet in shared memory, summed in warp order.
+//   * Epilogue: scale (and bias) after the full K sum, as the Pallas kernels
+//     do; rows < B written.
+// What grows with the rows is the norm, which every block computes for all
+// B rows: 32 columns a block halves that work against 16 (192 blocks), and
+// timed faster than 16 or 48 at 1-16 rows; x rows copied by TMA, or the
+// norm split across warps at small B, timed slower than the plain loads and
+// one warp per row here. Norm rows are padded by 16 bytes, so that a
+// quarter-warp's 16-byte loads of them fall in distinct banks; the weight
+// slab is not (one copy), and its 16-byte loads conflict two ways.
+constexpr int QKV_COLS = 32;
+constexpr int QKV_YPAD = 8;        // bf16 elements
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+}
+
+// bytes (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, counted on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// four int8 in w -> bf16 pairs (bytes 0, 1) and (bytes 2, 3), the lower
+// index in the lower half
+__device__ __forceinline__ void i8x4_to_bf16x2(uint32_t w, uint32_t& p01, uint32_t& p23) {
+  const auto byte = [w](int i) {
+    return (float)(static_cast<int32_t>(w << (24 - 8 * i)) >> 24);
+  };
+  __nv_bfloat162 a = __floats2bfloat162_rn(byte(0), byte(1));
+  __nv_bfloat162 b = __floats2bfloat162_rn(byte(2), byte(3));
+  p01 = *reinterpret_cast<uint32_t*>(&a);
+  p23 = *reinterpret_cast<uint32_t*>(&b);
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16, row) @ b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4], uint32_t b0,
+                                               uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 8 consecutive entries (16-byte aligned) as float
+__device__ __forceinline__ void to_f32x8(const uint4& u, float v[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(h[j]);
+    v[2 * j] = f.x;
+    v[2 * j + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* x, float v[8]) {
+  to_f32x8(*reinterpret_cast<const uint4*>(x), v);
+}
+
+__device__ __forceinline__ void load8(const float* x, float v[8]) {
+  const float4* p = reinterpret_cast<const float4*>(x);
+  const float4 a = p[0], b = p[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+// Shared memory of one block: two barriers, g (and b), the weight slab,
+// NB norm rows, and the eight warps' partial sums.
+__host__ __device__ constexpr size_t norm_qkv_smem(int NB, int D, bool rms) {
+  return 16 + (size_t)(rms ? 1 : 2) * D * 4 + (size_t)QKV_COLS * D
+         + (size_t)NB * (D + QKV_YPAD) * 2 + (size_t)WARPS * NB * QKV_COLS * 4;
+}
+
+// grid = N / QKV_COLS; NB = 8 or 16 rows (one or two 8-row MMA tiles);
+// K % (WARPS * 64) == 0.
 template <typename T, bool RMS, int NB>
 __global__ void __launch_bounds__(THREADS)
-norm_qkv_kernel(const T* __restrict__ x, const float* __restrict__ g,
-                const float* __restrict__ b, const int8_t* __restrict__ w_t,
-                const float* __restrict__ s, const float* __restrict__ bias,
-                float* __restrict__ out, int B, int D, int N, float eps) {
+norm_qkv_tc_kernel(const T* __restrict__ x, const float* __restrict__ g,
+                   const float* __restrict__ b, const int8_t* __restrict__ w_t,
+                   const float* __restrict__ s, const float* __restrict__ bias,
+                   float* __restrict__ out, int B, int D, int N, float eps) {
+  constexpr int RT = NB / 8, MT = QKV_COLS / 16;
+  constexpr int EPT = (NB * QKV_COLS + THREADS - 1) / THREADS;   // outputs per thread
+  constexpr bool STAGE = sizeof(T) == 2;   // bf16 x rows normalised in shared memory
   extern __shared__ float4 smem4[];
-  float* ys = reinterpret_cast<float*>(smem4);
-  float* red = ys + (size_t)B * D;
-  norm_bf16<T, RMS>(x, g, b, B, D, eps, ys, red);
-  const int n = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (n >= N) return;
-  float acc[NB];
-  warp_dot_i8<NB>(w_t + (size_t)n * D, ys, D, D, B, acc);
-  if ((threadIdx.x & 31) == 0) {
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem4);       // [0] g, b; [1] weights
+  float* gb = reinterpret_cast<float*>(smem4 + 1);            // g, then b (LayerNorm)
+  int8_t* ws = reinterpret_cast<int8_t*>(gb + (RMS ? 1 : 2) * D);
+  __nv_bfloat16* ys = reinterpret_cast<__nv_bfloat16*>(ws + QKV_COLS * D);
+  const int yld = D + QKV_YPAD;
+  float* part = reinterpret_cast<float*>(ys + NB * yld);      // [warp][row][col]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n0 = blockIdx.x * QKV_COLS;
+  if (tid == 0) {
+    mbar_init(&bars[0], 1);
+    mbar_init(&bars[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(&bars[1], QKV_COLS * D);
+    bulk_load(ws, w_t + (size_t)n0 * D, QKV_COLS * D, &bars[1]);
+    mbar_expect_tx(&bars[0], (RMS ? 1 : 2) * D * 4);
+    bulk_load(gb, g, D * 4, &bars[0]);
+    if (!RMS) bulk_load(gb + D, b, D * 4, &bars[0]);
+  }
+  // the epilogue's operands, loaded while the copies fly: output o = tid +
+  // e * THREADS is (row o / QKV_COLS, column o % QKV_COLS)
+  float sc[EPT], bi[EPT];
 #pragma unroll
-    for (int r = 0; r < NB; ++r)
-      if (r < B) {
-        float o = acc[r] * s[n];
-        if (!RMS) o += bias[n];
-        out[(size_t)r * N + n] = o;
+  for (int e = 0; e < EPT; ++e) {
+    const int col = (tid + e * THREADS) % QKV_COLS;
+    sc[e] = s[n0 + col];
+    bi[e] = RMS ? 0.f : bias[n0 + col];
+  }
+  __syncthreads();  // the barriers are initialised
+
+  // norm rows: warp w takes rows w, w + WARPS; lane i takes entries 8i + 256j
+  for (int r = warp; r < NB; r += WARPS) {
+    __nv_bfloat16* yr = ys + r * yld;
+    if (r >= B) {
+      for (int i = lane * 8; i < D; i += 256)
+        *reinterpret_cast<uint4*>(yr + i) = make_uint4(0, 0, 0, 0);
+      continue;
+    }
+    const T* xg = x + (size_t)r * D;
+    const T* xr = STAGE ? reinterpret_cast<const T*>(yr) : xg;   // the later passes' rows
+    float v[8], acc = 0.f;
+#pragma unroll 4
+    for (int i = lane * 8; i < D; i += 256) {
+      if constexpr (STAGE) {
+        const uint4 u = __ldg(reinterpret_cast<const uint4*>(xg + i));
+        *reinterpret_cast<uint4*>(yr + i) = u;
+        to_f32x8(u, v);
+      } else {
+        load8(xg + i, v);
       }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc += RMS ? v[j] * v[j] : v[j];
+    }
+    float mu = 0.f, rs;
+    if (RMS) {
+      rs = rsqrtf(warp_sum(acc) / D + eps);
+    } else {
+      mu = warp_sum(acc) / D;
+      float q = 0.f;
+#pragma unroll 4
+      for (int i = lane * 8; i < D; i += 256) {
+        load8(xr + i, v);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) q += (v[j] - mu) * (v[j] - mu);
+      }
+      rs = rsqrtf(warp_sum(q) / D + eps);
+    }
+    mbar_wait(&bars[0], 0);
+#pragma unroll 4
+    for (int i = lane * 8; i < D; i += 256) {
+      load8(xr + i, v);            // in place when staged: each lane its own 8 entries
+      float gv[8], bv[8];          // 16-byte loads: scalar ones conflict 8 ways
+      load8(gb + i, gv);
+      if (!RMS) load8(gb + D + i, bv);
+      float y[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        y[j] = RMS ? __fmul_rn(__fmul_rn(v[j], rs), gv[j])
+                   : __fadd_rn(__fmul_rn(__fmul_rn(v[j] - mu, rs), gv[j]), bv[j]);
+      uint32_t packed[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        __nv_bfloat162 p = __floats2bfloat162_rn(y[2 * j], y[2 * j + 1]);
+        packed[j] = *reinterpret_cast<uint32_t*>(&p);
+      }
+      *reinterpret_cast<uint4*>(yr + i) = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+    }
+  }
+  __syncthreads();  // the norm rows are written
+  mbar_wait(&bars[1], 0);
+
+  // products: warp w takes the contraction slice [w K / WARPS, (w + 1) K / WARPS)
+  const int gq = lane >> 2, tq = lane & 3;
+  float acc[MT][RT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[mt][rt][j] = 0.f;
+  const int kw = D / WARPS;
+  for (int k0 = warp * kw; k0 < (warp + 1) * kw; k0 += 64) {
+    uint4 xa[RT][2];
+#pragma unroll
+    for (int rt = 0; rt < RT; ++rt) {
+      const uint4* yrow =
+          reinterpret_cast<const uint4*>(ys + (8 * rt + gq) * yld + k0 + 16 * tq);
+      xa[rt][0] = yrow[0];
+      xa[rt][1] = yrow[1];
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int8_t* wc = ws + (16 * mt + gq) * D + k0 + 16 * tq;
+      const uint4 wlo = *reinterpret_cast<const uint4*>(wc);
+      const uint4 whi = *reinterpret_cast<const uint4*>(wc + 8 * D);
+      const uint32_t* lo = reinterpret_cast<const uint32_t*>(&wlo);
+      const uint32_t* hi = reinterpret_cast<const uint32_t*>(&whi);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t a[4];  // columns g and g + 8, k slots 2t, 2t+1 | 2t+8, 2t+9
+        i8x4_to_bf16x2(lo[j], a[0], a[2]);
+        i8x4_to_bf16x2(hi[j], a[1], a[3]);
+#pragma unroll
+        for (int rt = 0; rt < RT; ++rt) {
+          const uint32_t* xb = reinterpret_cast<const uint32_t*>(&xa[rt][0]);
+          mma_bf16_16816(acc[mt][rt], a, xb[2 * j], xb[2 * j + 1]);
+        }
+      }
+    }
+  }
+  // lane (g, t) holds columns 16 mt + g, 16 mt + g + 8 of rows 8 rt + 2t, + 1
+  float* pw = part + warp * NB * QKV_COLS;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int rt = 0; rt < RT; ++rt) {
+      float* p = pw + (8 * rt + 2 * tq) * QKV_COLS + 16 * mt + gq;
+      p[0] = acc[mt][rt][0];
+      p[QKV_COLS] = acc[mt][rt][1];
+      p[8] = acc[mt][rt][2];
+      p[QKV_COLS + 8] = acc[mt][rt][3];
+    }
+  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < EPT; ++e) {
+    const int o = tid + e * THREADS, row = o / QKV_COLS;
+    if (row < B) {
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) sum += part[w * NB * QKV_COLS + o];
+      sum = __fmul_rn(sum, sc[e]);
+      if (!RMS) sum = __fadd_rn(sum, bi[e]);
+      out[(size_t)row * N + n0 + o % QKV_COLS] = sum;
+    }
   }
 }
 
@@ -251,16 +527,17 @@ template <bool RMS>
 cudaError_t launch_norm_qkv(const void* x, int x_bf16, const float* g, const float* b,
                             const int8_t* w_t, const float* s, const float* bias, float* out,
                             int B, int D, int N, float eps, cudaStream_t st) {
-  const size_t smem = ((size_t)B * D + WARPS) * sizeof(float);
-  cudaError_t err = cudaSuccess;
+  const int NB = B <= 8 ? 8 : 16;
+  const size_t smem = norm_qkv_smem(NB, D, RMS);
+  if (N % QKV_COLS || D % (WARPS * 64) || smem > SMEM_MAX) return cudaErrorInvalidValue;
+  const unsigned grid = N / QKV_COLS;
+#define NORM_QKV(T, NB_)                                                                \
+  launch<norm_qkv_tc_kernel<T, RMS, NB_>>(grid, smem, st, (const T*)x, g, b, w_t, s, bias, \
+                                          out, B, D, N, eps)
   if (x_bf16)
-    DISPATCH_ROWS(B, err = launch<norm_qkv_kernel<__nv_bfloat16, RMS, NB>>(blocks_for(N), smem,
-                                  st, (const __nv_bfloat16*)x, g, b, w_t, s, bias, out, B, D,
-                                  N, eps));
-  else
-    DISPATCH_ROWS(B, err = launch<norm_qkv_kernel<float, RMS, NB>>(blocks_for(N), smem, st,
-                                  (const float*)x, g, b, w_t, s, bias, out, B, D, N, eps));
-  return err;
+    return NB == 8 ? NORM_QKV(__nv_bfloat16, 8) : NORM_QKV(__nv_bfloat16, 16);
+  return NB == 8 ? NORM_QKV(float, 8) : NORM_QKV(float, 16);
+#undef NORM_QKV
 }
 
 cudaError_t launch_attn_out(const void* a, const void* xres, int in_bf16,
@@ -308,11 +585,11 @@ cudaError_t launch_fused_mlp(const T* x, const float* g, const float* b, const i
 }  // namespace
 
 // The wrapper (kernels/fused_layer.py) checks shapes, types, 16-byte
-// alignment, 1 <= B <= 16, K % K_STEP == 0, tw % K_STEP == 0 and
-// I % tw == 0, and that each launch's shared memory fits the 227 KB a block
-// may opt in to. h_buf is (B, I) bf16 scratch, r_buf (B, D) f32. B11's out
-// has x's type. Each
-// function returns the first CUDA error of its launches (0 on success).
+// alignment, 1 <= B <= 16, K % K_STEP == 0, N % QKV_COLS == 0 (B1, B5),
+// tw % K_STEP == 0 and I % tw == 0, and that each launch's shared memory
+// fits the 227 KB a block may opt in to. h_buf is (B, I) bf16 scratch, r_buf
+// (B, D) f32. B11's out has x's type. Each function returns the first CUDA
+// error of its launches (0 on success).
 extern "C" {
 
 int ln_qkv_int8_launch(const void* x, int x_bf16, const float* g, const float* b,
@@ -320,6 +597,12 @@ int ln_qkv_int8_launch(const void* x, int x_bf16, const float* g, const float* b
                        int B, int D, int N, float eps, void* stream) {
   return (int)launch_norm_qkv<false>(x, x_bf16, g, b, w_t, s, bias, out, B, D, N, eps,
                                      (cudaStream_t)stream);
+}
+
+// Shared memory bytes of one B1 (rms = 0) or B5 (rms = 1) block at B rows
+// of width D: the wrapper refuses a shape whose blocks exceed SMEM_MAX.
+size_t norm_qkv_int8_smem(int B, int D, int rms) {
+  return norm_qkv_smem(B <= 8 ? 8 : 16, D, rms != 0);
 }
 
 int rms_qkv_int8_launch(const void* x, int x_bf16, const float* g, const int8_t* w_t,

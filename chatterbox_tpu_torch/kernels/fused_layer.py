@@ -56,6 +56,7 @@ K_STEP = 512         # contraction bytes a warp reads per iteration
 SMEM_LIMIT = 227 * 1024   # dynamic shared memory a block opts in to
 WARPS = 8
 GROUP = 256          # contraction rows per int4 scale (INT4_GROUP)
+QKV_COLS = 32        # output columns per block of the B1 / B5 kernel
 
 _lib = None
 _int4_lib = None
@@ -74,6 +75,8 @@ def _kernels():
         lib.attnout_ln_mlp_int8_launch.restype = I
         lib.rms_qkv_int8_launch.argtypes = [P, I, P, P, P, P, I, I, I, F, P]
         lib.rms_qkv_int8_launch.restype = I
+        lib.norm_qkv_int8_smem.argtypes = [I, I, I]
+        lib.norm_qkv_int8_smem.restype = ctypes.c_size_t
         lib.attnout_rms_glu_int8_launch.argtypes = [
             P, P, I, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, P]
         lib.attnout_rms_glu_int8_launch.restype = I
@@ -272,6 +275,20 @@ def _shape_limits(B, K, what):
         raise ValueError(f"{what}: contraction {K} is not a multiple of {K_STEP}")
 
 
+def norm_qkv_smem(B: int, D: int, rms: bool) -> int:
+    """Shared memory bytes of one B1 / B5 block at B rows of width D, as the
+    CUDA library computes them (builds it at first use)."""
+    return _kernels().norm_qkv_int8_smem(B, D, int(rms))
+
+
+def _qkv_limits(B, D, N, rms, what):
+    _shape_limits(B, D, what)
+    if N % QKV_COLS:
+        raise ValueError(f"{what}: width {N} is not a multiple of {QKV_COLS}")
+    if norm_qkv_smem(B, D, rms) > SMEM_LIMIT:
+        raise ValueError(f"{what}: a block's shared memory exceeds {SMEM_LIMIT} bytes")
+
+
 def ln_qkv_int8(x, g, b, w_t, s, bias, eps: float):
     """x (B, D) bf16/f32 -> (bf16(LN(x)) @ W) * s + bias, (B, N) f32.
     w_t (N, D) int8 out-major; g, b (D,) and s, bias (N,) f32."""
@@ -279,9 +296,7 @@ def ln_qkv_int8(x, g, b, w_t, s, bias, eps: float):
         return ln_qkv_int8_plain(x, g, b, w_t, s, bias, eps)
     B, D = x.shape
     N = w_t.shape[0]
-    _shape_limits(B, D, "ln_qkv_int8")
-    if (B * D + WARPS) * 4 > SMEM_LIMIT:
-        raise ValueError("ln_qkv_int8: LayerNorm rows exceed shared memory")
+    _qkv_limits(B, D, N, False, "ln_qkv_int8")
     dev = x.device
     _check("x", x, (B, D), _ACT, dev)
     for name, t in (("g", g), ("b", b)):
@@ -349,9 +364,7 @@ def rms_qkv_int8(x, g, w_t, s, eps: float):
         return rms_qkv_int8_plain(x, g, w_t, s, eps)
     B, D = x.shape
     N = w_t.shape[0]
-    _shape_limits(B, D, "rms_qkv_int8")
-    if (B * D + WARPS) * 4 > SMEM_LIMIT:
-        raise ValueError("rms_qkv_int8: RMSNorm rows exceed shared memory")
+    _qkv_limits(B, D, N, True, "rms_qkv_int8")
     dev = x.device
     _check("x", x, (B, D), _ACT, dev)
     _check("g", g, (D,), _F32, dev)

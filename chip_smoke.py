@@ -5,8 +5,8 @@
     python3 chip_smoke.py --ab <other checkout>
 
 The second form runs phases 1 and 2, then times the fused decode-layer
-kernels (B1, B2, B5, B6) of this checkout against those of the other at 1
-and 2 rows, in turns on the same operands, and stops.
+kernels (B1, B2, B5, B6) of this checkout against those of the other at 1,
+2, 8 and 16 rows, in turns on the same operands, and stops.
 
 The port's paths, each at full width with random weights from a seed,
 served as bench.py serves them (T3 cast to bf16 and quantized int8_fused,
@@ -33,11 +33,12 @@ Phases, in order; any failure exits non-zero without the final "ok" line:
      started together);
   2. models: both pipelines;
   3. kernels: each kernel against its plain PyTorch version on the card,
-     timed (kernel, plain, library) over all the layers by CUDA-graph
-     replay: B1 / B2 on the real Turbo weights at 1, 2, 8 and 16 rows,
-     B5 / B6 on the real 520M weights at 2, 1, 8 and 16 rows; B9 / B10 on
-     the Turbo int4_fused weights at 1, 2, 8 and 16 rows; B8 on every
-     linear of the 520M int4 weights at 2, 1 and 8 rows; B11 on the Turbo
+     timed (kernel, plain, library; the share of its bound) over all the
+     layers by CUDA-graph replay: B1 / B2 on the real Turbo weights at 1,
+     2, 8 and 16 rows, B5 / B6 on the real 520M weights at 2, 1, 8 and 16
+     rows; B9 / B10 on the Turbo int4_fused weights at 1, 2, 8 and 16 rows;
+     B8 on every linear of the 520M int4 weights at 2, 1 and 8 rows; B11
+     on the Turbo
      int8 layers' ln2 / fc_in / fc_out at 1, 2, 8 and 16 rows, float32
      input as the JAX package's own test of it (library: torch.matmul on
      pre-dequantized bf16 weights); B3 / B4 / B7 on every
@@ -63,12 +64,12 @@ Phases, in order; any failure exits non-zero without the final "ok" line:
      temperature 0.8, top_p 1.0, min_p 0.05, repetition penalty 1.2,
      exaggeration 0.5, 30 text tokens, 250 tokens with EOS ignored), on
      the bf16 cache, with kv_int8=True, and on the int4 T3s (Turbo
-     int4_fused, 520M int4); each once to warm up, three
+     int4_fused, 520M int4); each once to warm up (32 tokens), three
      timed runs, one split run for T3 and S3Gen times, and a profile of
      the decode step. Then t3_generate(fused_attn=True) of each family,
      a teacher-forced Turbo decode over an unaligned cache, and each
      BatchDecoder serving its batch once and then timed for 250 tokens
-     with EOS ignored.
+     with EOS ignored, with a profile of its decode step.
 The line before the last is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}.
 """
@@ -82,6 +83,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate (NVIDIA data sheet)
 PEAK_INT8_OPS = 1.979e15       # dense int8 tensor-core rate, same source
 N_TOKENS = 250
+WARMUP_TOKENS = 32             # a warm-up generate's tokens (every kernel built already)
 P_PROMPT = 125
 SOS, EOS, S3_VOCAB = 6561, 6562, 6561
 
@@ -440,10 +442,11 @@ def time_specs(specs, L, errs, label="") -> list:
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                      "library_ms": lib_ms})
         lib = "none" if lib_ms is None else f"{lib_ms * 1e3:.2f}"
+        bound = max(t_bytes, t_ops)
         log(f"kernel time {sp.name}{f' ({label})' if label else ''}: {ms * 1e3:.2f} "
             f"us/call on the card (plain {plain_ms * 1e3:.2f}, library {lib}, bound "
-            f"{max(t_bytes, t_ops) * 1e3:.2f} us for {sp.bytes_ / 1e6:.3f} MB); "
-            f"{eager_ms * 1e3:.2f} us/call launched from Python")
+            f"{bound * 1e3:.2f} us for {sp.bytes_ / 1e6:.3f} MB: {100 * bound / ms:.1f} % "
+            f"of bound); {eager_ms * 1e3:.2f} us/call launched from Python")
     return rows
 
 
@@ -508,12 +511,12 @@ def _load_other_kernels(root: str):
 
 def ab_fused(turbo, cfg520, K, root: str) -> None:
     """B1, B2 (Turbo weights) and B5, B6 (520M weights) of this checkout
-    against those of the checkout at `root`, at 1 and 2 rows on the same
-    operands: each checked against this checkout's plain version, then
+    against those of the checkout at `root`, at 1, 2, 8 and 16 rows on the
+    same operands: each checked against this checkout's plain version, then
     timed by CUDA-graph replay in turns (other, this, this, other)."""
     other = _load_other_kernels(root)
     L1, L2 = turbo.hp.backbone.num_layers, cfg520.hp.backbone.num_layers
-    for B in (1, 2):
+    for B in (1, 2, 8, 16):
         for L, specs in ((L1, gpt2_specs(turbo, K, B=B)), (L2, llama_specs(cfg520, K, B=B))):
             for sp in specs:
                 fns = {"this": sp.kernel, "other": getattr(other, sp.name)}
@@ -871,8 +874,8 @@ def check_counts(counts, label, expected: dict):
 
 
 def run_path(tts, label, kernels, gen_kw, decode_kw, cfg_slice):
-    """Warm-up, three timed generate runs with the launch counts set to 0
-    just before and read just after, then a split run and a decode-step
+    """A short warm-up, three timed generate runs with the launch counts set
+    to 0 just before and read just after, then a split run and a decode-step
     profile. `kernels`: the kernels each layer launches once per decode
     step, or {name: launches per layer and step}. Returns the launch counts
     of the timed runs."""
@@ -880,7 +883,7 @@ def run_path(tts, label, kernels, gen_kw, decode_kw, cfg_slice):
     import torch
     from chatterbox_tpu_torch.sampling.decode import t3_generate
     text = "The quick brown fox jumps over the lazy dog near the river bank."
-    tts.generate(text, **gen_kw)                               # warm-up
+    tts.generate(text, **dict(gen_kw, max_new_tokens=WARMUP_TOKENS))      # warm-up
     torch.cuda.synchronize()
     reset_counts()
     totals, forwards, audio_s = [], 0, None
@@ -924,19 +927,18 @@ def run_path(tts, label, kernels, gen_kw, decode_kw, cfg_slice):
     log(f"{label} T3 decode: {t1 - t0:.4f} s for {N_TOKENS} tokens -> "
         f"{N_TOKENS / (t1 - t0):.1f} tok/s ({(t1 - t0) / N_TOKENS * 1e3:.3f} ms/token); "
         f"S3Gen: {t2 - t1:.4f} s")
-    profile_decode(tts, ids, sp, decode_kw, (t1 - t0) / N_TOKENS, label)
+    profile_decode(lambda n: t3_generate(
+        tts.t3_params, tts.hp, tts.conds.t3.as_tensors("cuda"), ids, sp, max_new_tokens=n,
+        ignore_eos=True, generator=tts.generator, **decode_kw), (t1 - t0) / N_TOKENS, label)
     return counts
 
 
-def _profiled_decode(tts, ids, sp, decode_kw, n: int) -> dict:
-    """{kernel name: (device us, calls)} of one decode of n tokens."""
+def _profiled_decode(decode, n: int) -> dict:
+    """{kernel name: (device us, calls)} of decode(n), a decode of n tokens."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from chatterbox_tpu_torch.sampling.decode import t3_generate
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t3_generate(tts.t3_params, tts.hp, tts.conds.t3.as_tensors("cuda"), ids, sp,
-                    max_new_tokens=n, ignore_eos=True, generator=tts.generator,
-                    **decode_kw)
+        decode(n)
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
@@ -947,13 +949,13 @@ def _profiled_decode(tts, ids, sp, decode_kw, n: int) -> dict:
     return out
 
 
-def profile_decode(tts, ids, sp, decode_kw, step_s: float, label: str,
-                   n1: int = 9, n2: int = 41):
+def profile_decode(decode, step_s: float, label: str, n1: int = 9, n2: int = 41):
     """Device time of one decode step by kernel name (torch.profiler): the
-    difference of a n2-token and a n1-token decode, so the prefill they
-    share drops out; beside the unprofiled wall time of a step."""
-    a = _profiled_decode(tts, ids, sp, decode_kw, n1)
-    b = _profiled_decode(tts, ids, sp, decode_kw, n2)
+    difference of decode(n2) and decode(n1), decodes of n2 and n1 tokens, so
+    the prefill they share drops out; beside the unprofiled wall time of a
+    step."""
+    a = _profiled_decode(decode, n1)
+    b = _profiled_decode(decode, n2)
     steps = n2 - n1
     rows = [((b[k][0] - a.get(k, (0.0, 0))[0]) / steps,
              (b[k][1] - a.get(k, (0.0, 0))[1]) / steps, k) for k in b]
@@ -1078,7 +1080,8 @@ def batched_paths(turbo, cfg520) -> dict:
     """BatchDecoder with the int8 cache: eight Turbo requests of 12-30 text
     tokens, then four 520M CFG requests (eight rows). Each serves its batch
     once (EOS honoured, every result checked), then the same batch is timed
-    for N_TOKENS tokens with EOS ignored, launch counts checked."""
+    for N_TOKENS tokens with EOS ignored, launch counts checked, and its
+    decode step profiled."""
     import numpy as np
     import torch
     from chatterbox_tpu_torch.sampling.batched import t3_generate_batched
@@ -1139,6 +1142,9 @@ def batched_paths(turbo, cfg520) -> dict:
         log(f"{label} decode, {B} requests ({B * (2 if dec.cfg else 1)} rows), "
             f"{N_TOKENS} tokens each, EOS ignored: {dt:.4f} s -> {B * N_TOKENS / dt:.1f} "
             f"tok/s aggregate ({dt / N_TOKENS * 1e3:.3f} ms/step)")
+        profile_decode(lambda n: t3_generate_batched(
+            tts.t3_params, tts.hp, *inputs, max_new_tokens=n, top_k=dec.top_k,
+            cfg_mode=dec.cfg, kv_int8=True, ignore_eos=True), dt / N_TOKENS, label)
         for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v
     return totals

@@ -165,6 +165,85 @@ def test_fused_kernels_at_batched_rows_match_plain(dev, B):
     torch.cuda.synchronize()
 
 
+# The tensor-core B1 / B5 at every row count they take: 1-8 rows run one
+# 8-row MMA tile, 9-16 two. The tensor cores add the exact bf16 x int8
+# products in another order, in f32 (outputs of order 1-10). The f32 norm
+# sums run in another order too, so a norm value may land on the other side
+# of a bf16 rounding boundary: that moves its row's outputs by up to
+# ulp(y) * 127 * s, 9.9e-4 for |y| < 2 and s < 1e-3.
+TOL_QKV = 1e-3
+QKV_SHAPES = [(D, dtype) for D in (512, 1024, 2048) for dtype in (torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.parametrize("B", range(1, 17))
+def test_ln_qkv_kernel_at_every_row_count(dev, B):
+    for D, dtype in QKV_SHAPES:
+        ops = _b1_operands(dev, B, D, dtype, seed=B)
+        out = K.ln_qkv_int8(*ops, EPS)
+        ref = K.ln_qkv_int8_plain(*ops, EPS)
+        torch.cuda.synchronize()
+        assert out.shape == (B, 3 * D) and torch.isfinite(out).all(), (D, dtype)
+        assert (out - ref).abs().max().item() <= TOL_QKV, (D, dtype)
+
+
+@pytest.mark.parametrize("B", range(1, 17))
+def test_rms_qkv_kernel_at_every_row_count(dev, B):
+    for (D, dtype), N in ((shape, N) for shape in QKV_SHAPES for N in (1536, 3072)):
+        ops = _b5_operands(dev, B, D, N, dtype, seed=B)
+        out = K.rms_qkv_int8(*ops, EPS)
+        ref = K.rms_qkv_int8_plain(*ops, EPS)
+        torch.cuda.synchronize()
+        assert out.shape == (B, N) and torch.isfinite(out).all(), (D, N, dtype)
+        assert (out - ref).abs().max().item() <= TOL_QKV, (D, N, dtype)
+
+
+@pytest.mark.parametrize("B", [1, 2, 8, 9, 16])
+def test_qkv_kernels_on_a_case_checked_by_hand(dev, B):
+    """Row r of x is (r + 1) * (+1, -1, +1, ...): with unit gain and zero
+    bias both norms give y = (+1, -1, ...) exactly in bf16 (eps moves the
+    f32 value by 5e-6, far inside half a bf16 ulp of 1). Column n of W is
+    c_n * (+1, -1, ...) with c_n = n % 255 - 127, so y . w_n = D c_n, and
+    with s = 1 / D every output is c_n exactly (integers below 2^24 add
+    exactly in f32, in any order)."""
+    D, N = 1024, 3072
+    sign = 1.0 - 2.0 * (torch.arange(D, device=dev) % 2)
+    x = (torch.arange(1, B + 1, device=dev, dtype=torch.float32)[:, None] * sign).bfloat16()
+    c = (torch.arange(N, device=dev) % 255 - 127).float()
+    w_t = (c[:, None] * sign).to(torch.int8)
+    g, b = torch.ones(D, device=dev), torch.zeros(D, device=dev)
+    s, bias = torch.full((N,), 1.0 / D, device=dev), torch.zeros(N, device=dev)
+    want = c.expand(B, N)
+    assert torch.equal(K.ln_qkv_int8(x, g, b, w_t, s, bias, EPS), want)
+    assert torch.equal(K.rms_qkv_int8(x, g, w_t, s, EPS), want)
+    # a bias adds after the scale
+    assert torch.equal(K.ln_qkv_int8(x, g, b, w_t, s, bias + 0.5, EPS), want + 0.5)
+
+
+def test_qkv_wrappers_refuse_what_the_new_kernel_does_not_take(dev):
+    x, g, b, w, s, bias = _b1_operands(dev, 2, 1024, torch.bfloat16)
+    n = 3072 - 16                            # not a multiple of a block's 32 columns
+    with pytest.raises(ValueError):
+        K.ln_qkv_int8(x, g, b, w[:n].contiguous(), s[:n].contiguous(),
+                      bias[:n].contiguous(), EPS)
+    with pytest.raises(ValueError):
+        K.rms_qkv_int8(x, g, w[:n].contiguous(), s[:n].contiguous(), EPS)
+    # D = 4096: a block's weight slab, norm rows and g (and b) exceed 227 KB
+    # at 16 rows in both forms and at 8 rows in the LayerNorm form
+    x, g, b, w, s, bias = _b1_operands(dev, 16, 4096, torch.bfloat16)
+    for B in (16, 8):
+        assert K.norm_qkv_smem(B, 4096, False) > K.SMEM_LIMIT
+        with pytest.raises(ValueError):
+            K.ln_qkv_int8(x[:B].contiguous(), g, b, w, s, bias, EPS)
+    assert K.norm_qkv_smem(16, 4096, True) > K.SMEM_LIMIT
+    with pytest.raises(ValueError):
+        K.rms_qkv_int8(x, g, w, s, EPS)
+    # the RMSNorm form needs no b and fits at 8 rows
+    assert K.norm_qkv_smem(8, 4096, True) <= K.SMEM_LIMIT
+    x8 = x[:8].contiguous()
+    out = K.rms_qkv_int8(x8, g, w, s, EPS)
+    assert (out - K.rms_qkv_int8_plain(x8, g, w, s, EPS)).abs().max().item() <= TOL_QKV
+
+
 def _attn_operands(dev, B, H, T, D, qdtype, seed=4):
     g = torch.Generator(device=dev).manual_seed(seed)
     r = lambda *s: torch.randn(s, generator=g, device=dev)

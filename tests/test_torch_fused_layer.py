@@ -61,7 +61,11 @@ RTOL, ATOL_B1, ATOL_B2 = 1e-5, 2e-5, 1e-3
 
 @pytest.mark.parametrize("D,B,dtype", [(512, 2, jnp.bfloat16),
                                        (512, 1, jnp.float32),
-                                       (1024, 1, jnp.bfloat16)])
+                                       (1024, 1, jnp.bfloat16)]
+                         # the batched engine's rows (the CUDA kernel's
+                         # one and two 8-row tiles)
+                         + [(512, B, dtype) for B in (3, 8, 16)
+                            for dtype in (jnp.bfloat16, jnp.float32)])
 def test_ln_qkv_int8_matches_pallas(D, B, dtype):
     rng = np.random.default_rng(D + B)
     N = 3 * D
