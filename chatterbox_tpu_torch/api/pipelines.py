@@ -180,10 +180,9 @@ class ChatterboxTurboTTS(_TTSBase):
     def generate(self, text, repetition_penalty=1.2, min_p=0.00, top_p=0.95,
                  audio_prompt_path=None, exaggeration=0.0, cfg_weight=0.0,
                  temperature=0.8, top_k=1000, norm_loudness=True,
-                 max_new_tokens=1000, ignore_eos=False, kv_int8=False):
+                 max_new_tokens=1000, kv_int8=False):
         """Synthesize `text` in the voice of `self.conds`; returns a (1, T)
-        float32 waveform at 24 kHz. ignore_eos (a benchmarking knob) always
-        decodes max_new_tokens tokens. kv_int8 keeps the KV cache in int8,
+        float32 waveform at 24 kHz. kv_int8 keeps the KV cache in int8,
         read by the int8 decode-attention kernel."""
         conds = self._conds_for(audio_prompt_path, exaggeration, norm_loudness)
         if cfg_weight > 0.0 or exaggeration > 0.0 or min_p > 0.0:
@@ -197,8 +196,8 @@ class ChatterboxTurboTTS(_TTSBase):
         self.last_decode = res = t3_generate(
             self.t3_params, self.hp, conds.t3.as_tensors(self.device),
             torch.as_tensor(ids, dtype=torch.long, device=self.device), sp,
-            max_new_tokens=max_new_tokens, top_k=top_k, ignore_eos=ignore_eos,
-            generator=self.generator, kv_int8=kv_int8, fused_attn=kv_int8)
+            max_new_tokens=max_new_tokens, top_k=top_k, generator=self.generator,
+            kv_int8=kv_int8, fused_attn=kv_int8)
         # drop >= vocab, then three silence tokens (the reference Turbo tail)
         return self._vocode(res, append_sil=3)
 
@@ -229,14 +228,11 @@ class ChatterboxTTS(_TTSBase):
 
     def generate(self, text, repetition_penalty=1.2, min_p=0.05, top_p=1.0,
                  audio_prompt_path=None, exaggeration=0.5, cfg_weight=0.5,
-                 temperature=0.8, max_new_tokens=1000, ignore_eos=False,
-                 kv_int8=False):
+                 temperature=0.8, max_new_tokens=1000, kv_int8=False):
         """Synthesize `text` in the voice of `self.conds`; returns a (1, T)
         float32 waveform at 24 kHz. cfg_weight == 0 decodes batch 1 (the
-        guidance is then the identity). ignore_eos (a benchmarking knob)
-        always decodes max_new_tokens tokens; the vocoded tokens are still
-        cut at the first EOS. kv_int8 keeps the KV cache in int8, read by
-        the int8 decode-attention kernel."""
+        guidance is then the identity). kv_int8 keeps the KV cache in int8,
+        read by the int8 decode-attention kernel."""
         conds = self._conds_for(audio_prompt_path, exaggeration)
         if exaggeration != conds.t3.emotion_adv:
             conds.t3.emotion_adv = exaggeration
@@ -247,7 +243,7 @@ class ChatterboxTTS(_TTSBase):
             self.t3_params, self.hp, conds.t3.as_tensors(self.device),
             torch.as_tensor(self.frame_text(text), device=self.device), sp,
             max_new_tokens=max_new_tokens, cfg_mode=True,
-            cfg_batch2=cfg_weight > 0, ignore_eos=ignore_eos,
-            generator=self.generator, kv_int8=kv_int8, fused_attn=kv_int8)
+            cfg_batch2=cfg_weight > 0, generator=self.generator, kv_int8=kv_int8,
+            fused_attn=kv_int8)
         # slice SOS..EOS, drop >= vocab, empty -> one silence token
         return self._vocode(res, cfg_slice=True)

@@ -1,6 +1,7 @@
-// Helpers shared by the decode-layer kernels (fused_layer.cu, int4.cu):
-// block shape, reductions, the norm prologue, 16-wide dot products over
-// shared-memory rows, gelu_new, and the launch with the 227 KB opt-in.
+// Helpers shared by the kernels (fused_layer.cu, int4.cu,
+// decode_attention.cu): block shape, reductions, the norm prologue, 16-wide
+// dot products over shared-memory rows, gelu_new, the launch with the 227 KB
+// opt-in, and the bulk copy (cp.async.bulk) onto an mbarrier.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -107,6 +108,51 @@ __device__ __forceinline__ float dot16(const __nv_bfloat16* x, const float w[16]
 __device__ __forceinline__ float gelu_new(float x) {
   const float c = 0.7978845608028654f;  // sqrt(2/pi)
   return 0.5f * x * (1.0f + tanhf(c * (x + 0.044715f * x * x * x)));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// after mbar_init, before any thread waits on or copies to the barriers
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+}
+
+// bytes (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, counted on bar (the caller first declares them with
+// mbar_expect_tx)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
 inline unsigned blocks_for(int n) { return (unsigned)((n + WARPS - 1) / WARPS); }

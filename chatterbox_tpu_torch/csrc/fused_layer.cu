@@ -152,45 +152,6 @@ __device__ __forceinline__ float silu(float x) { return x * (1.0f / (1.0f + expf
 constexpr int QKV_COLS = 32;
 constexpr int QKV_YPAD = 8;        // bf16 elements
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-}
-
-// bytes (a multiple of 16) from global src to shared dst, both 16-byte
-// aligned, counted on bar
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
 // four int8 in w -> bf16 pairs (bytes 0, 1) and (bytes 2, 3), the lower
 // index in the lower half
 __device__ __forceinline__ void i8x4_to_bf16x2(uint32_t w, uint32_t& p01, uint32_t& p23) {
@@ -266,7 +227,7 @@ norm_qkv_tc_kernel(const T* __restrict__ x, const float* __restrict__ g,
   if (tid == 0) {
     mbar_init(&bars[0], 1);
     mbar_init(&bars[1], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
     mbar_expect_tx(&bars[1], QKV_COLS * D);
     bulk_load(ws, w_t + (size_t)n0 * D, QKV_COLS * D, &bars[1]);
     mbar_expect_tx(&bars[0], (RMS ? 1 : 2) * D * 4);

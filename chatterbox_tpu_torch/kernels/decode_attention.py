@@ -13,15 +13,22 @@ Three wrappers keep the signatures of chatterbox_tpu/ops/pallas_attention.py:
 
 q is (B, H, 1, D) bf16 or f32 and the result has q's type and shape; k, v
 are (B, H, T, D) bf16 (int8 for B4); k_s, v_s (B, H, T) bf16; cur_len and
-lo (B,) integers. The three share one CUDA template (csrc/decode_attention.cu;
-B7 is it with lo = 0), but each keeps its own wrapper, plain version and
-launch count.
+lo (B,) integers. B3 and B7 share one CUDA kernel (csrc/decode_attention.cu
+`split_decode_kernel`; B7 is it with lo = 0): each (row, head) window split
+over `split_count(B, H, T)` blocks of a thread-block cluster, chosen from the
+cache shape alone so that the launch does not depend on cur_len. B4 keeps
+its first kernel (one block per (row, head)). Each keeps its own wrapper,
+plain version and launch count.
 
 The plain versions follow the Pallas arithmetic, not `nn.mha`: f32 scores
 times 1/sqrt(D), keys outside the window masked, an online max / sum over
 TT-key tiles in f32 with the new max clamped at -3e38, the weights not
 rounded before the value product, the denominator clamped at 1e-30. B7's
 plain version is the whole-slice softmax of `_decode_attn_kernel`.
+
+`split_window_plain` is the split kernel's arithmetic in PyTorch (each
+split's max, sum and accumulator, then their merge), for the tests; the CPU
+route keeps the plain versions above.
 
 Dispatch: a CPU tensor takes the plain version, a CUDA tensor launches the
 kernel, and anything else raises. `launches` counts the kernel launches of
@@ -44,8 +51,12 @@ launches = {"decode_attention_streamed": 0, "decode_attention_streamed_int8": 0,
             "decode_attention": 0}
 
 TT = 256                       # cache tile of the streamed kernels
-HEAD_DIMS = (32, 64, 128)      # head widths the CUDA template is built for
+HEAD_DIMS = (32, 64, 128)      # head widths the CUDA kernels are built for
 M_FLOOR = -3.0e38              # the Pallas kernels' clamp of the running max
+MAX_SPLITS = 16                # the largest cluster (above 8: non-portable)
+SPLIT_CAP = 8                  # split_count's limit: the portable cluster size
+SPLIT_KEYS = 80                # least keys split_count gives a split of a full cache
+SPLIT_BLOCKS = 256             # split_count stops doubling at this many blocks
 
 _lib = None
 
@@ -56,11 +67,26 @@ def _kernel():
         from .build import load
         lib = load("decode_attention")
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.decode_attention_launch.argtypes = [P, I, P, P, I, P, P, P, P, P,
-                                                I, I, I, I, P]
-        lib.decode_attention_launch.restype = I
+        lib.flash_decode_int8_launch.argtypes = [P, I, P, P, P, P, P, P, P, I, I, I, I, P]
+        lib.flash_decode_int8_launch.restype = I
+        lib.split_decode_launch.argtypes = [P, I, P, P, P, P, P, I, I, I, I, I, P]
+        lib.split_decode_launch.restype = I
         _lib = lib
     return _lib
+
+
+def split_count(B: int, H: int, T: int) -> int:
+    """S, the blocks one (row, head) window is split over, from the cache
+    shape alone (never from cur_len): doubled from 1 while the grid has
+    fewer than SPLIT_BLOCKS blocks and a full cache would still give each
+    split at least SPLIT_KEYS keys, up to SPLIT_CAP. The constants come from
+    chip_smoke.py's sweep of S on an H100 (PERF.md): 8 at Turbo's
+    single stream (16 heads, 768 keys), 4 at the 520M pair (512), 2 at
+    eight batched rows."""
+    s = 1
+    while s < SPLIT_CAP and B * H * s < SPLIT_BLOCKS and T >= 2 * s * SPLIT_KEYS:
+        s *= 2
+    return s
 
 
 def check_window(lo, cur_len) -> None:
@@ -127,6 +153,42 @@ def decode_attention_plain(q, k, v, cur_len):
     return torch.einsum("bht,bhtd->bhd", p, v.float()).to(q.dtype)[:, :, None]
 
 
+def split_window_plain(q, k, v, cur_len, lo, splits):
+    """B3 / B7's kernel arithmetic at `splits` blocks a window, in PyTorch
+    (for the tests): the window [lo[b], min(cur_len[b], T - 1)] (lo None:
+    from 0) cut into `splits` chunks of ceil(window / splits) keys, each
+    chunk's max m, sum l and accumulator acc over its keys in f32, then the
+    merge: sum_s acc_s e^(m_s - m) / max(sum_s l_s e^(m_s - m), 1e-30), an
+    empty chunk weighing nothing. Reads cur_len and lo on the host."""
+    B, H, _, D = q.shape
+    T = k.shape[2]
+    s_all = torch.einsum("bhtd,bhd->bht", k.float(), q[:, :, 0].float()) * (1.0 / math.sqrt(D))
+    out = torch.zeros((B, H, D), device=q.device)
+    for b in range(B):
+        first = 0 if lo is None else max(int(lo[b]), 0)
+        last = min(int(cur_len[b]), T - 1)
+        chunk = -(-max(last - first + 1, 0) // splits)
+        ms, ls, accs = [], [], []
+        for s in range(splits):
+            a = first + s * chunk
+            e = min(a + chunk, last + 1)
+            if e <= a:
+                continue                   # an empty chunk weighs nothing
+            sc = s_all[b, :, a:e]
+            m = sc.amax(-1)
+            p = torch.exp(sc - m[:, None])
+            ms.append(m)
+            ls.append(p.sum(-1))
+            accs.append(torch.einsum("ht,htd->hd", p, v[b, :, a:e].float()))
+        if not ms:
+            continue                       # an empty window gives 0
+        m_all = torch.stack(ms)
+        c = torch.exp(m_all - m_all.amax(0))
+        den = (torch.stack(ls) * c).sum(0)
+        out[b] = (torch.stack(accs) * c[..., None]).sum(0) / den.clamp(min=1e-30)[:, None]
+    return out.to(q.dtype)[:, :, None]
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -137,7 +199,11 @@ _I8 = (torch.int8,)
 _INT = (torch.int32,)
 
 
-def _launch(name, q, k, v, cur_len, lo, k_s=None, v_s=None, tiled=True):
+def _operands(name, q, k, v, cur_len, lo, k_s=None, v_s=None, tiled=True):
+    """Check what the kernels take; returns (cur_len, lo) as int32 on q's
+    device. The rows of K and V are D * 2 (bf16) or D (int8) bytes, whole
+    multiples of 16 for D in HEAD_DIMS, so with 16-byte aligned tensors every
+    chunk and piece a kernel copies starts 16-byte aligned."""
     B, H, one, D = q.shape
     T = k.shape[2]
     if one != 1:
@@ -146,6 +212,8 @@ def _launch(name, q, k, v, cur_len, lo, k_s=None, v_s=None, tiled=True):
         raise ValueError(f"{name}: head_dim {D} not in {HEAD_DIMS}")
     if tiled and T % TT:
         raise ValueError(f"{name}: cache length {T} not a multiple of {TT}")
+    if max(B, H) > 65535:
+        raise ValueError(f"{name}: {B} rows x {H} heads exceed the grid")
     dev = q.device
     int8 = k_s is not None
     _check("q", q, (B, H, 1, D), _Q, dev)
@@ -159,13 +227,42 @@ def _launch(name, q, k, v, cur_len, lo, k_s=None, v_s=None, tiled=True):
     if lo is not None:
         lo = lo.to(device=dev, dtype=torch.int32).contiguous()
         _check("lo", lo, (B,), _INT, dev)
+    return cur_len, lo
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _launch_int8(name, q, k, v, cur_len, lo, k_s, v_s):
+    B, H, _, D = q.shape
+    cur_len, lo = _operands(name, q, k, v, cur_len, lo, k_s, v_s)
     out = torch.empty_like(q)
-    err = _kernel().decode_attention_launch(
+    err = _kernel().flash_decode_int8_launch(
         q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(), v.data_ptr(),
-        int(int8), k_s.data_ptr() if int8 else None,
-        v_s.data_ptr() if int8 else None, cur_len.data_ptr(),
-        None if lo is None else lo.data_ptr(), out.data_ptr(), B, H, T, D,
-        torch.cuda.current_stream(dev).cuda_stream)
+        k_s.data_ptr(), v_s.data_ptr(), cur_len.data_ptr(), _ptr(lo), out.data_ptr(),
+        B, H, k.shape[2], D, _stream(q.device))
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    launches[name] += 1
+    return out
+
+
+def _launch_split(name, q, k, v, cur_len, lo, splits=None, tiled=True):
+    B, H, _, D = q.shape
+    T = k.shape[2]
+    cur_len, lo = _operands(name, q, k, v, cur_len, lo, tiled=tiled)
+    S = split_count(B, H, T) if splits is None else splits
+    if not 1 <= S <= MAX_SPLITS:
+        raise ValueError(f"{name}: {S} splits, the kernel takes 1..{MAX_SPLITS}")
+    out = torch.empty_like(q)
+    err = _kernel().split_decode_launch(
+        q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(), v.data_ptr(),
+        cur_len.data_ptr(), _ptr(lo), out.data_ptr(), B, H, T, D, S, _stream(q.device))
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     launches[name] += 1
@@ -177,7 +274,15 @@ def decode_attention_streamed(q, k, v, cur_len, lo=None):
     T % TT == 0, keys at lo[b] <= pos <= cur_len[b] (lo defaults to 0)."""
     if not _check_device(q):
         return decode_attention_streamed_plain(q, k, v, cur_len, lo)
-    return _launch("decode_attention_streamed", q, k, v, cur_len, lo)
+    return _launch_split("decode_attention_streamed", q, k, v, cur_len, lo)
+
+
+def decode_attention_streamed_split(q, k, v, cur_len, lo, splits):
+    """B3's kernel (CUDA tensors only) at a given split count, for timing
+    split_count's choice; counts as a B3 launch."""
+    if not _check_device(q):
+        raise ValueError("decode_attention_streamed_split launches the kernel: CUDA tensors only")
+    return _launch_split("decode_attention_streamed", q, k, v, cur_len, lo, splits)
 
 
 def decode_attention_streamed_int8(q, k_q, k_s, v_q, v_s, cur_len, lo=None):
@@ -185,7 +290,7 @@ def decode_attention_streamed_int8(q, k_q, k_s, v_q, v_s, cur_len, lo=None):
     v_s (B, H, T) bf16."""
     if not _check_device(q):
         return decode_attention_streamed_int8_plain(q, k_q, k_s, v_q, v_s, cur_len, lo)
-    return _launch("decode_attention_streamed_int8", q, k_q, v_q, cur_len, lo, k_s, v_s)
+    return _launch_int8("decode_attention_streamed_int8", q, k_q, v_q, cur_len, lo, k_s, v_s)
 
 
 def decode_attention(q, k, v, cur_len):
@@ -193,4 +298,4 @@ def decode_attention(q, k, v, cur_len):
     any T, keys at pos <= cur_len[b]."""
     if not _check_device(q):
         return decode_attention_plain(q, k, v, cur_len)
-    return _launch("decode_attention", q, k, v, cur_len, None, tiled=False)
+    return _launch_split("decode_attention", q, k, v, cur_len, None, tiled=False)

@@ -7,8 +7,9 @@ token filter and pack -> upsample-conformer flow encoder -> UNet flow
 (2-step meanflow for Turbo, 10-step cosine CFM with CFG for the 520M
 family) -> HiFT with iSTFT -> trim-fade. One utterance runs at its exact
 length, so there are no buckets; the one host read is the count of valid
-tokens. The output stays float32. Convolutions run with cuDNN's TF32 off,
-so the float32 S3Gen is float32 on the card too.
+tokens (with the largest of them, checked against the flow's vocabulary).
+The output stays float32. Convolutions run with cuDNN's TF32 off, so the
+float32 S3Gen is float32 on the card too.
 """
 from __future__ import annotations
 
@@ -69,24 +70,36 @@ def no_tf32_convs():
 
 
 def pack_tokens(gen_tokens: torch.Tensor, n_raw, prompt_token: torch.Tensor,
-                append_sil: int = 0, cfg_slice: bool = False) -> torch.Tensor:
+                append_sil: int = 0, cfg_slice: bool = False, sos: int = SOS,
+                eos: int = EOS, vocab: int = SPEECH_VOCAB_SIZE) -> torch.Tensor:
     """[prompt | valid generated tokens | append_sil silence tokens] as one
     (1, P + G) row. Generated tokens count when they are among the first
-    n_raw and below the S3 vocabulary (the Turbo filter). cfg_slice (the
-    520M tail) first keeps only the tokens strictly between the first SOS
-    and the first EOS among the first n_raw, and vocodes one silence token
-    when nothing is left."""
+    n_raw and below `vocab` (the Turbo filter). cfg_slice (the 520M tail)
+    first keeps only the tokens strictly between the first `sos` and the
+    first `eos` among the first n_raw, and vocodes one silence token when
+    nothing is left.
+
+    A kept id at or above the flow's SPEECH_VOCAB_SIZE embedding rows (only
+    possible with vocab > SPEECH_VOCAB_SIZE) raises ValueError; the JAX
+    package's gather returns NaN embeddings there instead."""
     gen = gen_tokens.reshape(-1).long()
     idx = torch.arange(gen.shape[0], device=gen.device)
     keep = idx < n_raw
     if cfg_slice:
-        is_sos, is_eos = (gen == SOS) & keep, (gen == EOS) & keep
+        is_sos, is_eos = (gen == sos) & keep, (gen == eos) & keep
         start = torch.where(is_sos.any(), is_sos.int().argmax() + 1, 0)
         end = torch.where(is_eos.any(), is_eos.int().argmax(),
                           torch.as_tensor(n_raw, device=gen.device))
         keep = (idx >= start) & (idx < end)
-    gen = gen[keep & (gen < SPEECH_VOCAB_SIZE)]             # the one host read
-    if cfg_slice and append_sil == 0 and gen.numel() == 0:
+    keep = keep & (gen < vocab)
+    # the one host read: the count of kept ids and the largest of them
+    n, top = torch.stack([keep.sum(), torch.where(keep, gen, -1).max()]).tolist()
+    if top >= SPEECH_VOCAB_SIZE:
+        raise ValueError(f"speech token id {top} is kept (vocab={vocab}) but the "
+                         f"flow embeds only {SPEECH_VOCAB_SIZE} ids")
+    # kept ids first, in order (a stable sort), without another host read
+    gen = gen[torch.sort((~keep).to(torch.int8), stable=True).indices[:n]]
+    if cfg_slice and append_sil == 0 and n == 0:
         append_sil = 1
     sil = torch.full((append_sil,), SIL_TOKEN, dtype=torch.long, device=gen.device)
     return torch.cat([prompt_token.reshape(-1).long(), gen, sil])[None]
@@ -115,15 +128,18 @@ class S3GenEngine:
                               ref: RefDict, *, generator=None,
                               noise: Optional[S3GenNoise] = None,
                               n_timesteps: Optional[int] = None,
-                              append_sil: int = 0, cfg_slice: bool = False):
+                              append_sil: int = 0, cfg_slice: bool = False,
+                              sos: int = SOS, eos: int = EOS,
+                              vocab: int = SPEECH_VOCAB_SIZE):
         """Vocode a T3 decode result. gen_tokens (L,) on the device, n_tokens
-        the generated count (tensor or int); append_sil and cfg_slice pick
-        the token tail (pack_tokens). Returns (wav (1, T) float32 numpy,
-        n_gen vocoded tokens)."""
+        the generated count (tensor or int); append_sil, cfg_slice, sos, eos
+        and vocab pick the token tail (pack_tokens, which raises ValueError
+        for a kept id the flow cannot embed). Returns (wav (1, T) float32
+        numpy, n_gen vocoded tokens)."""
         P = int(np.asarray(ref.prompt_token_len).reshape(-1)[0])
         prompt = torch.as_tensor(np.asarray(ref.prompt_token)[:, :P], device=self.device)
         token = pack_tokens(gen_tokens.to(self.device), n_tokens, prompt, append_sil,
-                            cfg_slice)
+                            cfg_slice, sos, eos, vocab)
         n_gen = token.shape[1] - P
         if n_gen == 0:
             return np.zeros((1, 0), np.float32), 0

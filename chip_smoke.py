@@ -6,7 +6,8 @@
 
 The second form runs phases 1 and 2, then times the fused decode-layer
 kernels (B1, B2, B5, B6) of this checkout against those of the other at 1,
-2, 8 and 16 rows, in turns on the same operands, and stops.
+2, 8 and 16 rows, and the decode-attention kernels (B3, B4, B7) at phase
+3's attention shapes, in turns on the same operands, and stops.
 
 The port's paths, each at full width with random weights from a seed,
 served as bench.py serves them (T3 cast to bf16 and quantized int8_fused,
@@ -44,9 +45,12 @@ Phases, in order; any failure exits non-zero without the final "ok" line:
      pre-dequantized bf16 weights); B3 / B4 / B7 on every
      layer's own random cache at the paths' shapes: Turbo B=1, T=768 at
      positions in cache tiles 1-3, 520M B=2, T=512, the batched B=8 with
-     distinct left pads (one past a whole tile), B7 at T=657 (library:
+     distinct left pads (one past a whole tile), B7 at T=657, and a long
+     window (B=1, T=1536, position 1400) (library:
      scaled_dot_product_attention on the valid window, on a dequantized
-     bf16 copy for B4);
+     bf16 copy for B4), each shape with the split count B3 / B7 take
+     there; first, a sweep of B3's kernel at 1, 2, 4, 8 and 16 blocks a
+     window at the Turbo, 520M, batched and long-window shapes;
   4. reference: the CUDA path against the CPU path (plain kernel versions)
      on small models, same weights and noise: Turbo T3 teacher-forced
      logits on the bf16 and the int8 cache and meanflow S3Gen waveform;
@@ -56,20 +60,23 @@ Phases, in order; any failure exits non-zero without the final "ok" line:
      520M-family int4 (CFG, batch 2) teacher-forced logits;
   5. main paths, each with the launch counts set to 0 just before and read
      just after it (its own kernels launched layers x decode steps times,
-     B8 seven times that, every other kernel not at all):
-     ChatterboxTurboTTS.generate with bench.py's Turbo settings (synthetic
-     conditionals, P=125, 250 tokens with EOS ignored, top_k 1000,
-     temperature 0.8, top_p 0.95, repetition penalty 1.2) and
-     ChatterboxTTS.generate with bench.py's 520M settings (cfg_weight 0.5,
-     temperature 0.8, top_p 1.0, min_p 0.05, repetition penalty 1.2,
-     exaggeration 0.5, 30 text tokens, 250 tokens with EOS ignored), on
-     the bf16 cache, with kv_int8=True, and on the int4 T3s (Turbo
-     int4_fused, 520M int4); each once to warm up (32 tokens), three
-     timed runs, one split run for T3 and S3Gen times, and a profile of
-     the decode step. Then t3_generate(fused_attn=True) of each family,
-     a teacher-forced Turbo decode over an unaligned cache, and each
-     BatchDecoder serving its batch once and then timed for 250 tokens
-     with EOS ignored, with a profile of its decode step.
+     B8 seven times that, every other kernel not at all): each pipeline's
+     generate once to warm up (32 tokens), then three requests timed as
+     bench.py times them, t3_generate with EOS ignored then S3Gen's
+     inference_from_decode with the pipeline's own tail (Turbo: 3 silence
+     tokens; 520M: the SOS..EOS slice), on the text ids its generate makes
+     (punc_norm; SOT/EOT framing for 520M): Turbo with bench.py's Turbo
+     settings (synthetic conditionals, P=125, 250 tokens, top_k 1000,
+     temperature 0.8, top_p 0.95, repetition penalty 1.2) and 520M CFG
+     with bench.py's 520M settings (cfg_weight 0.5, temperature 0.8, top_p
+     1.0, min_p 0.05, repetition penalty 1.2, exaggeration 0.5, 30 text
+     tokens, 250 tokens), on the bf16 cache, with kv_int8=True, and on the
+     int4 T3s (Turbo int4_fused, 520M int4); each with a profile of its
+     decode step. Then t3_generate(fused_attn=True) of each family with a
+     profile of its decode step, a teacher-forced Turbo decode over an
+     unaligned cache, and each BatchDecoder serving its batch once and
+     then timed for 250 tokens with EOS ignored, with a profile of its
+     decode step.
 The line before the last is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}.
 """
@@ -85,6 +92,7 @@ PEAK_INT8_OPS = 1.979e15       # dense int8 tensor-core rate, same source
 N_TOKENS = 250
 WARMUP_TOKENS = 32             # a warm-up generate's tokens (every kernel built already)
 P_PROMPT = 125
+PHASE5_TEXT = "The quick brown fox jumps over the lazy dog near the river bank."
 SOS, EOS, S3_VOCAB = 6561, 6562, 6561
 
 
@@ -498,40 +506,51 @@ def check_int4_kernels(turbo4, cfg4, turbo, K, M, FM) -> list:
 
 
 def _load_other_kernels(root: str):
-    """Another checkout's kernels/fused_layer.py, imported as a package of
-    its own (its csrc/ builds into its own _build/)."""
+    """Another checkout's kernels/fused_layer.py and decode_attention.py,
+    imported as a package of their own (its csrc/ builds into its own
+    _build/)."""
     import importlib
     import types
     from pathlib import Path
     pkg = types.ModuleType("other_kernels")
     pkg.__path__ = [str(Path(root).resolve() / "chatterbox_tpu_torch" / "kernels")]
     sys.modules["other_kernels"] = pkg
-    return importlib.import_module("other_kernels.fused_layer")
+    return (importlib.import_module("other_kernels.fused_layer"),
+            importlib.import_module("other_kernels.decode_attention"))
 
 
-def ab_fused(turbo, cfg520, K, root: str) -> None:
-    """B1, B2 (Turbo weights) and B5, B6 (520M weights) of this checkout
-    against those of the checkout at `root`, at 1, 2, 8 and 16 rows on the
-    same operands: each checked against this checkout's plain version, then
+def _ab(sp, L, other, label) -> None:
+    """One kernel of this checkout against the other's on the same
+    operands: each checked against this checkout's plain version, then
     timed by CUDA-graph replay in turns (other, this, this, other)."""
-    other = _load_other_kernels(root)
+    fns = {"this": sp.kernel, "other": getattr(other, sp.name)}
+    for who, f in fns.items():
+        check_specs([KernelSpec(sp.name, sp.replaces, sp.call, None, 0, 0, sp.tol, f,
+                                sp.plain, relative=sp.relative)], L, f"{who}, {label}")
+    us = {"this": [], "other": []}
+    for who in ("other", "this", "this", "other"):
+        f = fns[who]
+        us[who].append(device_time_ms(lambda: [sp.call(i, f) for i in range(L)], 50) / L * 1e3)
+    a, b = sum(us["other"]) / 2, sum(us["this"]) / 2
+    log(f"A/B {sp.name} {label}: other {us['other'][0]:.2f} / {us['other'][1]:.2f} us, "
+        f"this {us['this'][0]:.2f} / {us['this'][1]:.2f} us per call -> this / other "
+        f"{b / a:.3f}")
+
+
+def ab_kernels(turbo, cfg520, K, A, bb, root: str) -> None:
+    """B1, B2 (Turbo weights) and B5, B6 (520M weights) at 1, 2, 8 and 16
+    rows, and B3 / B4 / B7 at phase 3's attention shapes, of this checkout
+    against those of the checkout at `root`."""
+    other_k, other_a = _load_other_kernels(root)
     L1, L2 = turbo.hp.backbone.num_layers, cfg520.hp.backbone.num_layers
     for B in (1, 2, 8, 16):
         for L, specs in ((L1, gpt2_specs(turbo, K, B=B)), (L2, llama_specs(cfg520, K, B=B))):
             for sp in specs:
-                fns = {"this": sp.kernel, "other": getattr(other, sp.name)}
-                for label, f in fns.items():
-                    check_specs([KernelSpec(sp.name, sp.replaces, sp.call, None, 0, 0,
-                                            sp.tol, f, sp.plain)], L, f"{label}, B={B}")
-                us = {"this": [], "other": []}
-                for label in ("other", "this", "this", "other"):
-                    f = fns[label]
-                    us[label].append(device_time_ms(
-                        lambda: [sp.call(i, f) for i in range(L)], 50) / L * 1e3)
-                a, b = sum(us["other"]) / 2, sum(us["this"]) / 2
-                log(f"A/B {sp.name} B={B}: other {us['other'][0]:.2f} / "
-                    f"{us['other'][1]:.2f} us, this {us['this'][0]:.2f} / "
-                    f"{us['this'][1]:.2f} us per call -> this / other {b / a:.3f}")
+                _ab(sp, L, other_k, f"B={B}")
+    for shape in attention_shapes(turbo, cfg520):
+        specs, L = _specs_at(A, bb, shape)
+        for sp in specs:
+            _ab(sp, L, other_a, shape[0])
 
 
 # Attention tolerance: the outputs are bf16, compared in f32; the kernel and
@@ -592,35 +611,81 @@ def attention_specs(A, bb, L, B, H, T, D, cur, lo, seed, which=("B3", "B4", "B7"
     return [specs[w] for w in which]
 
 
+def attention_shapes(turbo, cfg520) -> list:
+    """(label, L, B, H, T, D, cur, lo, seed, kernels) of each shape phase 3
+    times B3 / B4 / B7 at, the kernels-line rows first: Turbo's single
+    stream (B3 / B4 at T=768, B7 at an unaligned 657, position 530), the
+    520M CFG pair (prefix 66 + 250 tokens in 512), the batched engine's
+    eight left-padded rows (one pad past a whole tile; B7 at T=657 with
+    per-row positions and no pads), and a long window (Turbo, 1400 keys)."""
+    L1, L2 = turbo.hp.backbone.num_layers, cfg520.hp.backbone.num_layers
+    H, D = turbo.hp.backbone.num_heads, turbo.hp.backbone.head_dim
+    H2, D2 = cfg520.hp.backbone.num_heads, cfg520.hp.backbone.head_dim
+    lo8 = [0, 3, 9, 17, 40, 100, 257, 300]
+    return [
+        ("Turbo B=1, T=768, cur 530", L1, 1, H, 768, D, [530], None, 1, ("B3", "B4")),
+        ("B=1, T=657, cur 530", L1, 1, H, 657, D, [530], None, 2, ("B7",)),
+        ("520M B=2, T=512, cur 190", L2, 2, H2, 512, D2, [190, 190], None, 3,
+         ("B3", "B4", "B7")),
+        (f"batched B=8, T=768, cur 540, lo {lo8}", L1, 8, H, 768, D, [540] * 8, lo8, 4,
+         ("B3", "B4")),
+        ("B=8, T=657", L1, 8, H, 657, D, [300 + 40 * i for i in range(8)], None, 5, ("B7",)),
+        ("Turbo B=1, T=1536, cur 1400", L1, 1, H, 1536, D, [1400], None, 6, ("B3", "B7")),
+    ]
+
+
+def _specs_at(A, bb, shape):
+    label, L, B, H, T, D, cur, lo, seed, which = shape
+    return attention_specs(A, bb, L, B, H, T, D, cur, lo, seed, which), L
+
+
 def check_attention(turbo, cfg520, A, bb) -> list:
     """B3, B4 and B7 against their plain versions over every layer at the
-    paths' shapes; the rows of the kernels line at Turbo's single stream
-    (B=1, cache 768 for B3 / B4 and an unaligned 657 for B7, position 530)."""
-    L1, L2 = turbo.hp.backbone.num_layers, cfg520.hp.backbone.num_layers
+    paths' shapes (attention_shapes), each timed with the split count B3 /
+    B7 take there; the rows of the kernels line at Turbo's single stream."""
+    L1 = turbo.hp.backbone.num_layers
     H, D = turbo.hp.backbone.num_heads, turbo.hp.backbone.head_dim
     for cur in (200, 400, 700):                     # cache tiles 1, 2 and 3
         check_specs(attention_specs(A, bb, L1, 1, H, 768, D, [cur], None, cur, ("B3", "B4")),
                     L1, f"Turbo B=1, T=768, cur {cur}")
-    specs = attention_specs(A, bb, L1, 1, H, 768, D, [530], None, 1, ("B3", "B4"))
-    rows = time_specs(specs, L1, check_specs(specs, L1, "Turbo B=1, T=768, cur 530"),
-                      "Turbo B=1, T=768, cur 530")
-    specs = attention_specs(A, bb, L1, 1, H, 657, D, [530], None, 2, ("B7",))
-    rows += time_specs(specs, L1, check_specs(specs, L1, "B=1, T=657, cur 530"),
-                       "B=1, T=657, cur 530")
-    # 520M CFG: two rows at one position; prefix 66 + 250 tokens in 512
-    specs = attention_specs(A, bb, L2, 2, cfg520.hp.backbone.num_heads, 512,
-                            cfg520.hp.backbone.head_dim, [190, 190], None, 3, ("B3", "B4"))
-    time_specs(specs, L2, check_specs(specs, L2, "520M B=2, T=512, cur 190"),
-               "520M B=2, T=512, cur 190")
-    # the batched engine: eight left-padded rows, one pad past a whole tile
-    lo = [0, 3, 9, 17, 40, 100, 257, 300]
-    specs = attention_specs(A, bb, L1, 8, H, 768, D, [540] * 8, lo, 4, ("B3", "B4"))
-    time_specs(specs, L1, check_specs(specs, L1, f"batched B=8, T=768, cur 540, lo {lo}"),
-               "batched B=8, T=768, cur 540")
-    specs = attention_specs(A, bb, L1, 8, H, 657, D, [300 + 40 * i for i in range(8)],
-                            None, 5, ("B7",))
-    check_specs(specs, L1, "B=8, T=657")
+    rows = []
+    for n, shape in enumerate(attention_shapes(turbo, cfg520)):
+        label, _, B, H_, T = shape[:5]
+        specs, L = _specs_at(A, bb, shape)
+        r = time_specs(specs, L, check_specs(specs, L, label),
+                       f"{label}; B3 / B7 split over {A.split_count(B, H_, T)} blocks")
+        rows += r if n < 2 else []
     return rows
+
+
+SWEEP_SPLITS = (1, 2, 4, 8, 16)
+
+
+def sweep_splits(turbo, cfg520, A, bb) -> None:
+    """B3's kernel at S = 1, 2, 4, 8 and 16 blocks a window at Turbo's
+    single stream, the 520M pair, the batched rows and the long window:
+    each checked against the plain version and timed by CUDA-graph replay
+    (the evidence for split_count)."""
+    import functools
+    for shape in attention_shapes(turbo, cfg520):
+        if "B3" not in shape[-1]:
+            continue
+        label, L, B, H, T = shape[:5]
+        (sp,), _ = _specs_at(A, bb, shape[:-1] + (("B3",),))
+        times = []
+        for S in SWEEP_SPLITS:
+            f = functools.partial(A.decode_attention_streamed_split, splits=S)
+            try:
+                check_specs([KernelSpec(sp.name, sp.replaces, sp.call, None, 0, 0, sp.tol, f,
+                                        sp.plain, relative=True)], L, f"S={S}")
+            except RuntimeError as e:   # a cluster the card will not schedule
+                times.append(f"refused ({e})")
+                continue
+            us = device_time_ms(lambda: [sp.call(i, f) for i in range(L)], 50) / L * 1e3
+            times.append(f"{us:.2f} us")
+        log(f"split sweep B3 ({label}): "
+            + ", ".join(f"S={S} {t}" for S, t in zip(SWEEP_SPLITS, times))
+            + f" (split_count: S={A.split_count(B, H, T)})")
 
 
 # ---------------------------------------------------------------------------
@@ -873,63 +938,61 @@ def check_counts(counts, label, expected: dict):
                                  f"path, expected {want}")
 
 
-def run_path(tts, label, kernels, gen_kw, decode_kw, cfg_slice):
-    """A short warm-up, three timed generate runs with the launch counts set
-    to 0 just before and read just after, then a split run and a decode-step
-    profile. `kernels`: the kernels each layer launches once per decode
-    step, or {name: launches per layer and step}. Returns the launch counts
-    of the timed runs."""
+def run_path(tts, label, kernels, gen_kw, decode_kw, tail):
+    """A short warm-up generate, then three timed runs of one request as
+    bench.py times it: t3_generate with EOS ignored (decode_kw: the text
+    ids, sampler and engine knobs the pipeline's generate passes), then
+    S3Gen's inference_from_decode with the pipeline's tail (`tail`), with
+    the launch counts set to 0 just before and read just after; then a
+    decode-step profile. `kernels`: the kernels each layer launches once per
+    decode step, or {name: launches per layer and step}. Returns the launch
+    counts of the timed runs."""
     import numpy as np
     import torch
     from chatterbox_tpu_torch.sampling.decode import t3_generate
-    text = "The quick brown fox jumps over the lazy dog near the river bank."
-    tts.generate(text, **dict(gen_kw, max_new_tokens=WARMUP_TOKENS))      # warm-up
+    tts.generate(PHASE5_TEXT, **dict(gen_kw, max_new_tokens=WARMUP_TOKENS))     # warm-up
     torch.cuda.synchronize()
+    ids = torch.as_tensor(decode_kw["ids"], device="cuda").long()
+    kw = {k: v for k, v in decode_kw.items() if k != "ids"}
+    cond = tts.conds.t3.as_tensors("cuda")
+
+    def decode(n):
+        return t3_generate(tts.t3_params, tts.hp, cond, ids, max_new_tokens=n,
+                           ignore_eos=True, generator=tts.generator, **kw)
+
     reset_counts()
-    totals, forwards, audio_s = [], 0, None
+    totals, t3s, s3s, forwards = [], [], [], 0
     for _ in range(3):
         t0 = time.perf_counter()
-        wav = tts.generate(text, **gen_kw)
-        totals.append(time.perf_counter() - t0)
-        res = tts.last_decode
+        res = decode(N_TOKENS)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        wav, n_voc = tts.s3gen.inference_from_decode(res.tokens, res.n_tokens, tts.conds.gen,
+                                                     generator=tts.generator, **tail)
+        t2 = time.perf_counter()
+        totals.append(t2 - t0)
+        t3s.append(t1 - t0)
+        s3s.append(t2 - t1)
         forwards += res.n_forward
-        n_voc = vocoded_tokens(res, cfg_slice)
-        expect = (1, n_voc * 2 * 480)
-        if wav.shape != expect or not np.isfinite(wav).all() or np.abs(wav).max() == 0:
-            raise AssertionError(f"{label}: waveform {wav.shape} (expected {expect}), "
-                                 f"finite={np.isfinite(wav).all()}")
-        audio_s = n_voc / 25.0
+        expect_n = vocoded_tokens(res, tail.get("cfg_slice", False))
+        expect = (1, expect_n * 2 * 480)
+        if (n_voc != expect_n or wav.shape != expect or not np.isfinite(wav).all()
+                or np.abs(wav).max() == 0):
+            raise AssertionError(f"{label}: waveform {wav.shape} of {n_voc} tokens (expected "
+                                 f"{expect}), finite={np.isfinite(wav).all()}")
     counts = read_counts()
     L = tts.hp.backbone.num_layers
     per_layer = kernels if isinstance(kernels, dict) else dict.fromkeys(kernels, 1)
     check_counts(counts, f"{label}, {L} layers x {forwards} decode steps",
                  {name: n * L * forwards for name, n in per_layer.items()})
-    best = min(totals)
-    log(f"{label} generate: {[round(t, 4) for t in totals]} s for {audio_s:.2f} s of "
-        f"audio ({n_voc} vocoded tokens of {N_TOKENS}) -> x-realtime "
-        f"{audio_s / best:.3f} (best of 3)")
-
-    # split run: T3 decode and S3Gen vocode timed apart
-    ids = torch.as_tensor(decode_kw["ids"], device="cuda").long()
-    sp = decode_kw["sp"]
-    decode_kw = {k: v for k, v in decode_kw.items() if k not in ("ids", "sp")}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = t3_generate(tts.t3_params, tts.hp, tts.conds.t3.as_tensors("cuda"), ids, sp,
-                      max_new_tokens=N_TOKENS, ignore_eos=True, generator=tts.generator,
-                      **decode_kw)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    tts.s3gen.inference_from_decode(res.tokens, res.n_tokens, tts.conds.gen,
-                                    generator=tts.generator,
-                                    **({"cfg_slice": True} if cfg_slice else {"append_sil": 3}))
-    t2 = time.perf_counter()
-    log(f"{label} T3 decode: {t1 - t0:.4f} s for {N_TOKENS} tokens -> "
-        f"{N_TOKENS / (t1 - t0):.1f} tok/s ({(t1 - t0) / N_TOKENS * 1e3:.3f} ms/token); "
-        f"S3Gen: {t2 - t1:.4f} s")
-    profile_decode(lambda n: t3_generate(
-        tts.t3_params, tts.hp, tts.conds.t3.as_tensors("cuda"), ids, sp, max_new_tokens=n,
-        ignore_eos=True, generator=tts.generator, **decode_kw), (t1 - t0) / N_TOKENS, label)
+    best, audio_s = min(totals), n_voc / 25.0
+    t3 = min(t3s)
+    log(f"{label} request (t3_generate + inference_from_decode): "
+        f"{[round(t, 4) for t in totals]} s for {audio_s:.2f} s of audio ({n_voc} vocoded "
+        f"tokens of {N_TOKENS}) -> x-realtime {audio_s / best:.3f} (best of 3); T3 decode "
+        f"{t3:.4f} s -> {N_TOKENS / t3:.1f} tok/s ({t3 / N_TOKENS * 1e3:.3f} ms/token), "
+        f"S3Gen {min(s3s):.4f} s (best of 3)")
+    profile_decode(decode, t3 / N_TOKENS, label)
     return counts
 
 
@@ -980,35 +1043,43 @@ PHASE3_ONLY = {"fused_mlp_int8": "phase 3 only: a library kernel that nothing in
                                  "JAX package calls outside its own test"}
 
 
+def turbo_ids(turbo, text):
+    """Turbo's text ids as its generate makes them: punc_norm, then raw
+    GPT-2 ids with no SOT/EOT framing."""
+    from chatterbox_tpu_torch.text.normalize import punc_norm
+    return turbo.tokenizer.text_to_tokens(punc_norm(text, variant="turbo"))
+
+
 def main_paths(turbo, cfg520, turbo4, cfg4) -> dict:
     """Both pipelines on the bf16 cache (the default), with kv_int8=True,
     and on the int4 T3s (Turbo int4_fused: B9 and B10 per layer and step;
-    520M int4: B8 for each of a layer's seven linears); returns the launch
+    520M int4: B8 for each of a layer's seven linears), each decoded and
+    vocoded as its generate does it but with EOS ignored; returns the launch
     counts summed over the paths."""
     from chatterbox_tpu_torch.ops.sampling import SamplerParams
-    text = "The quick brown fox jumps over the lazy dog near the river bank."
-    turbo_gen = dict(max_new_tokens=N_TOKENS, top_k=1000, temperature=0.8, top_p=0.95,
-                     repetition_penalty=1.2, ignore_eos=True)
-    turbo_dec = dict(ids=turbo.tokenizer.text_to_tokens(text),
-                     sp=SamplerParams(0.8, 0.95, 1.2), top_k=1000)
+    turbo_gen = dict(top_k=1000, temperature=0.8, top_p=0.95, repetition_penalty=1.2)
+    turbo_dec = dict(ids=turbo_ids(turbo, PHASE5_TEXT), sp=SamplerParams(0.8, 0.95, 1.2),
+                     top_k=1000)
     kw = dict(temperature=0.8, top_p=1.0, min_p=0.05, repetition_penalty=1.2,
               cfg_weight=0.5)
-    cfg_gen = dict(max_new_tokens=N_TOKENS, exaggeration=0.5, ignore_eos=True, **kw)
-    cfg_dec = dict(ids=cfg520.frame_text(text), sp=SamplerParams(**kw), cfg_mode=True)
+    cfg_gen = dict(exaggeration=0.5, **kw)
+    cfg_dec = dict(ids=cfg520.frame_text(PHASE5_TEXT), sp=SamplerParams(**kw), cfg_mode=True,
+                   cfg_batch2=True)
     int8 = dict(kv_int8=True, fused_attn=True)
+    turbo_tail, cfg_tail = dict(append_sil=3), dict(cfg_slice=True)   # as their _vocode
     paths = [
-        (turbo, "Turbo", GPT2, turbo_gen, turbo_dec, False),
-        (cfg520, "520M CFG", LLAMA, cfg_gen, cfg_dec, True),
+        (turbo, "Turbo", GPT2, turbo_gen, turbo_dec, turbo_tail),
+        (cfg520, "520M CFG", LLAMA, cfg_gen, cfg_dec, cfg_tail),
         (turbo, "Turbo kv_int8", GPT2 + (B4,), dict(turbo_gen, kv_int8=True),
-         dict(turbo_dec, **int8), False),
+         dict(turbo_dec, **int8), turbo_tail),
         (cfg520, "520M CFG kv_int8", LLAMA + (B4,), dict(cfg_gen, kv_int8=True),
-         dict(cfg_dec, **int8), True),
-        (turbo4, "Turbo int4_fused", GPT2_INT4, turbo_gen, turbo_dec, False),
-        (cfg4, "520M CFG int4", {B8: len(LLAMA_LINEARS)}, cfg_gen, cfg_dec, True),
+         dict(cfg_dec, **int8), cfg_tail),
+        (turbo4, "Turbo int4_fused", GPT2_INT4, turbo_gen, turbo_dec, turbo_tail),
+        (cfg4, "520M CFG int4", {B8: len(LLAMA_LINEARS)}, cfg_gen, cfg_dec, cfg_tail),
     ]
     totals = {}
-    for tts, label, kernels, gen_kw, dec_kw, cfg_slice in paths:
-        counts = run_path(tts, label, kernels, gen_kw, dec_kw, cfg_slice)
+    for tts, label, kernels, gen_kw, dec_kw, tail in paths:
+        counts = run_path(tts, label, kernels, gen_kw, dec_kw, tail)
         for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v
     return totals
@@ -1016,18 +1087,19 @@ def main_paths(turbo, cfg520, turbo4, cfg4) -> dict:
 
 def fused_attention_paths(turbo, cfg520) -> dict:
     """t3_generate(fused_attn=True) on the bf16 cache of each family (B3 on
-    the tile-aligned cache), and a teacher-forced Turbo decode through
-    backbone_apply(fused_attn=True) over an unaligned cache (B7)."""
+    the tile-aligned cache), each with a profile of its decode step (the
+    unfused paths' profiles are main_paths'), and a teacher-forced Turbo
+    decode through backbone_apply(fused_attn=True) over an unaligned cache
+    (B7)."""
     import torch
     from chatterbox_tpu_torch.models.t3 import backbone as bb
     from chatterbox_tpu_torch.ops.sampling import SamplerParams
     from chatterbox_tpu_torch.sampling.decode import build_prefix, decode_step, t3_generate
-    text = "The quick brown fox jumps over the lazy dog near the river bank."
     totals = {}
     for tts, label, kernels, ids, kw in (
-            (turbo, "Turbo", GPT2, turbo.tokenizer.text_to_tokens(text),
+            (turbo, "Turbo", GPT2, turbo_ids(turbo, PHASE5_TEXT),
              dict(sp=SamplerParams(0.8, 0.95, 1.2), top_k=1000)),
-            (cfg520, "520M CFG", LLAMA, cfg520.frame_text(text),
+            (cfg520, "520M CFG", LLAMA, cfg520.frame_text(PHASE5_TEXT),
              dict(sp=SamplerParams(0.8, 1.0, 1.2, 0.05, 0.5), cfg_mode=True))):
         ids = torch.as_tensor(ids, device="cuda").long()
         cond = tts.conds.t3.as_tensors("cuda")
@@ -1047,11 +1119,15 @@ def fused_attention_paths(turbo, cfg520) -> dict:
             f"{N_TOKENS} tokens ({dt / N_TOKENS * 1e3:.3f} ms/token)")
         for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v
+        profile_decode(lambda n: t3_generate(
+            tts.t3_params, tts.hp, cond, ids, max_new_tokens=n, ignore_eos=True,
+            generator=tts.generator, fused_attn=True, **kw), dt / N_TOKENS,
+            f"{label} fused_attn")
 
     # teacher-forced Turbo over a cache whose length is not a multiple of 256
     hp, params = turbo.hp, turbo.t3_params
     cond = turbo.conds.t3.as_tensors("cuda")
-    ids = torch.as_tensor(turbo.tokenizer.text_to_tokens(text), device="cuda").long()
+    ids = torch.as_tensor(turbo_ids(turbo, PHASE5_TEXT), device="cuda").long()
     with torch.no_grad():
         x = build_prefix(params, hp, cond, ids, 1, False)
         P, n = x.shape[1], 40
@@ -1214,7 +1290,7 @@ def main(argv) -> int:
     log(f"models built in {time.perf_counter() - t0:.1f} s (T3 {turbo.hp.backbone_name} "
         f"and {cfg520.hp.backbone_name} bf16 int8_fused, S3Gen float32)")
     if ab_root is not None:
-        ab_fused(turbo, cfg520, K, ab_root)
+        ab_kernels(turbo, cfg520, K, A, bb, ab_root)
         return 0
     t0 = time.perf_counter()
     turbo4, cfg4 = int4_pipeline(turbo, "int4_fused", 0), int4_pipeline(cfg520, "int4", 10)
@@ -1224,6 +1300,7 @@ def main(argv) -> int:
         f"the S3Gen engines and conditionals shared)")
 
     t0 = time.perf_counter()
+    sweep_splits(turbo, cfg520, A, bb)
     rows = (check_kernels(turbo, cfg520, K) + check_attention(turbo, cfg520, A, bb)
             + check_int4_kernels(turbo4, cfg4, turbo, K, M, FM))
     log(f"phase 3 (kernels) {time.perf_counter() - t0:.1f} s")

@@ -310,6 +310,109 @@ def test_attention_wrappers_refuse_what_the_kernel_does_not_take(dev):
         A.decode_attention_streamed_int8(q, k_q, k_s.cpu(), v_q, v_s, cur)
 
 
+# B3 / B7's split kernel at given split counts and merges: windows of one
+# key, fewer keys than S, S whole chunks (ending on a chunk boundary) and up
+# to the end of the cache; lo at 0, mid-chunk and one past a tile
+SPLIT_LOS = (0, 37, 257)
+
+
+def _split_window(kind, S, lo, T):
+    return {"one": 1, "fewer": max(S - 1, 1), "boundary": 24 * S, "whole": T - lo}[kind]
+
+
+@pytest.mark.parametrize("qdtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("lo", SPLIT_LOS)
+@pytest.mark.parametrize("window", ["one", "fewer", "boundary", "whole"])
+@pytest.mark.parametrize("S", [1, 3, 8, 16])
+def test_split_kernel_matches_plain(dev, S, window, lo, qdtype):
+    T = 768
+    q, k, v, *_ = _attn_operands(dev, 2, 4, T, 64, qdtype, seed=S + lo)
+    cur = torch.tensor([lo + _split_window(window, S, lo, T) - 1, T + 5], device=dev,
+                       dtype=torch.int32)
+    los = torch.tensor([lo, lo], device=dev, dtype=torch.int32)
+    out = A.decode_attention_streamed_split(q, k, v, cur, los, S)
+    _attn_close(out, A.decode_attention_streamed_plain(q, k, v, cur, los))
+    torch.cuda.synchronize()
+
+
+# the wrappers (split_count's S, the kept merge) at head widths 32-128, caches
+# up to 2048 keys and 1-16 rows
+@pytest.mark.parametrize("B,H,T,D,cur,lo,qdtype", [
+    (1, 16, 768, 64, [530], None, torch.bfloat16),
+    (1, 16, 1536, 64, [1400], None, torch.bfloat16),
+    (1, 16, 2048, 128, [2047], [300], torch.float32),
+    (2, 16, 512, 64, [190, 190], None, torch.bfloat16),
+    (2, 8, 2048, 32, [5, 2000], [0, 1999], torch.bfloat16),
+    (8, 16, 768, 64, [540] * 8, [0, 3, 9, 17, 40, 100, 257, 300], torch.bfloat16),
+    (16, 16, 1024, 128, [900 - 50 * i for i in range(16)], [7 * i for i in range(16)],
+     torch.bfloat16),
+    (16, 4, 256, 32, list(range(0, 256, 16)), None, torch.float32),
+])
+def test_b3_kernel_matches_plain_across_shapes(dev, B, H, T, D, cur, lo, qdtype):
+    q, k, v, *_ = _attn_operands(dev, B, H, T, D, qdtype)
+    cur = torch.tensor(cur, device=dev, dtype=torch.int32)
+    lo = None if lo is None else torch.tensor(lo, device=dev, dtype=torch.int32)
+    before = A.launches["decode_attention_streamed"]
+    _attn_close(A.decode_attention_streamed(q, k, v, cur, lo),
+                A.decode_attention_streamed_plain(q, k, v, cur, lo))
+    torch.cuda.synchronize()
+    assert A.launches["decode_attention_streamed"] == before + 1
+
+
+@pytest.mark.parametrize("B,H,T,D,cur", [
+    (1, 16, 657, 64, [530]), (2, 16, 1000, 128, [999, 3]), (8, 16, 657, 32, [600] * 8),
+    (16, 16, 2000, 64, [100 * i + 50 for i in range(16)]), (1, 4, 33, 64, [40]),
+])
+def test_b7_kernel_matches_plain_across_shapes(dev, B, H, T, D, cur):
+    q, k, v, *_ = _attn_operands(dev, B, H, T, D, torch.bfloat16)
+    cur = torch.tensor(cur, device=dev, dtype=torch.int32)
+    before = A.launches["decode_attention"]
+    _attn_close(A.decode_attention(q, k, v, cur), A.decode_attention_plain(q, k, v, cur))
+    torch.cuda.synchronize()
+    assert A.launches["decode_attention"] == before + 1
+
+
+@pytest.mark.parametrize("S", [None, 1, 16])
+def test_split_kernel_replays_in_a_cuda_graph_with_new_windows(dev, S):
+    """One B3 launch (split_count's S, or a given one) captured in a CUDA
+    graph; cur_len and lo changed on the device between replays, each replay
+    compared with the plain version at the new values."""
+    q, k, v, *_ = _attn_operands(dev, 2, 16, 768, 64, torch.bfloat16)
+    cur = torch.tensor([530, 700], device=dev, dtype=torch.int32)
+    lo = torch.tensor([0, 257], device=dev, dtype=torch.int32)
+    S = S or A.split_count(2, 16, 768)
+    call = lambda: A.decode_attention_streamed_split(q, k, v, cur, lo, S)  # noqa: E731
+    call()                                       # warm-up: build and first launch
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for c, l in (([530, 700], [0, 257]), ([3, 767], [3, 40]), ([100, 1000], [99, 0]),
+                 ([400, 20], [37, 21])):
+        cur.copy_(torch.tensor(c, dtype=torch.int32))
+        lo.copy_(torch.tensor(l, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        _attn_close(out, A.decode_attention_streamed_plain(q, k, v, cur, lo))
+
+
+def test_split_wrappers_refuse_what_the_kernel_does_not_take(dev):
+    q, k, v, *_ = _attn_operands(dev, 1, 4, 512, 64, torch.bfloat16)
+    cur = torch.tensor([100], device=dev)
+    base = torch.empty(k.numel() + 4, dtype=torch.bfloat16, device=dev)
+    k_off = base[4:].view(k.shape)               # contiguous, 8 bytes off alignment
+    k_off.copy_(k)
+    with pytest.raises(ValueError, match="aligned"):
+        A.decode_attention_streamed(q, k_off, v, cur)
+    with pytest.raises(ValueError, match="aligned"):
+        A.decode_attention(q, k_off, v, cur)
+    for S in (0, A.MAX_SPLITS + 1):              # more blocks than a cluster holds
+        with pytest.raises(ValueError, match="splits"):
+            A.decode_attention_streamed_split(q, k, v, cur, None, S)
+    with pytest.raises(ValueError, match="CUDA"):
+        A.decode_attention_streamed_split(q.cpu(), k.cpu(), v.cpu(), cur.cpu(), None, 8)
+
+
 def test_a_build_failure_raises_rather_than_falling_back(dev, tmp_path, monkeypatch):
     (tmp_path / "decode_attention.cu").write_text("this is not CUDA C++\n")
     monkeypatch.setattr(build, "SRC_DIR", tmp_path)

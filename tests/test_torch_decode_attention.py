@@ -106,6 +106,82 @@ def test_whole_slice_matches_pallas(B, H, T, D, cur, dtype):
     _close(out, ref, dtype)
 
 
+# The split kernel's arithmetic (B3 / B7 on the card), split_window_plain,
+# against the Pallas kernels. T = 768 (3 tiles); row 0 takes the case's
+# window, row 1 the same lo with cur_len past the cache (clamped to T - 1).
+SPLIT_T = 768
+SPLITS = [1, 3, 8, 16]
+LOS = {"lo 0": 0, "lo mid-chunk": 37, "lo one past a tile": TT + 1}
+
+
+def _window(kind, S, lo):
+    """Keys in the window: one, fewer than S (one at S = 1), S whole chunks
+    of 24 keys (the window ends on a chunk boundary), or up to the end."""
+    return {"one key": 1, "fewer than S": max(S - 1, 1), "chunk boundary": 24 * S,
+            "whole T": SPLIT_T - lo}[kind]
+
+
+_PALLAS = {}
+
+
+def _split_case(n, lo, dtype):
+    """(q, k, v, cur, lo) as torch tensors and the Pallas streamed kernel's
+    output for a window of n keys from lo (computed once per window)."""
+    (jq, tq), (jk, tk), (jv, tv) = _inputs(7, 2, 2, SPLIT_T, 64, "bf16")
+    if dtype == "f32":
+        jq, tq = jq.astype(jnp.float32), tq.float()
+    cur, los = [lo + n - 1, SPLIT_T + 5], [lo, lo]
+    key = (n, lo, dtype)
+    if key not in _PALLAS:
+        _PALLAS[key] = J.decode_attention_streamed(jq, jk, jv, jnp.asarray(cur, jnp.int32),
+                                                   interpret=True,
+                                                   lo=jnp.asarray(los, jnp.int32))
+    return (tq, tk, tv, torch.tensor(cur), torch.tensor(los)), _PALLAS[key]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("lo_kind", list(LOS))
+@pytest.mark.parametrize("window", ["one key", "fewer than S", "chunk boundary", "whole T"])
+@pytest.mark.parametrize("S", SPLITS)
+def test_split_window_matches_pallas(S, window, lo_kind, dtype):
+    """Each split's (m, l, acc) and their merge give the Pallas kernel's
+    result: bf16 cache, one bf16 ulp of the output for bf16 q (2**-7
+    relative, chip_smoke's TOL_ATTN), 1e-5 for f32 q (summation order)."""
+    lo = LOS[lo_kind]
+    args, ref = _split_case(_window(window, S, lo), lo, dtype)
+    out = A.split_window_plain(*args, S)
+    assert out.dtype == args[0].dtype
+    _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("S", SPLITS)
+def test_split_window_matches_whole_slice_pallas(S, dtype):
+    """B7's form: lo None over a cache of 300 keys (not a multiple of the
+    tile), one row with one key and one past the cache."""
+    key = ("B7", dtype)
+    (jq, tq), (jk, tk), (jv, tv) = _inputs(8, 2, 2, 300, 64, dtype)
+    cur = [0, 310]
+    if key not in _PALLAS:
+        _PALLAS[key] = J.decode_attention(jq, jk, jv, jnp.asarray(cur, jnp.int32),
+                                          interpret=True)
+    _close(A.split_window_plain(tq, tk, tv, torch.tensor(cur), None, S), _PALLAS[key], dtype)
+
+
+def test_split_window_of_an_empty_window_is_zero():
+    (_, tq), (_, tk), (_, tv) = _inputs(9, 1, 2, TT, 64, "bf16")
+    out = A.split_window_plain(tq, tk, tv, torch.tensor([40]), torch.tensor([41]), 8)
+    assert out.shape == (1, 2, 1, 64) and not out.float().abs().max()
+
+
+@pytest.mark.parametrize("B,H,T,S", [(1, 16, 768, 8), (1, 16, 657, 8), (2, 16, 512, 4),
+                                     (8, 16, 768, 2), (16, 16, 768, 1), (1, 16, 1536, 8),
+                                     (1, 16, 64, 1), (1, 4, 256, 2)])
+def test_split_count_depends_on_the_cache_shape_only(B, H, T, S):
+    assert A.split_count(B, H, T) == S
+    assert 1 <= S <= A.SPLIT_CAP <= A.MAX_SPLITS
+
+
 def test_streamed_refuses_an_unaligned_cache_on_the_kernel_route():
     """The tile precondition is the JAX package's; on the CPU the plain
     version runs whatever T, and a device that is neither CPU nor CUDA

@@ -6,6 +6,7 @@ perceiver, emotion input and learned positions, quantized int8_fused, a tiny
 interchange, the frontend guard, and the rule that the port never imports
 JAX or the JAX package."""
 import ast
+import inspect
 import pathlib
 
 import numpy as np
@@ -191,6 +192,18 @@ def test_conds_pt_from_jax_loads_in_port(tmp_path):
     c.save(str(npz))
     c2 = port.Conditionals.load(str(npz))
     np.testing.assert_array_equal(c2.gen.prompt_feat, c.gen.prompt_feat)
+
+
+@pytest.mark.parametrize("port_cls,jax_cls", [(port.ChatterboxTurboTTS, JTTS),
+                                               (port.ChatterboxTTS, JCfgTTS)])
+def test_generate_takes_only_the_jax_pipelines_knobs(port_cls, jax_cls):
+    """No ignore_eos (a benchmark decodes through t3_generate, as bench.py
+    does); every knob of the port's generate is one the JAX pipeline has."""
+    ours = set(inspect.signature(port_cls.generate).parameters)
+    assert "ignore_eos" not in ours
+    assert ours <= set(inspect.signature(jax_cls.generate).parameters)
+    with pytest.raises(TypeError, match="ignore_eos"):
+        port_cls.generate(None, "hi", ignore_eos=True)
 
 
 def test_audio_prompt_path_raises_until_frontend_is_ported():

@@ -13,6 +13,7 @@ import torch  # noqa: E402
 from chatterbox_tpu.api.pipelines import drop_invalid_tokens_sliced  # noqa: E402
 from chatterbox_tpu.models.s3gen import flow as jflow  # noqa: E402
 from chatterbox_tpu.models.s3gen import hift as jhift  # noqa: E402
+from chatterbox_tpu.models.s3gen import model as jmodel  # noqa: E402
 from chatterbox_tpu.models.s3gen.model import RefDict as JRefDict  # noqa: E402
 from chatterbox_tpu.models.s3gen.model import S3GenEngine as JEngine  # noqa: E402
 
@@ -202,6 +203,89 @@ def test_cfg_pack_tail_matches_jax(stream, n_raw):
                       cfg_slice=True)
     np.testing.assert_array_equal(out.numpy()[0, 10:], host)
     np.testing.assert_array_equal(out.numpy(), np.asarray(row)[:, :int(np.asarray(tl)[0])])
+
+
+# Other specials and a wider vocabulary, every kept id below the flow's
+# 6561 rows: (cfg_slice, append_sil, sos, eos, vocab)
+_KNOBS = [(False, 2, 6561, 6562, 8194),
+          (True, 0, 7000, 7001, 8194),
+          (True, 0, 3, 4, 6561)]
+
+
+def _knob_tokens(sos, eos, vocab):
+    """40 ids: kept ids below 6561, ids in [6561, vocab) only where nothing
+    keeps them, ids >= vocab, and the specials sos / eos (sos at 2, eos at 30)."""
+    rng = np.random.default_rng(12)
+    gen = rng.integers(5, 6561, (40,)).astype(np.int32)
+    gen[[2, 30]] = sos, eos
+    gen[[9, 17]] = vocab + 6, vocab + 100            # dropped by the vocab filter
+    if vocab > 6561:
+        gen[[0, 33]] = 6561 + 7, vocab - 1           # outside the sos..eos slice
+    return gen
+
+
+@pytest.mark.parametrize("cfg_slice,append_sil,sos,eos,vocab", _KNOBS)
+def test_pack_tokens_with_other_specials_matches_jax(cfg_slice, append_sil, sos, eos, vocab):
+    gen = _knob_tokens(sos, eos, vocab)
+    prompt = np.arange(10, 20, dtype=np.int32)[None]
+    if not cfg_slice:                                # Turbo keeps every id below vocab
+        gen[[0, 2, 30, 33]] = 11, 12, 13, 14
+    eng = JEngine({"flow": None, "mel2wav": None}, meanflow=not cfg_slice, dims=JDIMS)
+    row, tl = eng._pack_from_decode(jnp.asarray(gen), jnp.asarray(36),
+                                    jnp.asarray(prompt), jnp.asarray(10), bucket=64,
+                                    append_sil=append_sil, cfg_slice=cfg_slice, sos=sos,
+                                    eos=eos, vocab=vocab)
+    out = pack_tokens(torch.from_numpy(gen), 36, torch.from_numpy(prompt), append_sil,
+                      cfg_slice, sos=sos, eos=eos, vocab=vocab)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(row)[:, :int(np.asarray(tl)[0])])
+    assert out.shape[1] > 10 + append_sil
+
+
+@pytest.mark.parametrize("cfg_slice", [False, True])
+def test_pack_tokens_raises_on_a_kept_id_the_flow_cannot_embed(cfg_slice):
+    """vocab = 8194 keeps ids 6561..8193, which index past the flow's
+    embedding: the port raises (the JAX gather gives NaN embeddings)."""
+    gen = _knob_tokens(7000, 7001, 8194)
+    gen[[0, 33]] = 11, 12
+    gen[20] = 7500                                   # kept by both tails, the largest
+    prompt = torch.arange(10, 20)[None]
+    with pytest.raises(ValueError, match="7500.*8194"):
+        pack_tokens(torch.from_numpy(gen), 36, prompt, cfg_slice=cfg_slice, sos=7000,
+                    eos=7001, vocab=8194)
+    gen[20] = 8194                                   # at vocab: dropped, no error
+    if not cfg_slice:
+        gen[[2, 30]] = 13, 14                        # Turbo keeps the specials too
+    pack_tokens(torch.from_numpy(gen), 36, prompt, cfg_slice=cfg_slice, sos=7000,
+                eos=7001, vocab=8194)
+
+
+def test_inference_from_decode_with_other_specials_matches_jax(monkeypatch):
+    """The 520M tail (cfg_slice) with sos 7000, eos 7001 and vocab 8194 on
+    the meanflow engine, the JAX buckets pinned to the exact lengths (C7)."""
+    jp, tp = params()
+    rng = np.random.default_rng(13)
+    prompt, plen, feat, emb = _ref(rng)
+    gen = _knob_tokens(7000, 7001, 8194)
+    n_gen = 27 - 2                                   # ids 3..29 less the two >= vocab
+    monkeypatch.setattr(jmodel, "TOKEN_BUCKETS", (P + n_gen,))
+    monkeypatch.setattr(jmodel, "GEN_MEL_BUCKETS", (2 * n_gen,))
+    key = jax.random.key(14)
+    tail = dict(cfg_slice=True, sos=7000, eos=7001, vocab=8194)
+    eng = JEngine(jp, meanflow=True, dims=JDIMS)
+    eng.pcm16_fetch = False
+    ref, n_ref = eng.inference_from_decode(jnp.asarray(gen), 36,
+                                           JRefDict(prompt, plen, feat, emb), key,
+                                           n_timesteps=2, **tail)
+    noise = jax_vocode_noise(key, 2 * (P + n_gen), 2 * n_gen)
+    out, n_out = S3GenEngine(tp, dims=DIMS).inference_from_decode(
+        torch.from_numpy(gen), 36, RefDict(prompt, plen, feat, emb), noise=noise, **tail)
+    assert n_out == n_ref == n_gen
+    assert out.shape == ref.shape == (1, n_gen * 2 * 480) and np.isfinite(out).all()
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)   # as the test below
+    with pytest.raises(ValueError, match="flow embeds only 6561"):
+        S3GenEngine(tp, dims=DIMS).inference_from_decode(
+            torch.from_numpy(gen), 36, RefDict(prompt, plen, feat, emb), noise=noise,
+            **dict(tail, cfg_slice=False))
 
 
 def test_inference_from_decode_waveform_matches():
