@@ -1,7 +1,10 @@
 // Helpers shared by the kernels (fused_layer.cu, int4.cu,
 // decode_attention.cu): block shape, reductions, the norm prologue, 16-wide
-// dot products over shared-memory rows, gelu_new, the launch with the 227 KB
-// opt-in, and the bulk copy (cp.async.bulk) onto an mbarrier.
+// dot products over shared-memory rows, gelu_new, the bulk copy
+// (cp.async.bulk) onto an mbarrier, the cluster barrier and stores into a
+// peer's shared memory, programmatic dependent launch, the bf16 tensor-core
+// MMA and its operand conversions, rows staged as bf16, and the launches
+// with the 227 KB opt-in (plain, or with a cluster and dependent launch).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -155,16 +158,122 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
+// The cluster barrier in two halves (all threads of every block take part).
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// v into the shared memory of block `rank` of the cluster, at the offset
+// of p in this block's own shared memory
+__device__ __forceinline__ void st_cluster(float* p, uint32_t rank, float v) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(remote), "f"(v) : "memory");
+}
+
+// Programmatic dependent launch: wait until the kernel before this one on
+// the stream has finished and its writes are visible (a no-op when the
+// launch did not ask for it), and let the next kernel begin launching.
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16, row) @ b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4], uint32_t b0,
+                                               uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four int8 in w -> bf16 pairs (bytes 0, 1) and (bytes 2, 3), the lower
+// index in the lower half
+__device__ __forceinline__ void i8x4_to_bf16x2(uint32_t w, uint32_t& p01, uint32_t& p23) {
+  const auto byte = [w](int i) {
+    return (float)(static_cast<int32_t>(w << (24 - 8 * i)) >> 24);
+  };
+  __nv_bfloat162 a = __floats2bfloat162_rn(byte(0), byte(1));
+  __nv_bfloat162 b = __floats2bfloat162_rn(byte(2), byte(3));
+  p01 = *reinterpret_cast<uint32_t*>(&a);
+  p23 = *reinterpret_cast<uint32_t*>(&b);
+}
+
+// 8 consecutive entries (16-byte aligned) as float
+__device__ __forceinline__ void to_f32x8(const uint4& u, float v[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(h[j]);
+    v[2 * j] = f.x;
+    v[2 * j + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* x, float v[8]) {
+  to_f32x8(*reinterpret_cast<const uint4*>(x), v);
+}
+
+__device__ __forceinline__ void load8(const float* x, float v[8]) {
+  const float4* p = reinterpret_cast<const float4*>(x);
+  const float4 a = p[0], b = p[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+// 8 entries (16 bytes) of x as bf16, 16-byte aligned: bf16 copied as it
+// is, f32 rounded to nearest
+__device__ __forceinline__ uint4 bf16x8(const __nv_bfloat16* x) {
+  return __ldg(reinterpret_cast<const uint4*>(x));
+}
+
+__device__ __forceinline__ uint4 bf16x8(const float* x) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(x));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(x) + 1);
+  __nv_bfloat162 p[4] = {__floats2bfloat162_rn(a.x, a.y), __floats2bfloat162_rn(a.z, a.w),
+                         __floats2bfloat162_rn(b.x, b.y), __floats2bfloat162_rn(b.z, b.w)};
+  return *reinterpret_cast<uint4*>(p);
+}
+
+// ys[r * yld + i] = bf16(x[r * ldx + i]) for i < n (a multiple of 8) and
+// r < NB, rows r >= B zero; every thread of the block takes part, 16 bytes
+// of ys at a time. x, ys and the strides 16-byte aligned.
+template <typename T>
+__device__ __forceinline__ void stage_rows_bf16(const T* __restrict__ x, int ldx, int B,
+                                                int NB, int n, __nv_bfloat16* ys, int yld) {
+  const int per_row = n / 8;
+  for (int i = threadIdx.x; i < NB * per_row; i += blockDim.x) {
+    const int r = i / per_row, c = 8 * (i - r * per_row);
+    const uint4 v = r < B ? bf16x8(x + (size_t)r * ldx + c) : make_uint4(0, 0, 0, 0);
+    *reinterpret_cast<uint4*>(ys + (size_t)r * yld + c) = v;
+  }
+}
+
 inline unsigned blocks_for(int n) { return (unsigned)((n + WARPS - 1) / WARPS); }
 
-// Launch Kernel<<<grid, THREADS, smem, st>>>(args...), first letting it
-// take up to SMEM_MAX of dynamic shared memory. The attribute belongs to the
-// current device, so it is set once per kernel and device, on the kernel's
-// first launch there (devices past MAX_DEVICES set it on every launch).
+// Kernel<<<grid, THREADS, smem, st>>>(args...) through cudaLaunchKernelEx:
+// consecutive blocks in clusters of `cluster` (1: no cluster), and with
+// `pdl` the launch may begin while the previous kernel on the stream runs
+// (programmatic dependent launch; the kernel calls griddep_wait before it
+// reads what that kernel wrote). The kernel may first take up to SMEM_MAX
+// of dynamic shared memory: the attribute belongs to the current device, so
+// it is set once per kernel and device, on the kernel's first launch there
+// (devices past MAX_DEVICES set it on every launch).
 constexpr int MAX_DEVICES = 64;
 
 template <auto Kernel, typename... Args>
-cudaError_t launch(unsigned grid, size_t smem, cudaStream_t st, Args... args) {
+cudaError_t launch_ex(unsigned grid, size_t smem, unsigned cluster, bool pdl, cudaStream_t st,
+                      Args... args) {
   static bool opted_in[MAX_DEVICES] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -174,8 +283,36 @@ cudaError_t launch(unsigned grid, size_t smem, cudaStream_t st, Args... args) {
     if (err != cudaSuccess) return err;
     if (dev < MAX_DEVICES) opted_in[dev] = true;
   }
-  Kernel<<<grid, THREADS, smem, st>>>(args...);
+  cudaLaunchAttribute attr[2];
+  unsigned n = 0;
+  if (cluster > 1) {
+    attr[n].id = cudaLaunchAttributeClusterDimension;
+    attr[n].val.clusterDim.x = cluster;
+    attr[n].val.clusterDim.y = 1;
+    attr[n].val.clusterDim.z = 1;
+    ++n;
+  }
+  if (pdl) {
+    attr[n].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[n].val.programmaticStreamSerializationAllowed = 1;
+    ++n;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = n;
+  err = cudaLaunchKernelEx(&cfg, Kernel, args...);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// The same with no cluster and no dependent launch.
+template <auto Kernel, typename... Args>
+cudaError_t launch(unsigned grid, size_t smem, cudaStream_t st, Args... args) {
+  return launch_ex<Kernel>(grid, smem, 1, false, st, args...);
 }
 
 // The smallest row instance that holds B rows (the wrappers check B <= 16).

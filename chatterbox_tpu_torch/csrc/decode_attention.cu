@@ -247,17 +247,6 @@ template <int D> struct SplitState {
   float m, l, acc[D];
 };
 
-// the cluster barrier in two halves (all threads of every block take part)
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_arrive_release() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
 // grid (S, H, B), cluster (S, 1, 1); block WARPS warps. q, out (B, H, D);
 // k, v (B, H, T, D) bf16; cur_len (B,); lo (B,) or null.
 template <int D, typename QT>

@@ -31,8 +31,9 @@
 //
 // Weights are stored OUT-MAJOR, (N, K) with K contiguous: the converter
 // transposes the JAX (K, N) layout once. B1 and B5 share a tensor-core
-// kernel with its own note (norm_qkv_tc_kernel below). The design of B2, B6
-// and B11 (simple and right first; no TMA / wgmma / split-K yet):
+// kernel, and B6's three phases another, each with its own note
+// (norm_qkv_tc_kernel, tc_int8_kernel below). The design of B2 and B11
+// (simple and right first; no TMA or tensor cores yet):
 //   * One warp owns one output column and streams its K int8 weights with
 //     16-byte loads: a warp reads 512 contiguous bytes per iteration, and
 //     every warp of the grid is resident at once, so all weight loads are in
@@ -43,22 +44,21 @@
 //     per call whatever B is.
 //   * The TPU kernels compute the norm once at grid step 0 and keep it in
 //     VMEM scratch, relying on the sequential grid. Blocks on Hopper run in
-//     no order, so every block recomputes the LayerNorm / RMSNorm of its
-//     input rows into shared memory (up to 16 x 1024 floats, 64 KB, above
-//     the 48 KB default: each kernel opts in to Hopper's 227 KB once). One
-//     template serves both norms.
-//   * Each second half (B2, B6) has two dependencies across the whole width
-//     (attn-out and the norm before the MLP; all hidden units before the
-//     down projection), so each is three launches on one stream: attn-out +
-//     residual, norm + up-projection(s) + activation, down-projection +
-//     residual, with r (f32) and h (bf16: its values are bf16-rounded, so
-//     16 rows of 4096 fit shared memory) in small global scratch buffers.
+//     no order, so every block recomputes the LayerNorm of its input rows
+//     into shared memory (up to 16 x 1024 floats, 64 KB, above the 48 KB
+//     default: each kernel opts in to Hopper's 227 KB once).
+// Each second half (B2, B6) has two dependencies across the whole width
+// (attn-out and the norm before the MLP; all hidden units before the down
+// projection), so each is three launches on one stream: attn-out +
+// residual, norm + up-projection(s) + activation, down-projection +
+// residual, with r (f32) and h (bf16: its values are bf16-rounded) in small
+// global scratch buffers.
 // Numerics mirror the Pallas kernels: norms in f32, the vector rounded to
-// bf16 before each product, int8 -> float exact, f32 accumulation, scale
+// bf16 before each product, int8 -> bf16 exact, f32 accumulation, scale
 // (and bias) applied after the K sum. B6 applies sd to each tw-wide hidden
-// tile's partial sum and accumulates the tiles in order onto r, as the
-// Pallas grid does; B2 runs its fc_out as one tile (s2 on the full sum,
-// equal to the Pallas per-tile form up to f32 rounding).
+// tile's sum and accumulates the tiles in order onto r, as the Pallas grid
+// does; B2 runs its fc_out as one tile (s2 on the full sum, equal to the
+// Pallas per-tile form up to f32 rounding).
 
 #include "common.cuh"
 
@@ -108,8 +108,6 @@ __device__ __forceinline__ void warp_dot_i8(const int8_t* __restrict__ w, const 
   for (int r = 0; r < NB; ++r) acc[r] = warp_sum(acc[r]);
 }
 
-__device__ __forceinline__ float silu(float x) { return x * (1.0f / (1.0f + expf(-x))); }
-
 // ---------------------------------------------------------------------------
 // B1 / B5 on the tensor cores: out = (bf16(norm(x)) @ W) * s (+ bias for
 // the LayerNorm form). Bound: the int8 weight bytes (3.15 MB at D = 1024,
@@ -151,50 +149,6 @@ __device__ __forceinline__ float silu(float x) { return x * (1.0f / (1.0f + expf
 // slab is not (one copy), and its 16-byte loads conflict two ways.
 constexpr int QKV_COLS = 32;
 constexpr int QKV_YPAD = 8;        // bf16 elements
-
-// four int8 in w -> bf16 pairs (bytes 0, 1) and (bytes 2, 3), the lower
-// index in the lower half
-__device__ __forceinline__ void i8x4_to_bf16x2(uint32_t w, uint32_t& p01, uint32_t& p23) {
-  const auto byte = [w](int i) {
-    return (float)(static_cast<int32_t>(w << (24 - 8 * i)) >> 24);
-  };
-  __nv_bfloat162 a = __floats2bfloat162_rn(byte(0), byte(1));
-  __nv_bfloat162 b = __floats2bfloat162_rn(byte(2), byte(3));
-  p01 = *reinterpret_cast<uint32_t*>(&a);
-  p23 = *reinterpret_cast<uint32_t*>(&b);
-}
-
-// c (16 x 8, f32) += a (16 x 16, bf16, row) @ b (16 x 8, bf16, col)
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4], uint32_t b0,
-                                               uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 8 consecutive entries (16-byte aligned) as float
-__device__ __forceinline__ void to_f32x8(const uint4& u, float v[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 f = __bfloat1622float2(h[j]);
-    v[2 * j] = f.x;
-    v[2 * j + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* x, float v[8]) {
-  to_f32x8(*reinterpret_cast<const uint4*>(x), v);
-}
-
-__device__ __forceinline__ void load8(const float* x, float v[8]) {
-  const float4* p = reinterpret_cast<const float4*>(x);
-  const float4 a = p[0], b = p[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
 
 // Shared memory of one block: two barriers, g (and b), the weight slab,
 // NB norm rows, and the eight warps' partial sums.
@@ -372,8 +326,303 @@ norm_qkv_tc_kernel(const T* __restrict__ x, const float* __restrict__ g,
   }
 }
 
-// B2 / B6 phase 1: r = xres + (bf16(a) @ Wo) * so (+ bo when given);
-// grid = ceil(D / WARPS).
+// ---------------------------------------------------------------------------
+// B6 on the tensor cores, in three launches (tc_int8_kernel, one template
+// for the three phases; B2 / B11 can take them by their launch functions):
+//   TC_ATTN_OUT  r = res + (bf16(x) @ W) * s (+ bias)
+//   TC_GLU       y = bf16(RMSNorm(x) * g);
+//                h = bf16(silu((y @ Wg) * sg) * ((y @ Wu) * su))
+//   TC_DOWN      out = res (+ bias) + sum over tw-wide tiles t of
+//                (x_t @ W_t) * s, the tiles added in order
+// Bound: the int8 weight bytes, 13.6 MB at D = 1024, I = 4096 (4.07 us at
+// 3.35 TB/s), at every row count 1-16.
+//
+// The first design (one warp per output column, rows on the CUDA cores, the
+// rows staged or normalised before any weight load) took 31.48 us at 2 rows
+// and 87.02 us at 8 (NVIDIA H100 80GB HBM3, 700 W power limit;
+// chip_smoke.py phase 3). This design is B1 / B5's:
+//   * A block owns COLS output columns (TC_GLU: COLS / 2 hidden units, their
+//     gate and up rows) and 1 / KS of the contraction. At entry one thread
+//     starts the bulk copies (TMA) of its weight slab onto an mbarrier: one
+//     copy when KS = 1 (out-major columns are contiguous; two for the gate
+//     and up halves), else one per column. Then the rows are staged as bf16
+//     (or normalised, TC_GLU, one warp per row) while the slab streams.
+//   * The rows go through mma.sync m16n8k16 (bf16, f32 sums), 16 weight
+//     columns as A (int8 -> bf16 in registers, exact), 8 rows as B (two
+//     tiles for 9-16 rows), with B1 / B5's permutation of k on both.
+//   * The contraction is cut in NT tiles: TC_DOWN's tw-wide hidden tiles,
+//     else one per block. A block sums its NT / KS tiles one after another;
+//     the warps split a tile into contiguous runs of 64-wide chunks, and
+//     their partial sums meet in shared memory in warp order, giving the
+//     tile's sum. With KS > 1 the KS blocks of a column slab form a cluster,
+//     and each block writes its tiles' sums into rank 0's shared memory
+//     (between the two halves of the cluster barrier, as B3 does); rank 0
+//     applies the epilogue over the tiles in order: TC_ATTN_OUT sums them
+//     before the scale, TC_DOWN adds each tile's scaled sum onto res in turn
+//     (the Pallas grid's order).
+//   * TC_GLU and TC_DOWN call griddep_wait after their copies have started
+//     and before they read the previous phase's output, so with programmatic
+//     dependent launch each phase's weight stream overlaps the tail of the
+//     phase before.
+enum TcMode : int { TC_ATTN_OUT = 0, TC_GLU = 1, TC_DOWN = 2 };
+constexpr int TC_PAD = 8;          // bf16 entries after each staged row
+
+struct TcArgs {
+  const void* x;        // rows: TC_ATTN_OUT type T, TC_GLU f32, TC_DOWN bf16 (B, K)
+  const void* res;      // TC_ATTN_OUT: type T; TC_DOWN: f32 (B, N)
+  const int8_t* w;      // out-major (N, K); TC_GLU: the gate rows
+  const int8_t* w2;     // TC_GLU: the up rows
+  const float* s;       // per-column scales of w
+  const float* s2;      // TC_GLU: of w2
+  const float* g;       // TC_GLU: the norm weight (K,)
+  const float* bias;    // TC_ATTN_OUT: after the scale; TC_DOWN: onto res; or null
+  void* out;            // TC_ATTN_OUT, TC_DOWN: (B, N) f32; TC_GLU: h (B, N) bf16
+  int B, K, N, tw;      // tw: TC_DOWN's tile (K otherwise)
+  float eps;
+};
+
+// Shared memory of one block: the barrier, the slab, NB staged rows, the
+// warps' partial sums and the NT tile sums.
+__host__ __device__ constexpr size_t tc_smem(int NB, int cols, int KS, int K, int NT) {
+  return 16 + (size_t)cols * (K / KS) + (size_t)NB * (K / KS + TC_PAD) * 2
+         + (size_t)(WARPS + NT) * NB * cols * 4;
+}
+
+__device__ __forceinline__ float silu(float x) { return x * (1.0f / (1.0f + expf(-x))); }
+
+// grid = N / UNITS * KS in clusters of KS consecutive blocks; NB = 8 or 16
+// rows; the tiles (K / NT wide) a multiple of 64, NT a multiple of KS, and
+// K a multiple of 256 for TC_GLU (tc_phase checks them).
+template <int MODE, typename T, int NB, int COLS, int KS>
+__global__ void __launch_bounds__(THREADS) tc_int8_kernel(const TcArgs p) {
+  static_assert(MODE != TC_GLU || KS == 1, "the norm needs the whole row");
+  constexpr int RT = NB / 8, MT = COLS / 16;
+  constexpr int UNITS = MODE == TC_GLU ? COLS / 2 : COLS;     // outputs per row
+  constexpr int EPT = (NB * UNITS + THREADS - 1) / THREADS;   // epilogue outputs a thread
+  extern __shared__ float4 smem4[];
+  const int B = p.B, K = p.K, kspan = K / KS;
+  const int NT = MODE == TC_DOWN ? K / p.tw : KS, TPB = NT / KS;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem4);
+  int8_t* ws = reinterpret_cast<int8_t*>(smem4 + 1);
+  __nv_bfloat16* ys = reinterpret_cast<__nv_bfloat16*>(ws + COLS * kspan);
+  const int yld = kspan + TC_PAD;
+  float* part = reinterpret_cast<float*>(ys + NB * yld);     // [warp][row][col]
+  float* sums = part + WARPS * NB * COLS;                     // [tile][row][col], rank 0's
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ks = blockIdx.x % KS, n0 = blockIdx.x / KS * UNITS, kb = ks * kspan;
+  if (warp == 0) {
+    if (lane == 0) {
+      mbar_init(bar, 1);
+      mbar_fence_init();
+      mbar_expect_tx(bar, COLS * kspan);
+    }
+    __syncwarp();
+    if (KS == 1) {
+      if (lane == 0 && MODE == TC_GLU) {
+        bulk_load(ws, p.w + (size_t)n0 * K, UNITS * K, bar);
+        bulk_load(ws + UNITS * K, p.w2 + (size_t)n0 * K, UNITS * K, bar);
+      } else if (lane == 0) {
+        bulk_load(ws, p.w + (size_t)n0 * K, COLS * K, bar);
+      }
+    } else {           // one copy a column, issued by the warp's lanes together
+      for (int c = lane; c < COLS; c += 32)
+        bulk_load(ws + c * kspan, p.w + (size_t)(n0 + c) * K + kb, kspan, bar);
+    }
+  }
+  griddep_launch_dependents();
+  griddep_wait();                  // the previous phase's output (rows, res) is written
+
+  // the epilogue's operands, loaded while the slab streams: output o = tid +
+  // e * THREADS is (row o / UNITS, column n0 + o % UNITS)
+  float sc[EPT], sc2[EPT], rv[EPT], bv[EPT];
+#pragma unroll
+  for (int e = 0; e < EPT; ++e) {
+    const int o = tid + e * THREADS, row = o / UNITS, n = n0 + o % UNITS;
+    const bool live = o < NB * UNITS && row < B;
+    sc[e] = live ? p.s[n] : 0.f;
+    sc2[e] = live && MODE == TC_GLU ? p.s2[n] : 0.f;
+    rv[e] = bv[e] = 0.f;
+    const size_t at = (size_t)row * p.N + n;
+    if (live && MODE == TC_ATTN_OUT) rv[e] = to_f32(static_cast<const T*>(p.res)[at]);
+    if (live && MODE == TC_DOWN) rv[e] = static_cast<const float*>(p.res)[at];
+    if (live && MODE != TC_GLU && p.bias) {
+      if (MODE == TC_DOWN) rv[e] = __fadd_rn(rv[e], p.bias[n]);
+      else bv[e] = p.bias[n];
+    }
+  }
+
+  if (MODE == TC_GLU) {
+    // RMSNorm rows: warp w takes rows w, w + WARPS; lane i entries 8i + 256j
+    const float* x = static_cast<const float*>(p.x);
+    for (int r = warp; r < NB; r += WARPS) {
+      __nv_bfloat16* yr = ys + r * yld;
+      if (r >= B) {
+        for (int i = lane * 8; i < K; i += 256)
+          *reinterpret_cast<uint4*>(yr + i) = make_uint4(0, 0, 0, 0);
+        continue;
+      }
+      const float* xr = x + (size_t)r * K;
+      float v[8], acc = 0.f;
+#pragma unroll 4
+      for (int i = lane * 8; i < K; i += 256) {
+        load8(xr + i, v);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc += v[j] * v[j];
+      }
+      const float rs = rsqrtf(warp_sum(acc) / K + p.eps);
+#pragma unroll 4
+      for (int i = lane * 8; i < K; i += 256) {
+        float gv[8];
+        load8(xr + i, v);
+        load8(p.g + i, gv);
+        __nv_bfloat162 y[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          y[j] = __floats2bfloat162_rn(__fmul_rn(__fmul_rn(v[2 * j], rs), gv[2 * j]),
+                                       __fmul_rn(__fmul_rn(v[2 * j + 1], rs), gv[2 * j + 1]));
+        *reinterpret_cast<uint4*>(yr + i) = *reinterpret_cast<uint4*>(y);
+      }
+    }
+  } else {
+    stage_rows_bf16(static_cast<const T*>(p.x) + kb, K, B, NB, kspan, ys, yld);
+  }
+  __syncthreads();                 // the barrier is initialised, the rows staged
+  if (KS > 1) cluster_arrive_relaxed();
+  mbar_wait(bar, 0);
+
+  const int gq = lane >> 2, tq = lane & 3;
+  const int tws = kspan / TPB, chunks = tws / 64, per_warp = (chunks + WARPS - 1) / WARPS;
+  const int c_lo = min(warp * per_warp, chunks), c_hi = min(c_lo + per_warp, chunks);
+  for (int tt = 0; tt < TPB; ++tt) {
+    float acc[MT][RT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[mt][rt][j] = 0.f;
+    for (int c = c_lo; c < c_hi; ++c) {
+      const int k0 = tt * tws + 64 * c;
+      uint4 xa[RT][2];
+#pragma unroll
+      for (int rt = 0; rt < RT; ++rt) {
+        const uint4* yrow =
+            reinterpret_cast<const uint4*>(ys + (8 * rt + gq) * yld + k0 + 16 * tq);
+        xa[rt][0] = yrow[0];
+        xa[rt][1] = yrow[1];
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int8_t* wc = ws + (16 * mt + gq) * kspan + k0 + 16 * tq;
+        const uint4 wlo = *reinterpret_cast<const uint4*>(wc);
+        const uint4 whi = *reinterpret_cast<const uint4*>(wc + 8 * kspan);
+        const uint32_t* lo = reinterpret_cast<const uint32_t*>(&wlo);
+        const uint32_t* hi = reinterpret_cast<const uint32_t*>(&whi);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uint32_t a[4];  // columns g and g + 8, k slots 2t, 2t+1 | 2t+8, 2t+9
+          i8x4_to_bf16x2(lo[j], a[0], a[2]);
+          i8x4_to_bf16x2(hi[j], a[1], a[3]);
+#pragma unroll
+          for (int rt = 0; rt < RT; ++rt) {
+            const uint32_t* xb = reinterpret_cast<const uint32_t*>(&xa[rt][0]);
+            mma_bf16_16816(acc[mt][rt], a, xb[2 * j], xb[2 * j + 1]);
+          }
+        }
+      }
+    }
+    // lane (g, t) holds columns 16 mt + g, + 8 of rows 8 rt + 2t, + 1
+    float* pw = part + warp * NB * COLS;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int rt = 0; rt < RT; ++rt) {
+        float* q = pw + (8 * rt + 2 * tq) * COLS + 16 * mt + gq;
+        q[0] = acc[mt][rt][0];
+        q[COLS] = acc[mt][rt][1];
+        q[8] = acc[mt][rt][2];
+        q[COLS + 8] = acc[mt][rt][3];
+      }
+    __syncthreads();
+    if (KS > 1 && tt == 0) cluster_wait();    // every block of the cluster runs
+    float* tile = sums + (ks * TPB + tt) * NB * COLS;
+    for (int o = tid; o < NB * COLS; o += THREADS) {
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) sum += part[w * NB * COLS + o];
+      if (KS == 1) tile[o] = sum;
+      else st_cluster(tile + o, 0, sum);
+    }
+    __syncthreads();                          // part is rewritten by the next tile
+  }
+  if (KS > 1) {
+    cluster_arrive_release();
+    if (ks != 0) return;
+    cluster_wait();                           // every block's tile sums are in
+  }
+
+#pragma unroll
+  for (int e = 0; e < EPT; ++e) {
+    const int o = tid + e * THREADS, row = o / UNITS, u = o % UNITS;
+    if (o >= NB * UNITS || row >= B) continue;
+    const size_t at = (size_t)row * p.N + n0 + u;
+    if (MODE == TC_GLU) {
+      const float ug = __fmul_rn(sums[row * COLS + u], sc[e]);
+      const float uu = __fmul_rn(sums[row * COLS + UNITS + u], sc2[e]);
+      static_cast<__nv_bfloat16*>(p.out)[at] =
+          __float2bfloat16(__fmul_rn(silu(ug), uu));
+    } else if (MODE == TC_ATTN_OUT) {
+      float sum = 0.f;
+      for (int t = 0; t < NT; ++t) sum += sums[t * NB * COLS + row * COLS + u];
+      float v = __fadd_rn(rv[e], __fmul_rn(sum, sc[e]));
+      if (p.bias) v = __fadd_rn(v, bv[e]);
+      static_cast<float*>(p.out)[at] = v;
+    } else {
+      float v = rv[e];
+      for (int t = 0; t < NT; ++t)
+        v = __fadd_rn(v, __fmul_rn(sums[t * NB * COLS + row * COLS + u], sc[e]));
+      static_cast<float*>(p.out)[at] = v;
+    }
+  }
+}
+
+template <int MODE, typename T, int NB, int COLS, int KS>
+cudaError_t tc_launch(const TcArgs& p, unsigned grid, bool pdl, cudaStream_t st) {
+  const int NT = MODE == TC_DOWN ? p.K / p.tw : KS;
+  const size_t smem = tc_smem(NB, COLS, KS, p.K, NT);
+  if (smem > SMEM_MAX) return cudaErrorInvalidValue;
+  return launch_ex<tc_int8_kernel<MODE, T, NB, COLS, KS>>(grid, smem, KS, pdl, st, p);
+}
+
+// One phase at KS blocks a column slab (1, 2 or 4; TC_GLU 1), after the
+// checks of the shapes the kernel takes.
+template <int MODE, typename T, int COLS>
+cudaError_t tc_phase(const TcArgs& p, int ks, bool pdl, cudaStream_t st) {
+  constexpr int UNITS = MODE == TC_GLU ? COLS / 2 : COLS;
+  const int NT = MODE == TC_DOWN ? p.K / p.tw : ks;
+  if (p.B < 1 || p.B > 16 || p.N % UNITS || ks < 1 || NT % ks || p.K % NT || (p.K / NT) % 64
+      || (MODE == TC_DOWN && p.K % p.tw) || (MODE == TC_GLU && (ks != 1 || p.K % 256)))
+    return cudaErrorInvalidValue;
+  const unsigned grid = p.N / UNITS * ks;
+  const bool two = p.B > 8;      // two 8-row MMA tiles
+  if (ks == 1)
+    return two ? tc_launch<MODE, T, 16, COLS, 1>(p, grid, pdl, st)
+               : tc_launch<MODE, T, 8, COLS, 1>(p, grid, pdl, st);
+  if constexpr (MODE != TC_GLU) {
+    if (ks == 2)
+      return two ? tc_launch<MODE, T, 16, COLS, 2>(p, grid, pdl, st)
+                 : tc_launch<MODE, T, 8, COLS, 2>(p, grid, pdl, st);
+    if (ks == 4)
+      return two ? tc_launch<MODE, T, 16, COLS, 4>(p, grid, pdl, st)
+                 : tc_launch<MODE, T, 8, COLS, 4>(p, grid, pdl, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+constexpr int TC_COLS = 16;        // output columns a block of TC_ATTN_OUT / TC_DOWN owns
+
+// B2 phase 1: r = xres + (bf16(a) @ Wo) * so + bo; grid = ceil(D / WARPS).
 template <typename T, int NB>
 __global__ void __launch_bounds__(THREADS)
 attn_out_kernel(const T* __restrict__ a, const T* __restrict__ xres,
@@ -421,35 +670,9 @@ ln_fc_in_kernel(const T* __restrict__ r, const float* __restrict__ g2,
   }
 }
 
-// B6 phase 2: y = bf16(RMSNorm(r) * g2);
-// h = bf16(silu((y @ Wg) * sg) * ((y @ Wu) * su)); grid = ceil(I / WARPS),
-// one hidden unit (its gate and up rows) per warp.
-template <int NB>
-__global__ void __launch_bounds__(THREADS)
-rms_glu_kernel(const float* __restrict__ r, const float* __restrict__ g2,
-               const int8_t* __restrict__ wg_t, const float* __restrict__ sg,
-               const int8_t* __restrict__ wu_t, const float* __restrict__ su,
-               __nv_bfloat16* __restrict__ h, int B, int D, int I, float eps) {
-  extern __shared__ float4 smem4[];
-  float* ys = reinterpret_cast<float*>(smem4);
-  float* red = ys + (size_t)B * D;
-  norm_bf16<float, true>(r, g2, nullptr, B, D, eps, ys, red);
-  const int j = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (j >= I) return;
-  float ag[NB], au[NB];
-  warp_dot_i8<NB>(wg_t + (size_t)j * D, ys, D, D, B, ag);
-  warp_dot_i8<NB>(wu_t + (size_t)j * D, ys, D, D, B, au);
-  if ((threadIdx.x & 31) == 0) {
-#pragma unroll
-    for (int rr = 0; rr < NB; ++rr)
-      if (rr < B)
-        h[(size_t)rr * I + j] = __float2bfloat16(silu(ag[rr] * sg[j]) * (au[rr] * su[j]));
-  }
-}
-
-// B2 / B6 / B11 phase 3: out = (r + b2) + sum over tw-wide tiles t of
-// (h_t @ W2_t) * s2, tiles added in order (b2 may be absent); r and out of
-// type T (f32 for B2 / B6, x's type for B11); grid = ceil(D / WARPS).
+// B2 / B11 phase 3: out = (r + b2) + sum over tw-wide tiles t of
+// (h_t @ W2_t) * s2, tiles added in order; r and out of type T (f32 for
+// B2, x's type for B11); grid = ceil(D / WARPS).
 template <typename T, int NB>
 __global__ void __launch_bounds__(THREADS)
 down_kernel(const __nv_bfloat16* __restrict__ h, const T* __restrict__ r,
@@ -590,21 +813,32 @@ int attnout_ln_mlp_int8_launch(const void* a, const void* xres, int in_bf16,
   return (int)launch_down<float>(h_buf, r_buf, w2_t, s2, b2, out, B, D, I, I, st);
 }
 
+// B6: the three tensor-core phases. ks_attn, ks_down: blocks a column slab
+// of attn-out and down (1, 2 or 4); glu_units: hidden units a TC_GLU block
+// owns (16 or 32); pdl: the second and third phases by programmatic
+// dependent launch.
 int attnout_rms_glu_int8_launch(const void* a, const void* xres, int in_bf16,
                                 const int8_t* wo_t, const float* so, const float* g2,
                                 const int8_t* wg_t, const float* sg,
                                 const int8_t* wu_t, const float* su,
                                 const int8_t* wd_t, const float* sd,
                                 float* r_buf, __nv_bfloat16* h_buf, float* out,
-                                int B, int D, int I, int tw, float eps, void* stream) {
+                                int B, int D, int I, int tw, float eps, int ks_attn,
+                                int glu_units, int ks_down, int pdl, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = launch_attn_out(a, xres, in_bf16, wo_t, so, nullptr, r_buf, B, D, st);
+  const TcArgs p1 = {a, xres, wo_t, nullptr, so, nullptr, nullptr, nullptr, r_buf,
+                     B, D, D, D, eps};
+  cudaError_t err = in_bf16 ? tc_phase<TC_ATTN_OUT, __nv_bfloat16, TC_COLS>(p1, ks_attn, false, st)
+                            : tc_phase<TC_ATTN_OUT, float, TC_COLS>(p1, ks_attn, false, st);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem_ln = ((size_t)B * D + WARPS) * sizeof(float);
-  DISPATCH_ROWS(B, err = launch<rms_glu_kernel<NB>>(blocks_for(I), smem_ln, st, r_buf, g2,
-                                wg_t, sg, wu_t, su, h_buf, B, D, I, eps));
+  const TcArgs p2 = {r_buf, nullptr, wg_t, wu_t, sg, su, g2, nullptr, h_buf, B, D, I, D, eps};
+  err = glu_units == 32   ? tc_phase<TC_GLU, float, 64>(p2, 1, pdl != 0, st)
+        : glu_units == 16 ? tc_phase<TC_GLU, float, 32>(p2, 1, pdl != 0, st)
+                          : cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_down<float>(h_buf, r_buf, wd_t, sd, nullptr, out, B, D, I, tw, st);
+  const TcArgs p3 = {h_buf, r_buf, wd_t, nullptr, sd, nullptr, nullptr, nullptr, out,
+                     B, I, D, tw, eps};
+  return (int)tc_phase<TC_DOWN, __nv_bfloat16, TC_COLS>(p3, ks_down, pdl != 0, st);
 }
 
 int fused_mlp_int8_launch(const void* x, int x_bf16, const float* g, const float* b,

@@ -26,7 +26,9 @@
 // (1.46 us); a Llama-520M layer's seven B8 calls 8.39 + 0.26 MB (2.58 us).
 // Half of what the int8 kernels B1, B2, B5 and B6 read for the same layer.
 //
-// Design (B1 / B2's, simple and right first; no TMA / wgmma / split-K):
+// B8 runs a tensor-core kernel with its own note (matmul_int4_tc_kernel
+// below). The design of B9 and B10 (B1 / B2's first one, simple and right
+// first; no TMA, no tensor cores):
 //   * Packed weights and scales are stored OUT-MAJOR: (N, K/2) bytes and
 //     (N, G) scales for the row split, (N/2, K) and (N/2, G) for the column
 //     split. One warp owns one output column (B10's phase 2: one packed
@@ -35,11 +37,10 @@
 //   * 16 packed bytes are 16 rows of one 256-row group, so a lane scales
 //     its partial sums per load; the high nibble comes from the signed byte
 //     by an arithmetic shift, the low one as ((b & 15) ^ 8) - 8.
-//   * B8 stages x as bf16 in shared memory (8 rows of K = 4096: 64 KB); B9
-//     and B10's phase 2 recompute the LayerNorm rows in every block, as B1
-//     does; B10 is three launches on one stream, as B2 is: attn-out +
-//     residual, LN2 + fc_in + gelu, fc_out + residual, with r (f32) and h
-//     (bf16) in global scratch.
+//   * B9 and B10's phase 2 recompute the LayerNorm rows in every block, as
+//     B1's first design did; B10 is three launches on one stream, as B2 is:
+//     attn-out + residual, LN2 + fc_in + gelu, fc_out + residual, with r
+//     (f32) and h (bf16) in global scratch.
 
 #include "common.cuh"
 
@@ -116,30 +117,6 @@ __device__ __forceinline__ void warp_dot_i4c(const int8_t* __restrict__ wc,
   for (int r = 0; r < NB; ++r) {
     a[r] = warp_sum(a[r]);
     b[r] = warp_sum(b[r]);
-  }
-}
-
-// B8: x (B, 2 * K2) -> out (B, N) f32; grid = ceil(N / WARPS).
-template <typename T, int NB>
-__global__ void __launch_bounds__(THREADS)
-matmul_int4_kernel(const T* __restrict__ x, const int8_t* __restrict__ wp_t,
-                   const float* __restrict__ slo_t, const float* __restrict__ shi_t,
-                   float* __restrict__ out, int B, int K2, int N) {
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem4);
-  const int K = 2 * K2;
-  for (int i = threadIdx.x; i < B * K; i += blockDim.x) xs[i] = __float2bfloat16(to_f32(x[i]));
-  __syncthreads();
-  const int n = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (n >= N) return;
-  const int G = K2 / GROUP;
-  float acc[NB];
-  warp_dot_i4<NB>(wp_t + (size_t)n * K2, slo_t + (size_t)n * G, shi_t + (size_t)n * G, xs, K2,
-                  K, B, acc);
-  if ((threadIdx.x & 31) == 0) {
-#pragma unroll
-    for (int r = 0; r < NB; ++r)
-      if (r < B) out[(size_t)r * N + n] = acc[r];
   }
 }
 
@@ -253,30 +230,249 @@ down_int4_kernel(const __nv_bfloat16* __restrict__ h, const float* __restrict__ 
   }
 }
 
+// ---------------------------------------------------------------------------
+// B8 on the tensor cores. Bound: the packed bytes and scales, 1.05 MB at
+// K = 4096, N = 1024 (0.31 us at 3.35 TB/s), at every row count 1-8.
+//
+// The first design (one warp per output column, x staged as bf16 by every
+// block before its first weight load, one nibble at a time into floats and B
+// FMAs a nibble) took 7.62 us a call at 2 rows and 21.82 us at 8 (NVIDIA
+// H100 80GB HBM3, 700 W power limit; chip_smoke.py phase 3). This design is
+// B1 / B5's:
+//   * A block owns COLS output columns and 1 / KS of the packed rows. At
+//     entry one thread starts the bulk copies (TMA) of its packed slab (one
+//     copy when KS = 1: out-major columns are contiguous; else one a column)
+//     and of the columns' lo and hi scales, on two mbarriers. While they fly
+//     the block stages x's two halves as bf16 (16-byte loads, f32 rounded).
+//   * Nibbles become bf16 in registers, two at a time, exactly: the nibble
+//     XOR 8 is put in the mantissa of 128 (0x4300) and 136 is taken off.
+//   * mma.sync m16n8k16 (bf16, f32 sums): 16 columns as A, the 8 rows as B,
+//     so 1 and 8 rows cost the same; B1 / B5's permutation of k serves both
+//     operands (lane (g, t) reads 16 packed bytes of a column, i.e. 16 low
+//     and 16 high nibbles, and the matching 16 bf16 of each half of x).
+//   * The warps split the block's packed rows into contiguous runs of
+//     64-row chunks. The low and high halves' MMAs accumulate in fresh
+//     fragments for as long as the chunks stay in one 256-row group; each
+//     takes its group's scale (s_lo, s_hi) once before it joins the warp's
+//     running sum, the Pallas order of operations. The warps' sums meet in
+//     shared memory in warp order; with KS > 1 the KS blocks of a column
+//     slab form a cluster, each writes its sum into rank 0's shared memory
+//     (as B3 does), and rank 0 adds them in order.
+//   * The result is written in the type the caller names (f32, the Pallas
+//     contract, or bf16: nn.linear's cast done in the kernel).
+// COLS and KS come from the wrapper (int4_tiling, from chip_smoke.py's
+// sweep on the card).
+constexpr int I4_PAD = 8;          // bf16 entries after each staged row
+
+// The eight nibbles of four packed bytes as bf16 pairs: lo01 / lo23 the low
+// nibbles of bytes 0, 1 and 2, 3 (the lower byte in the lower half), hi01 /
+// hi23 the high ones; each value ((n & 15) ^ 8) - 8, exact.
+__device__ __forceinline__ void nibbles_to_bf16(uint32_t w, uint32_t& lo01, uint32_t& lo23,
+                                                uint32_t& hi01, uint32_t& hi23) {
+  const uint32_t b01 = __byte_perm(w, 0, 0x4140);   // byte 0 | byte 1 << 16
+  const uint32_t b23 = __byte_perm(w, 0, 0x4342);
+  const __nv_bfloat162 off = __floats2bfloat162_rn(136.f, 136.f);
+  const auto cvt = [off](uint32_t v) {
+    const uint32_t u = (v & 0x000F000Fu) ^ 0x43084308u;     // 128 + (n ^ 8)
+    const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&u), off);
+    return *reinterpret_cast<const uint32_t*>(&r);
+  };
+  lo01 = cvt(b01);
+  lo23 = cvt(b23);
+  hi01 = cvt(b01 >> 4);
+  hi23 = cvt(b23 >> 4);
+}
+
+// Shared memory of one B8 block: two barriers, the scales, the slab, 8
+// staged rows of both halves, the warps' partial sums and the KS sums.
+__host__ __device__ constexpr size_t int4_tc_smem(int cols, int ks, int K2) {
+  return 16 + (size_t)2 * cols * (K2 / GROUP) * 4 + (size_t)cols * (K2 / ks)
+         + (size_t)8 * (2 * (K2 / ks) + I4_PAD) * 2 + (size_t)(WARPS + ks) * 8 * cols * 4;
+}
+
+// grid = N / COLS * KS in clusters of KS consecutive blocks; B <= 8;
+// K2 / KS a multiple of 64.
+template <typename T, typename OUT, int COLS, int KS>
+__global__ void __launch_bounds__(THREADS)
+matmul_int4_tc_kernel(const T* __restrict__ x, const int8_t* __restrict__ wp_t,
+                      const float* __restrict__ slo_t, const float* __restrict__ shi_t,
+                      OUT* __restrict__ out, int B, int K2, int N) {
+  constexpr int NB = 8, MT = COLS / 16;
+  extern __shared__ float4 smem4[];
+  const int kspan = K2 / KS, G = K2 / GROUP, K = 2 * K2;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem4);        // [0] scales, [1] slab
+  float* scl = reinterpret_cast<float*>(smem4 + 1);            // [col][group]
+  float* sch = scl + COLS * G;
+  int8_t* ws = reinterpret_cast<int8_t*>(sch + COLS * G);
+  __nv_bfloat16* ys = reinterpret_cast<__nv_bfloat16*>(ws + COLS * kspan);
+  const int yld = 2 * kspan + I4_PAD;                         // low half, then high
+  float* part = reinterpret_cast<float*>(ys + NB * yld);      // [warp][row][col]
+  float* sums = part + WARPS * NB * COLS;                      // [rank][row][col], rank 0's
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ks = blockIdx.x % KS, n0 = blockIdx.x / KS * COLS, kb = ks * kspan;
+  if (warp == 0) {
+    if (lane == 0) {
+      mbar_init(&bars[0], 1);
+      mbar_init(&bars[1], 1);
+      mbar_fence_init();
+      mbar_expect_tx(&bars[1], COLS * kspan);
+      mbar_expect_tx(&bars[0], 2 * COLS * G * 4);
+      bulk_load(scl, slo_t + (size_t)n0 * G, COLS * G * 4, &bars[0]);
+      bulk_load(sch, shi_t + (size_t)n0 * G, COLS * G * 4, &bars[0]);
+    }
+    __syncwarp();
+    if (KS == 1) {
+      if (lane == 0) bulk_load(ws, wp_t + (size_t)n0 * K2, COLS * K2, &bars[1]);
+    } else {           // one copy a column, issued by the warp's lanes together
+      for (int c = lane; c < COLS; c += 32)
+        bulk_load(ws + c * kspan, wp_t + (size_t)(n0 + c) * K2 + kb, kspan, &bars[1]);
+    }
+  }
+  stage_rows_bf16(x + kb, K, B, NB, kspan, ys, yld);
+  stage_rows_bf16(x + K2 + kb, K, B, NB, kspan, ys + kspan, yld);
+  __syncthreads();                 // the barriers are initialised, x staged
+  if (KS > 1) cluster_arrive_relaxed();
+  mbar_wait(&bars[0], 0);
+  mbar_wait(&bars[1], 0);
+
+  const int gq = lane >> 2, tq = lane & 3;
+  const int chunks = kspan / 64, per_warp = (chunks + WARPS - 1) / WARPS;
+  const int c_lo = min(warp * per_warp, chunks), c_hi = min(c_lo + per_warp, chunks);
+  float run[MT][4], alo[MT][4], ahi[MT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) run[mt][i] = alo[mt][i] = ahi[mt][i] = 0.f;
+  // the group's sums, scaled, onto the running sum; fragment entry i holds
+  // column 16 mt + g (+ 8 for i >= 2)
+  const auto fold = [&](int grp) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = 16 * mt + gq + (i >= 2 ? 8 : 0);
+        run[mt][i] = __fadd_rn(run[mt][i], __fadd_rn(__fmul_rn(alo[mt][i], scl[col * G + grp]),
+                                                     __fmul_rn(ahi[mt][i], sch[col * G + grp])));
+        alo[mt][i] = ahi[mt][i] = 0.f;
+      }
+  };
+  int grp = c_lo < c_hi ? (kb + 64 * c_lo) / GROUP : 0;
+  for (int c = c_lo; c < c_hi; ++c) {
+    const int k0 = 64 * c;
+    if ((kb + k0) / GROUP != grp) {
+      fold(grp);
+      grp = (kb + k0) / GROUP;
+    }
+    const __nv_bfloat16* xr = ys + gq * yld + k0 + 16 * tq;
+    const uint4 xl[2] = {reinterpret_cast<const uint4*>(xr)[0],
+                         reinterpret_cast<const uint4*>(xr)[1]};
+    const uint4 xh[2] = {reinterpret_cast<const uint4*>(xr + kspan)[0],
+                         reinterpret_cast<const uint4*>(xr + kspan)[1]};
+    const uint32_t* xlb = reinterpret_cast<const uint32_t*>(xl);
+    const uint32_t* xhb = reinterpret_cast<const uint32_t*>(xh);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int8_t* wc = ws + (16 * mt + gq) * kspan + k0 + 16 * tq;
+      const uint4 w0 = *reinterpret_cast<const uint4*>(wc);              // column g
+      const uint4 w1 = *reinterpret_cast<const uint4*>(wc + 8 * kspan);  // column g + 8
+      const uint32_t* p0 = reinterpret_cast<const uint32_t*>(&w0);
+      const uint32_t* p1 = reinterpret_cast<const uint32_t*>(&w1);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t al[4], ah[4];   // columns g and g + 8, k slots 2t, 2t+1 | 2t+8, 2t+9
+        nibbles_to_bf16(p0[j], al[0], al[2], ah[0], ah[2]);
+        nibbles_to_bf16(p1[j], al[1], al[3], ah[1], ah[3]);
+        mma_bf16_16816(alo[mt], al, xlb[2 * j], xlb[2 * j + 1]);
+        mma_bf16_16816(ahi[mt], ah, xhb[2 * j], xhb[2 * j + 1]);
+      }
+    }
+  }
+  if (c_lo < c_hi) fold(grp);
+
+  // lane (g, t) holds columns 16 mt + g, + 8 of rows 2t, 2t + 1
+  float* pw = part + warp * NB * COLS;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    float* q = pw + 2 * tq * COLS + 16 * mt + gq;
+    q[0] = run[mt][0];
+    q[COLS] = run[mt][1];
+    q[8] = run[mt][2];
+    q[COLS + 8] = run[mt][3];
+  }
+  __syncthreads();
+  if (KS > 1) cluster_wait();      // every block of the cluster runs
+  for (int o = tid; o < NB * COLS; o += THREADS) {
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) sum += part[w * NB * COLS + o];
+    if (KS > 1) st_cluster(sums + ks * NB * COLS + o, 0, sum);
+    else if (o / COLS < B) store(out + (size_t)(o / COLS) * N + n0 + o % COLS, sum);
+  }
+  if (KS == 1) return;
+  cluster_arrive_release();
+  if (ks != 0) return;
+  cluster_wait();                  // every block's sum is in
+  for (int o = tid; o < B * COLS; o += THREADS) {
+    float sum = 0.f;
+#pragma unroll
+    for (int r = 0; r < KS; ++r) sum += sums[r * NB * COLS + o];
+    store(out + (size_t)(o / COLS) * N + n0 + o % COLS, sum);
+  }
+}
+
+template <typename T, typename OUT, int COLS, int KS>
+cudaError_t int4_tc_launch(const void* x, const int8_t* wp_t, const float* slo_t,
+                           const float* shi_t, void* out, int B, int K2, int N,
+                           cudaStream_t st) {
+  const size_t smem = int4_tc_smem(COLS, KS, K2);
+  if (smem > SMEM_MAX) return cudaErrorInvalidValue;
+  return launch_ex<matmul_int4_tc_kernel<T, OUT, COLS, KS>>(
+      N / COLS * KS, smem, KS, false, st, (const T*)x, wp_t, slo_t, shi_t, (OUT*)out, B, K2, N);
+}
+
+template <typename T, typename OUT>
+cudaError_t int4_tc_dispatch(const void* x, const int8_t* wp_t, const float* slo_t,
+                             const float* shi_t, void* out, int B, int K2, int N, int cols,
+                             int ks, cudaStream_t st) {
+#define I4_TC(C, S)                                                                       \
+  if (cols == C && ks == S)                                                              \
+    return int4_tc_launch<T, OUT, C, S>(x, wp_t, slo_t, shi_t, out, B, K2, N, st)
+  I4_TC(16, 1); I4_TC(16, 2); I4_TC(16, 4);
+  I4_TC(32, 1); I4_TC(32, 2); I4_TC(32, 4);
+#undef I4_TC
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // The wrappers (kernels/int4_matmul.py, kernels/fused_layer.py) check
 // shapes, types, out-major contiguity, 16-byte alignment, the row counts
 // (B8: 1-8; B9, B10: 1-16), that every packed half is a whole number of
-// 256-row groups, and that each launch's shared memory fits the 227 KB a
-// block may opt in to. h_buf is (B, I) bf16 scratch, r_buf (B, D) f32. Each
+// 256-row groups (B8: of 64 rows a block of a cluster), and that each
+// launch's shared memory fits the 227 KB a block may opt in to. h_buf is (B, I) bf16 scratch, r_buf (B, D) f32. Each
 // function returns the first CUDA error of its launches (0 on success).
 extern "C" {
 
+// B8 of B <= 8 rows: out (B, N) f32 (out_bf16 = 0) or bf16; cols (16 or
+// 32) output columns and ks (1, 2 or 4) blocks a column slab.
 int matmul_int4_launch(const void* x, int x_bf16, const int8_t* wp_t, const float* slo_t,
-                       const float* shi_t, float* out, int B, int K2, int N, void* stream) {
+                       const float* shi_t, void* out, int out_bf16, int B, int K2, int N,
+                       int cols, int ks, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = (size_t)B * 2 * K2 * sizeof(__nv_bfloat16);
-  cudaError_t err = cudaSuccess;
+  if (B < 1 || B > 8 || ks < 1 || cols < 1 || N % cols || K2 % GROUP || (K2 / ks) % 64
+      || K2 % ks)
+    return (int)cudaErrorInvalidValue;
+  using bf16 = __nv_bfloat16;
   if (x_bf16)
-    DISPATCH_ROWS(B, err = launch<matmul_int4_kernel<__nv_bfloat16, NB>>(
-                         blocks_for(N), smem, st, (const __nv_bfloat16*)x, wp_t, slo_t, shi_t,
-                         out, B, K2, N));
-  else
-    DISPATCH_ROWS(B, err = launch<matmul_int4_kernel<float, NB>>(
-                         blocks_for(N), smem, st, (const float*)x, wp_t, slo_t, shi_t, out, B,
-                         K2, N));
-  return (int)err;
+    return (int)(out_bf16 ? int4_tc_dispatch<bf16, bf16>(x, wp_t, slo_t, shi_t, out, B, K2, N,
+                                                         cols, ks, st)
+                          : int4_tc_dispatch<bf16, float>(x, wp_t, slo_t, shi_t, out, B, K2,
+                                                          N, cols, ks, st));
+  return (int)(out_bf16 ? int4_tc_dispatch<float, bf16>(x, wp_t, slo_t, shi_t, out, B, K2, N,
+                                                        cols, ks, st)
+                        : int4_tc_dispatch<float, float>(x, wp_t, slo_t, shi_t, out, B, K2, N,
+                                                         cols, ks, st));
 }
 
 int ln_qkv_int4_launch(const void* x, int x_bf16, const float* g, const float* b,

@@ -57,6 +57,18 @@ SMEM_LIMIT = 227 * 1024   # dynamic shared memory a block opts in to
 WARPS = 8
 GROUP = 256          # contraction rows per int4 scale (INT4_GROUP)
 QKV_COLS = 32        # output columns per block of the B1 / B5 kernel
+# B6's tensor-core phases (csrc/fused_layer.cu, tc_int8_kernel), tiled from
+# chip_smoke.py's sweep on an H100 (PERF.md): attn-out and down blocks own
+# TC_COLS output columns; attn-out splits its contraction over the fewest
+# blocks of a cluster that fit shared memory, down over the most (up to
+# TC_MAX_SPLITS) that divide its hidden tiles; a norm + gate/up block owns
+# GLU_UNITS hidden units (half as many where those do not fit); GLU_PDL
+# launches the second and third phases by programmatic dependent launch.
+TC_COLS = 16
+TC_MAX_SPLITS = 4
+TC_CHUNK = 64        # contraction entries of one step of a warp
+GLU_UNITS = 32
+GLU_PDL = True
 
 _lib = None
 _int4_lib = None
@@ -78,7 +90,7 @@ def _kernels():
         lib.norm_qkv_int8_smem.argtypes = [I, I, I]
         lib.norm_qkv_int8_smem.restype = ctypes.c_size_t
         lib.attnout_rms_glu_int8_launch.argtypes = [
-            P, P, I, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, P]
+            P, P, I, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, I, I, I, I, P]
         lib.attnout_rms_glu_int8_launch.restype = I
         lib.fused_mlp_int8_launch.argtypes = [P, I, P, P, P, P, P, P, P, P, P, P,
                                               I, I, I, P]
@@ -94,7 +106,7 @@ def int4_kernels():
         from .build import load
         lib = load("int4")
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.matmul_int4_launch.argtypes = [P, I, P, P, P, P, I, I, I, P]
+        lib.matmul_int4_launch.argtypes = [P, I, P, P, P, P, I, I, I, I, I, I, P]
         lib.matmul_int4_launch.restype = I
         lib.ln_qkv_int4_launch.argtypes = [P, I, P, P, P, P, P, P, P, I, I, I, F, P]
         lib.ln_qkv_int4_launch.restype = I
@@ -168,6 +180,46 @@ def attnout_rms_glu_int8_plain(a, xres, wo_t, so, g2, wg_t, sg, wu_t, su,
     # kernel's grid steps
     for j in range(0, h.shape[1], tw):
         out = out + _dot_i8(h[:, j:j + tw], wd_t[:, j:j + tw]) * sd
+    return out
+
+
+def _warp_dot_i8(x_f32, w_t, k0: int, k1: int):
+    """x[:, k0:k1] @ W[k0:k1] summed as a block of the tensor-core kernel
+    sums it: WARPS contiguous runs of TC_CHUNK-wide chunks, added in warp
+    order."""
+    span = k1 - k0
+    per_warp = -(-(span // TC_CHUNK) // WARPS) * TC_CHUNK
+    out = torch.zeros((x_f32.shape[0], w_t.shape[0]))
+    for w in range(WARPS):
+        a, b = k0 + min(w * per_warp, span), k0 + min((w + 1) * per_warp, span)
+        if a < b:
+            out = out + _dot_i8(x_f32[:, a:b], w_t[:, a:b])
+    return out
+
+
+def attnout_rms_glu_int8_split_plain(a, xres, wo_t, so, g2, wg_t, sg, wu_t, su,
+                                     wd_t, sd, eps: float, tw: int, attn_splits: int):
+    """attnout_rms_glu_int8 summed in the CUDA kernel's order: attn-out's
+    contraction cut over `attn_splits` blocks (the first number of
+    glu_tiling), each block's sum over its warps (_warp_dot_i8), the
+    blocks' sums added in order before the scale; gate and up each one
+    block's sum; each tw-wide tile of down one block's sum over its warps,
+    scaled and added onto r in tile order (the blocks a down slab is split
+    over only decide which block sums which tile)."""
+    D, I = a.shape[1], wg_t.shape[0]
+    a16 = a.to(torch.bfloat16).float()
+    span = D // attn_splits
+    acc = torch.zeros((a.shape[0], D))
+    for s in range(attn_splits):
+        acc = acc + _warp_dot_i8(a16, wo_t, s * span, (s + 1) * span)
+    r = xres.float() + acc * so
+    y2 = _rms_bf16(r, g2, eps)
+    ug = _warp_dot_i8(y2, wg_t, 0, D) * sg
+    uu = _warp_dot_i8(y2, wu_t, 0, D) * su
+    h = (ug * torch.sigmoid(ug) * uu).to(torch.bfloat16).float()
+    out = r
+    for j in range(0, I, tw):
+        out = out + _warp_dot_i8(h, wd_t, j, j + tw) * sd
     return out
 
 
@@ -289,6 +341,43 @@ def _qkv_limits(B, D, N, rms, what):
         raise ValueError(f"{what}: a block's shared memory exceeds {SMEM_LIMIT} bytes")
 
 
+def tc_smem(B: int, cols: int, splits: int, K: int, tiles: int) -> int:
+    """Shared memory bytes of one block of B6's tensor-core phases at B
+    rows (csrc/fused_layer.cu, tc_smem): cols weight columns over K /
+    splits contraction entries, the contraction cut in `tiles` tiles."""
+    NB = 8 if B <= 8 else 16
+    span = K // splits
+    return 16 + cols * span + NB * (span + 8) * 2 + (WARPS + tiles) * NB * cols * 4
+
+
+def _tc_splits(B, K, tiles, order):
+    """The first split in `order` of a TC_ATTN_OUT / TC_DOWN column slab
+    (contraction K cut in `tiles` tiles, or one tile a block where None)
+    whose blocks take whole tiles of TC_CHUNK multiples and fit shared
+    memory; None if none does."""
+    for s in order:
+        t = tiles or s
+        if (t % s == 0 and K % t == 0 and (K // t) % TC_CHUNK == 0
+                and tc_smem(B, TC_COLS, s, K, t) <= SMEM_LIMIT):
+            return s
+    return None
+
+
+def glu_tiling(B: int, D: int, I: int, tw: int):
+    """(attn_splits, glu_units, down_splits, pdl) of B6 at B rows: the
+    blocks an attn-out and a down column slab are split over, the hidden
+    units a norm + gate/up block owns, and whether the last two phases go by
+    programmatic dependent launch. None where no tiling fits."""
+    splits = (1, 2, TC_MAX_SPLITS)
+    attn = _tc_splits(B, D, None, splits)
+    down = _tc_splits(B, I, I // tw, splits[::-1])
+    units = next((u for u in (GLU_UNITS, GLU_UNITS // 2) if I % u == 0
+                  and tc_smem(B, 2 * u, 1, D, 1) <= SMEM_LIMIT), None)
+    if None in (attn, units, down):
+        return None
+    return attn, units, down, GLU_PDL
+
+
 def ln_qkv_int8(x, g, b, w_t, s, bias, eps: float):
     """x (B, D) bf16/f32 -> (bf16(LN(x)) @ W) * s + bias, (B, N) f32.
     w_t (N, D) int8 out-major; g, b (D,) and s, bias (N,) f32."""
@@ -390,6 +479,18 @@ def attnout_rms_glu_int8(a, xres, wo_t, so, g2, wg_t, sg, wu_t, su, wd_t, sd,
     if not _check_device(a):
         return attnout_rms_glu_int8_plain(a, xres, wo_t, so, g2, wg_t, sg, wu_t,
                                           su, wd_t, sd, eps, tw)
+    tiling = glu_tiling(a.shape[0], a.shape[1], wg_t.shape[0], tw)
+    if tiling is None:
+        raise ValueError("attnout_rms_glu_int8: no tiling of the kernel fits these shapes")
+    return attnout_rms_glu_int8_tiled(a, xres, wo_t, so, g2, wg_t, sg, wu_t, su, wd_t,
+                                      sd, eps, tw, *tiling)
+
+
+def attnout_rms_glu_int8_tiled(a, xres, wo_t, so, g2, wg_t, sg, wu_t, su, wd_t, sd,
+                               eps: float, tw: int, attn_splits: int, glu_units: int,
+                               down_splits: int, pdl: bool):
+    """B6's kernel at a given tiling (glu_tiling's four numbers;
+    chip_smoke.py sweeps them). A CUDA a only."""
     B, D = a.shape
     I = wg_t.shape[0]
     _shape_limits(B, D, "attnout_rms_glu_int8")
@@ -397,8 +498,17 @@ def attnout_rms_glu_int8(a, xres, wo_t, so, g2, wg_t, sg, wu_t, su, wd_t, sd,
     if tw % K_STEP or I % tw:
         raise ValueError(f"attnout_rms_glu_int8: tile {tw} must be a multiple "
                          f"of {K_STEP} dividing {I}")
-    if (B * D + WARPS) * 4 > SMEM_LIMIT or B * I * 2 > SMEM_LIMIT:
-        raise ValueError("attnout_rms_glu_int8: rows exceed shared memory")
+    tiles = I // tw
+    if (attn_splits not in (1, 2, TC_MAX_SPLITS) or down_splits not in (1, 2, TC_MAX_SPLITS)
+            or glu_units not in (GLU_UNITS, GLU_UNITS // 2) or tiles % down_splits
+            or (D // attn_splits) % TC_CHUNK):
+        raise ValueError(f"attnout_rms_glu_int8: tiling ({attn_splits}, {glu_units}, "
+                         f"{down_splits}) does not fit D {D}, I {I}, tile {tw}")
+    if max(tc_smem(B, TC_COLS, attn_splits, D, attn_splits),
+           tc_smem(B, 2 * glu_units, 1, D, 1),
+           tc_smem(B, TC_COLS, down_splits, I, tiles)) > SMEM_LIMIT:
+        raise ValueError("attnout_rms_glu_int8: a block's shared memory exceeds "
+                         f"{SMEM_LIMIT} bytes")
     dev = a.device
     _check("a", a, (B, D), _ACT, dev)
     _check("xres", xres, (B, D), (a.dtype,), dev)
@@ -418,7 +528,8 @@ def attnout_rms_glu_int8(a, xres, wo_t, so, g2, wg_t, sg, wu_t, su, wd_t, sd,
         wo_t.data_ptr(), so.data_ptr(), g2.data_ptr(), wg_t.data_ptr(),
         sg.data_ptr(), wu_t.data_ptr(), su.data_ptr(), wd_t.data_ptr(),
         sd.data_ptr(), r_buf.data_ptr(), h_buf.data_ptr(), out.data_ptr(),
-        B, D, I, tw, eps, torch.cuda.current_stream(dev).cuda_stream)
+        B, D, I, tw, eps, attn_splits, glu_units, down_splits, int(pdl),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"attnout_rms_glu_int8 launch failed: CUDA error {err}")
     launches["attnout_rms_glu_int8"] += 1

@@ -51,12 +51,14 @@ def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
     elif "w_q4" in p or "w_q4c" in p:
         # weight-only int4: inputs of at most 8 rows (decode) take B8, larger
         # ones (prefill) and the column split (a fused layer's fc_in at
-        # prefill) the dense paths; the f32 result is cast to x's type
+        # prefill) the dense paths; the f32 result is cast to x's type (B8
+        # rounds its f32 sums to x's type itself, so the cast is free there)
         x2 = x.reshape(-1, x.shape[-1])
         if "w_q4c" in p:
             y = matmul_int4c_dense(x2, p["w_q4c"], p["w_scale4c_lo"], p["w_scale4c_hi"])
         elif x2.shape[0] <= MAX_ROWS:
-            y = matmul_int4(x2.contiguous(), p["w_q4"], p["w_scale4_lo"], p["w_scale4_hi"])
+            y = matmul_int4(x2.contiguous(), p["w_q4"], p["w_scale4_lo"], p["w_scale4_hi"],
+                            x.dtype)
         else:
             y = matmul_int4_dense(x2, p["w_q4"], p["w_scale4_lo"], p["w_scale4_hi"])
         y = y.to(x.dtype).reshape(*x.shape[:-1], -1)

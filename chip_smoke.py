@@ -6,8 +6,9 @@
 
 The second form runs phases 1 and 2, then times the fused decode-layer
 kernels (B1, B2, B5, B6) of this checkout against those of the other at 1,
-2, 8 and 16 rows, and the decode-attention kernels (B3, B4, B7) at phase
-3's attention shapes, in turns on the same operands, and stops.
+2, 8 and 16 rows, B8 on the 520M int4 weights at 1, 2 and 8 rows (f32
+result), and the decode-attention kernels (B3, B4, B7) at phase 3's
+attention shapes, in turns on the same operands, and stops.
 
 The port's paths, each at full width with random weights from a seed,
 served as bench.py serves them (T3 cast to bf16 and quantized int8_fused,
@@ -38,8 +39,8 @@ Phases, in order; any failure exits non-zero without the final "ok" line:
      layers by CUDA-graph replay: B1 / B2 on the real Turbo weights at 1,
      2, 8 and 16 rows, B5 / B6 on the real 520M weights at 2, 1, 8 and 16
      rows; B9 / B10 on the Turbo int4_fused weights at 1, 2, 8 and 16 rows;
-     B8 on every linear of the 520M int4 weights at 2, 1 and 8 rows; B11
-     on the Turbo
+     B8 on every linear of the 520M int4 weights at 2, 1 and 8 rows (bf16
+     result, as nn.linear asks for it); B11 on the Turbo
      int8 layers' ln2 / fc_in / fc_out at 1, 2, 8 and 16 rows, float32
      input as the JAX package's own test of it (library: torch.matmul on
      pre-dequantized bf16 weights); B3 / B4 / B7 on every
@@ -50,7 +51,10 @@ Phases, in order; any failure exits non-zero without the final "ok" line:
      scaled_dot_product_attention on the valid window, on a dequantized
      bf16 copy for B4), each shape with the split count B3 / B7 take
      there; first, a sweep of B3's kernel at 1, 2, 4, 8 and 16 blocks a
-     window at the Turbo, 520M, batched and long-window shapes;
+     window at the Turbo, 520M, batched and long-window shapes, and of the
+     tilings of B8 (columns a block, split of the packed rows; at each 520M
+     linear shape, 2 and 8 rows) and B6 (attn-out and down splits, hidden
+     units a gate/up block, programmatic dependent launch; 2 and 8 rows);
   4. reference: the CUDA path against the CPU path (plain kernel versions)
      on small models, same weights and noise: Turbo T3 teacher-forced
      logits on the bf16 and the int8 cache and meanflow S3Gen waveform;
@@ -72,7 +76,7 @@ Phases, in order; any failure exits non-zero without the final "ok" line:
      1.0, min_p 0.05, repetition penalty 1.2, exaggeration 0.5, 30 text
      tokens, 250 tokens), on the bf16 cache, with kv_int8=True, and on the
      int4 T3s (Turbo int4_fused, 520M int4); each with a profile of its
-     decode step. Then t3_generate(fused_attn=True) of each family with a
+     decode step (device time and kernel launches per step, by kernel). Then t3_generate(fused_attn=True) of each family with a
      profile of its decode step, a teacher-forced Turbo decode over an
      unaligned cache, and each BatchDecoder serving its batch once and
      then timed for 250 tokens with EOS ignored, with a profile of its
@@ -194,6 +198,9 @@ def _deq(wt, s):
 # the hidden units to bf16: a value that lands on the other side of a bf16
 # rounding boundary moves the outputs by ~1e-4.
 TOL_QKV, TOL_MLP = 1e-3, 1e-2
+# A bf16 result (B8 as nn.linear calls it): one bf16 ulp of the output's
+# magnitude, where the f32 sums of the two orders round apart.
+TOL_BF16 = 2.0 ** -8
 VEC = 4                          # bytes of an f32 scale, bias or norm entry
 
 
@@ -354,29 +361,39 @@ def int4_gpt2_specs(tts, K, B=1):
 LLAMA_LINEARS = ("q", "k", "v", "o", "gate", "up", "down")
 
 
-def b8_specs(tts, M, B=2):
-    """B8 on every linear of the 520M int4 layers, in the order a decode
-    step calls them; returns ([spec], number of linears). Bytes and
-    operations are the mean over a layer's seven linears."""
+def b8_linears(tts):
+    """The 520M int4 layers' linears, in the order a decode step calls them."""
+    return [lp[n] for lp in tts.t3_params["backbone"]["layers"] for n in LLAMA_LINEARS]
+
+
+def b8_specs(tts, M, B=2, out_bf16=True, ps=None, seed=4):
+    """B8 on every linear of the 520M int4 layers (or on `ps`), in the order
+    a decode step calls them, its result in bf16 as nn.linear asks for it
+    (out_bf16=False: f32, the Pallas contract and the only type the first
+    design of the kernel writes); returns ([spec], number of linears). Bytes and
+    operations are the mean over the linears."""
     import torch
-    ps = [lp[n] for lp in tts.t3_params["backbone"]["layers"] for n in LLAMA_LINEARS]
-    g = torch.Generator(device="cuda").manual_seed(4)
+    ps = ps or b8_linears(tts)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     xs = [torch.randn((B, 2 * p["w_q4"].shape[0]), generator=g, device="cuda").bfloat16()
           for p in ps]
     lib = [_deq_leaf(p) for p in ps]
-    shapes = [(2 * p["w_q4"].shape[0], p["w_q4"].shape[1]) for p in ps[:len(LLAMA_LINEARS)]]
+    shapes = [(2 * p["w_q4"].shape[0], p["w_q4"].shape[1]) for p in ps]
     n = len(shapes)
+    out_b = 2 if out_bf16 else 4
+    extra = (torch.bfloat16,) if out_bf16 else ()
 
     def b8(i, f):
         p = ps[i]
-        return f(xs[i], p["w_q4"], p["w_scale4_lo"], p["w_scale4_hi"])
+        return f(xs[i], p["w_q4"], p["w_scale4_lo"], p["w_scale4_hi"], *extra)
 
     spec = KernelSpec("matmul_int4", "chatterbox_tpu/ops/int4_matmul.py:77", b8,
                       lambda i: torch.matmul(xs[i], lib[i]),
-                      sum(_int4_bytes(k, c) + B * k * 2 + B * c * 4 for k, c in shapes) / n,
-                      sum(2 * B * k * c for k, c in shapes) / n, TOL_QKV, M.matmul_int4,
-                      M.matmul_int4_plain, PEAK_BF16_OPS, INT4_SRC)
-    return [spec], len(ps)
+                      sum(_int4_bytes(k, c) + B * k * 2 + B * c * out_b for k, c in shapes) / n,
+                      sum(2 * B * k * c for k, c in shapes) / n,
+                      TOL_BF16 if out_bf16 else TOL_QKV, M.matmul_int4, M.matmul_int4_plain,
+                      PEAK_BF16_OPS, INT4_SRC, relative=out_bf16)
+    return [spec], n
 
 
 def b11_specs(tts, FM, B=1):
@@ -506,17 +523,17 @@ def check_int4_kernels(turbo4, cfg4, turbo, K, M, FM) -> list:
 
 
 def _load_other_kernels(root: str):
-    """Another checkout's kernels/fused_layer.py and decode_attention.py,
-    imported as a package of their own (its csrc/ builds into its own
-    _build/)."""
+    """Another checkout's kernels/fused_layer.py, decode_attention.py and
+    int4_matmul.py, imported as a package of their own (its csrc/ builds
+    into its own _build/)."""
     import importlib
     import types
     from pathlib import Path
     pkg = types.ModuleType("other_kernels")
     pkg.__path__ = [str(Path(root).resolve() / "chatterbox_tpu_torch" / "kernels")]
     sys.modules["other_kernels"] = pkg
-    return (importlib.import_module("other_kernels.fused_layer"),
-            importlib.import_module("other_kernels.decode_attention"))
+    return tuple(importlib.import_module(f"other_kernels.{m}")
+                 for m in ("fused_layer", "decode_attention", "int4_matmul"))
 
 
 def _ab(sp, L, other, label) -> None:
@@ -537,20 +554,78 @@ def _ab(sp, L, other, label) -> None:
         f"{b / a:.3f}")
 
 
-def ab_kernels(turbo, cfg520, K, A, bb, root: str) -> None:
+def ab_kernels(turbo, cfg520, cfg4, K, A, M, bb, root: str) -> None:
     """B1, B2 (Turbo weights) and B5, B6 (520M weights) at 1, 2, 8 and 16
-    rows, and B3 / B4 / B7 at phase 3's attention shapes, of this checkout
-    against those of the checkout at `root`."""
-    other_k, other_a = _load_other_kernels(root)
+    rows, B8 (520M int4 weights, f32 result: the type both checkouts
+    write) at 1, 2 and 8 rows, and B3 / B4 / B7 at phase 3's attention
+    shapes, of this checkout against those of the checkout at `root`."""
+    other_k, other_a, other_m = _load_other_kernels(root)
     L1, L2 = turbo.hp.backbone.num_layers, cfg520.hp.backbone.num_layers
     for B in (1, 2, 8, 16):
         for L, specs in ((L1, gpt2_specs(turbo, K, B=B)), (L2, llama_specs(cfg520, K, B=B))):
             for sp in specs:
                 _ab(sp, L, other_k, f"B={B}")
+    for B in (1, 2, 8):
+        (sp,), n = b8_specs(cfg4, M, B=B, out_bf16=False)
+        _ab(sp, n, other_m, f"B={B}, {n} linears")
     for shape in attention_shapes(turbo, cfg520):
         specs, L = _specs_at(A, bb, shape)
         for sp in specs:
             _ab(sp, L, other_a, shape[0])
+
+
+INT4_TILINGS = ((16, 1), (16, 2), (16, 4), (32, 1), (32, 2), (32, 4))
+
+
+def _sweep_time(sp, L, f, label) -> str:
+    """f (a tiling of sp's kernel) checked against sp's plain version over
+    L layers, then timed by CUDA-graph replay: 'x.xx us' per call."""
+    try:
+        check_specs([KernelSpec(sp.name, sp.replaces, sp.call, None, 0, 0, sp.tol, f,
+                                sp.plain, relative=sp.relative)], L, label)
+    except (RuntimeError, ValueError) as e:      # a tiling the card or the shape refuses
+        return f"refused ({e})"
+    return f"{device_time_ms(lambda: [sp.call(i, f) for i in range(L)], 50) / L * 1e3:.2f} us"
+
+
+def sweep_tilings(cfg520, cfg4, K, M) -> None:
+    """The knobs of B8 and B6, each setting checked against the plain
+    version and timed by CUDA-graph replay (the evidence for int4_tiling
+    and glu_tiling): B8's columns a block and split of the packed rows at
+    each 520M linear shape, over that shape's linears of every layer, at 2
+    and 8 rows; B6's attn-out and down splits, hidden units a norm +
+    gate/up block and programmatic dependent launch on and off, over the
+    520M layers at 2 and 8 rows."""
+    import functools
+    ps = b8_linears(cfg4)
+    shape = lambda p: (2 * p["w_q4"].shape[0], p["w_q4"].shape[1])
+    for k, n in sorted({shape(p) for p in ps}):
+        sel = [p for p in ps if shape(p) == (k, n)]
+        for B in (2, 8):
+            (sp,), L = b8_specs(cfg4, M, B=B, ps=sel)
+            times = [_sweep_time(sp, L, functools.partial(M.matmul_int4_tiled, cols=c, splits=s),
+                                 f"B8 K={k}, N={n}, B={B}, {c} columns, {s} splits")
+                     for c, s in INT4_TILINGS]
+            log(f"tiling sweep B8 (K={k}, N={n}, B={B}, {L} linears): "
+                + ", ".join(f"{c}x{s} {t}" for (c, s), t in zip(INT4_TILINGS, times))
+                + f" (int4_tiling: {M.int4_tiling(k // 2, n, B)})")
+    cfg = cfg520.hp.backbone
+    D, I, tw = cfg.hidden_size, cfg.intermediate_size, K.llama_mlp_tile(cfg)
+    for B in (2, 8):
+        sp = llama_specs(cfg520, K, B=B)[1]
+        L = cfg.num_layers
+        rows = []
+        for attn in (1, 2, 4):
+            for units in (16, 32):
+                for down in (1, 2, 4):
+                    for pdl in (False, True):
+                        f = functools.partial(K.attnout_rms_glu_int8_tiled, attn_splits=attn,
+                                              glu_units=units, down_splits=down, pdl=pdl)
+                        t = _sweep_time(sp, L, f, f"B6 B={B}, ({attn}, {units}, {down}, {pdl})")
+                        rows.append(f"({attn},{units},{down},{int(pdl)}) {t}")
+        log(f"tiling sweep B6 (B={B}, D={D}, I={I}, tw={tw}; attn splits, units, down "
+            f"splits, pdl): " + ", ".join(rows)
+            + f" (glu_tiling: {K.glu_tiling(B, D, I, tw)})")
 
 
 # Attention tolerance: the outputs are bf16, compared in f32; the kernel and
@@ -1028,7 +1103,8 @@ def profile_decode(decode, step_s: float, label: str, n1: int = 9, n2: int = 41)
         return
     log(f"{label} decode profile: {total:.1f} us of device time per decode step "
         f"against {step_s * 1e6:.1f} us of wall per step -> device busy "
-        f"{100 * total / (step_s * 1e6):.1f} %")
+        f"{100 * total / (step_s * 1e6):.1f} %; {sum(r[1] for r in rows):.1f} kernel "
+        f"launches per step")
     for us, calls, key in sorted(rows, reverse=True)[:14]:
         log(f"  {us:9.2f} us/step {100 * us / total:5.1f} % {calls:7.1f} calls/step  {key[:80]}")
 
@@ -1289,18 +1365,19 @@ def main(argv) -> int:
     torch.cuda.synchronize()
     log(f"models built in {time.perf_counter() - t0:.1f} s (T3 {turbo.hp.backbone_name} "
         f"and {cfg520.hp.backbone_name} bf16 int8_fused, S3Gen float32)")
-    if ab_root is not None:
-        ab_kernels(turbo, cfg520, K, A, bb, ab_root)
-        return 0
     t0 = time.perf_counter()
     turbo4, cfg4 = int4_pipeline(turbo, "int4_fused", 0), int4_pipeline(cfg520, "int4", 10)
     torch.cuda.synchronize()
     log(f"int4 T3s built in {time.perf_counter() - t0:.1f} s (the same seeds' weights, "
         f"{turbo.hp.backbone_name} int4_fused, {cfg520.hp.backbone_name} int4; "
         f"the S3Gen engines and conditionals shared)")
+    if ab_root is not None:
+        ab_kernels(turbo, cfg520, cfg4, K, A, M, bb, ab_root)
+        return 0
 
     t0 = time.perf_counter()
     sweep_splits(turbo, cfg520, A, bb)
+    sweep_tilings(cfg520, cfg4, K, M)
     rows = (check_kernels(turbo, cfg520, K) + check_attention(turbo, cfg520, A, bb)
             + check_int4_kernels(turbo4, cfg4, turbo, K, M, FM))
     log(f"phase 3 (kernels) {time.perf_counter() - t0:.1f} s")

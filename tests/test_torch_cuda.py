@@ -541,3 +541,166 @@ def test_int4_wrappers_refuse_what_the_kernels_do_not_take(dev):
     ops = list(_b10_operands(dev, 17, 512, 2048, torch.float32))
     with pytest.raises(ValueError):          # batch above 16 rows
         K.attnout_ln_mlp_int4(*ops, EPS)
+
+
+# ---------------------------------------------------------------------------
+# B8 and B6 on the tensor cores
+# ---------------------------------------------------------------------------
+
+LINEARS_520M = [(1024, 1024), (1024, 4096), (4096, 1024)]    # q/k/v/o, gate/up, down
+
+
+def _close_b8(out, ref):
+    """f32 outputs as B8's test above; bf16 outputs within one bf16 ulp of
+    their magnitude (the f32 sums of the two orders may round apart)."""
+    tol = 1e-3 if out.dtype == torch.float32 else 2.0 ** -8 * ref.float().abs().max().item()
+    return (out.float() - ref.float()).abs().max().item() <= tol
+
+
+# Every 520M linear at 1-8 rows, bf16 and f32 x, f32 and bf16 results.
+@pytest.mark.parametrize("K,N", LINEARS_520M)
+@pytest.mark.parametrize("B", [1, 2, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_matmul_int4_tc_kernel_matches_plain(dev, K, N, B, dtype, out_dtype):
+    from chatterbox_tpu_torch.kernels import int4_matmul as M
+    ops = _b8_operands(dev, B, K, N, dtype, seed=K + N + B)
+    out = M.matmul_int4(*ops, out_dtype)
+    ref = M.matmul_int4_plain(*ops, out_dtype)
+    torch.cuda.synchronize()
+    assert out.shape == (B, N) and out.dtype == out_dtype and torch.isfinite(out).all()
+    assert _close_b8(out, ref)
+
+
+# Each tiling the kernel takes, at the 520M shapes and 2 and 8 rows.
+@pytest.mark.parametrize("K,N", LINEARS_520M)
+@pytest.mark.parametrize("cols,splits", [(16, 1), (16, 2), (16, 4), (32, 1), (32, 2), (32, 4)])
+def test_matmul_int4_every_tiling_matches_plain(dev, K, N, cols, splits):
+    from chatterbox_tpu_torch.kernels import int4_matmul as M
+    for B in (2, 8):
+        ops = _b8_operands(dev, B, K, N, torch.bfloat16, seed=cols + splits)
+        out = M.matmul_int4_tiled(*ops, torch.float32, cols, splits)
+        assert _close_b8(out, M.matmul_int4_plain(*ops))
+    torch.cuda.synchronize()
+
+
+def _b6_phases(ops, tw, tiling):
+    """B6's three launches at `tiling` with r and h kept: (r, h, out)."""
+    a = ops[0]
+    B, D = a.shape
+    I = ops[5].shape[0]
+    r = torch.empty((B, D), device=a.device)
+    h = torch.empty((B, I), dtype=torch.bfloat16, device=a.device)
+    out = torch.empty((B, D), device=a.device)
+    err = K._kernels().attnout_rms_glu_int8_launch(
+        *(t.data_ptr() for t in ops[:2]), int(a.dtype == torch.bfloat16),
+        *(t.data_ptr() for t in ops[2:]), r.data_ptr(), h.data_ptr(), out.data_ptr(),
+        B, D, I, tw, EPS, *(int(t) for t in tiling), torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    return r, h, out
+
+
+def _check_b6_phases(ops, tw, tiling):
+    """Each phase against its plain step on the kernel's own input to it:
+    r to f32 summation order; h (bf16) within one bf16 ulp of its magnitude
+    (2**-7 of it, a value just under a power of two) where its f32 sums of
+    the two orders round apart, plus 1e-4 of the largest |h| for the units
+    near zero, and for at most 5 % of the units (the norm's f32 sum in
+    another order moves many bf16 values of y and so of h by less than an
+    ulp, 1.3 % of the units of h rounded apart in a run seen); out given r
+    and h to f32
+    summation order. The end-to-end error is not bounded here: one unit of h
+    rounded apart moves every output of its row by up to ulp(h) * 127 * sd,
+    and a few in a row (6-15 of 32768-65536 in the runs seen) reach 2e-2 at
+    D = 2048, the first design's as much as this one's."""
+    a, xres, wo, so, g2, wg, sg, wu, su, wd, sd = ops
+    r, h, out = _b6_phases(ops, tw, tiling)
+    torch.cuda.synchronize()
+    r_ref = xres.float() + (a.to(torch.bfloat16).float() @ wo.float().T) * so
+    assert (r - r_ref).abs().max().item() <= 1e-4
+    y = K._rms_bf16(r, g2, EPS)
+    ug, uu = (y @ wg.float().T) * sg, (y @ wu.float().T) * su
+    h_ref = (ug * torch.sigmoid(ug) * uu).to(torch.bfloat16).float()
+    dh = (h.float() - h_ref).abs()
+    assert (dh <= 2.0 ** -7 * h_ref.abs() + 1e-4 * h_ref.abs().max()).all()
+    assert (dh > 0).sum().item() <= h.numel() // 20
+    o_ref = r.clone()
+    for j in range(0, h.shape[1], tw):
+        o_ref = o_ref + (h.float()[:, j:j + tw] @ wd[:, j:j + tw].float().T) * sd
+    assert torch.isfinite(out).all() and (out - o_ref).abs().max().item() <= 1e-4
+
+
+# B6 at 1-16 rows, D 512-2048, both hidden tiles, bf16 and f32 input, phase
+# by phase (the end-to-end test at the 520M shapes is above).
+@pytest.mark.parametrize("D,I", [(512, 2048), (1024, 4096), (2048, 4096)])
+@pytest.mark.parametrize("B", [1, 2, 8, 16])
+@pytest.mark.parametrize("tw", [512, 1024])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attnout_rms_glu_tc_phases_match_plain(dev, D, I, B, tw, dtype):
+    ops = _b6_operands(dev, B, D, I, dtype, seed=D + B + tw)
+    _check_b6_phases(ops, tw, K.glu_tiling(B, D, I, tw))
+    before = K.launches["attnout_rms_glu_int8"]
+    out = K.attnout_rms_glu_int8(*ops, EPS, tw)
+    assert out.shape == (B, D) and K.launches["attnout_rms_glu_int8"] == before + 1
+
+
+# Each tiling at the 520M shape, 2 and 16 rows, with and without
+# programmatic dependent launch.
+@pytest.mark.parametrize("attn,down", [(1, 1), (2, 2), (4, 4), (1, 4), (4, 1)])
+@pytest.mark.parametrize("units", [16, 32])
+@pytest.mark.parametrize("pdl", [False, True])
+def test_attnout_rms_glu_every_tiling_matches_plain(dev, attn, down, units, pdl):
+    for B in (2, 16):
+        ops = _b6_operands(dev, B, 1024, 4096, torch.bfloat16, seed=attn + down + units)
+        _check_b6_phases(ops, 1024, (attn, units, down, pdl))
+        out = K.attnout_rms_glu_int8_tiled(*ops, EPS, 1024, attn, units, down, pdl)
+        assert torch.equal(out, _b6_phases(ops, 1024, (attn, units, down, pdl))[2])
+
+
+def test_b8_and_b6_replay_in_a_cuda_graph_with_new_inputs(dev):
+    """Both kernels captured in one CUDA graph (B6 with its dependent
+    launches) and replayed after new inputs are copied in."""
+    from chatterbox_tpu_torch.kernels import int4_matmul as M
+    b8 = list(_b8_operands(dev, 2, 4096, 1024, torch.bfloat16))
+    b6 = list(_b6_operands(dev, 2, 1024, 4096, torch.bfloat16))
+    M.matmul_int4(*b8, torch.bfloat16)
+    K.attnout_rms_glu_int8(*b6, EPS, 1024)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out8 = M.matmul_int4(*b8, torch.bfloat16)
+        out6 = K.attnout_rms_glu_int8(*b6, EPS, 1024)
+    for seed in (11, 12):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        b8[0].copy_(torch.randn(b8[0].shape, generator=g, device=dev))
+        b6[0].copy_(torch.randn(b6[0].shape, generator=g, device=dev))
+        b6[1].copy_(torch.randn(b6[1].shape, generator=g, device=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _close_b8(out8, M.matmul_int4_plain(*b8, torch.bfloat16))
+        assert (out6 - K.attnout_rms_glu_int8_plain(*b6, EPS, 1024)).abs().max() <= 1e-2
+
+
+def test_b8_and_b6_refuse_what_the_kernels_do_not_take(dev):
+    from chatterbox_tpu_torch.kernels import int4_matmul as M
+    x, w, slo, shi = _b8_operands(dev, 2, 1024, 1024, torch.bfloat16)
+    with pytest.raises(ValueError):          # x not 16-byte aligned
+        M.matmul_int4(torch.empty(2 * 1024 + 1, dtype=x.dtype, device=dev)[1:].view(2, 1024),
+                      w, slo, shi)
+    with pytest.raises(TypeError):           # a result type other than f32 / bf16
+        M.matmul_int4(x, w, slo, shi, torch.float16)
+    for cols, splits in ((8, 1), (16, 3), (16, 8)):  # tilings the kernel has no instance of
+        with pytest.raises(ValueError):
+            M.matmul_int4_tiled(x, w, slo, shi, torch.float32, cols, splits)
+    ops = _b6_operands(dev, 2, 1024, 4096, torch.bfloat16)
+    with pytest.raises(ValueError):          # down split 4 ways over 2 hidden tiles of 2048
+        K.attnout_rms_glu_int8_tiled(*ops, EPS, 2048, 1, 32, 4, False)
+    with pytest.raises(ValueError):          # 24 hidden units a block
+        K.attnout_rms_glu_int8_tiled(*ops, EPS, 1024, 1, 24, 1, False)
+    ops = list(_b6_operands(dev, 17, 1024, 4096, torch.bfloat16))
+    with pytest.raises(ValueError):          # 17 rows
+        K.attnout_rms_glu_int8(*ops, EPS, 1024)
+    ops = list(_b6_operands(dev, 2, 1024, 4096, torch.bfloat16))
+    ops[0] = torch.empty(2 * 1024 + 8, dtype=torch.bfloat16, device=dev)[4:-4].view(2, 1024)
+    with pytest.raises(ValueError):          # a not 16-byte aligned
+        K.attnout_rms_glu_int8(*ops, EPS, 1024)

@@ -109,6 +109,59 @@ def test_attnout_rms_glu_int8_matches_pallas(D, I, B, dtype, tw):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=RTOL, atol=ATOL_B6)
 
 
+# The CUDA kernel's order of sums: attn-out's contraction split over 1, 2 or
+# 4 blocks and eight warps each, the gate / up / down sums over eight warps,
+# down's tw tiles added in order; against the Pallas kernel at B6's
+# tolerance above (the bf16 roundings of y and h are where orders part).
+@pytest.mark.parametrize("D,I,B,tw", [(512, 1024, 2, 512), (1024, 4096, 2, 1024),
+                                      (512, 2048, 16, 1024)])
+@pytest.mark.parametrize("attn_splits", [1, 2, 4])
+def test_attnout_rms_glu_split_order_matches_pallas(D, I, B, tw, attn_splits):
+    rng = np.random.default_rng(D + I + B + attn_splits)
+    a = _act(rng, B, D, jnp.bfloat16, 0.5)
+    xres = _act(rng, B, D, jnp.bfloat16)
+    (wo, so), (wg, sg), (wu, su), (wd, sd) = (_quant(rng, k, n) for k, n in
+                                              ((D, D), (D, I), (D, I), (I, D)))
+    g2 = (1.0 + 0.1 * rng.standard_normal(D)).astype(np.float32)
+    ref = jax_b6(a, xres, jnp.asarray(wo), _b8(so), _b8(g2), jnp.asarray(wg), _b8(sg),
+                 jnp.asarray(wu), _b8(su), jnp.asarray(wd), _b8(sd), eps=EPS, tw=tw,
+                 interpret=True)
+    out = K.attnout_rms_glu_int8_split_plain(
+        _t(a), _t(xres), _tt(wo), _t(so), _t(g2), _tt(wg), _t(sg), _tt(wu), _t(su),
+        _tt(wd), _t(sd), EPS, tw, attn_splits)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=RTOL, atol=ATOL_B6)
+
+
+@pytest.mark.parametrize("B", [1, 2, 8, 16])
+def test_glu_tiling_fits_every_shape_the_kernel_takes(B):
+    """A tiling within shared memory at D 512-2048, I up to 8192 and both
+    tiles, each block of a split slab taking whole hidden tiles; at the
+    520M shape attn-out unsplit and down split TC_MAX_SPLITS ways."""
+    for D, I, tw in ((512, 1024, 512), (1024, 4096, 1024), (1024, 4096, 512),
+                     (2048, 4096, 1024), (2048, 8192, 512)):
+        attn, units, down, _ = K.glu_tiling(B, D, I, tw)
+        assert max(K.tc_smem(B, K.TC_COLS, attn, D, attn),
+                   K.tc_smem(B, 2 * units, 1, D, 1),
+                   K.tc_smem(B, K.TC_COLS, down, I, I // tw)) <= K.SMEM_LIMIT
+        assert (I // tw) % down == 0 and (D // attn) % K.TC_CHUNK == 0
+        if (D, I) == (1024, 4096):
+            assert (attn, units, down) == (1, K.GLU_UNITS, K.TC_MAX_SPLITS)
+
+
+def test_b6_wrapper_launches_or_raises_on_a_device_tensor(monkeypatch):
+    from tests.test_torch_int4 import spy_dispatch
+    rng = np.random.default_rng(3)
+    D, I = 512, 1024
+    ws = [_quant(rng, k, n) for k, n in ((D, D), (D, I), (D, I), (I, D))]
+    (wo, so), (wg, sg), (wu, su), (wd, sd) = ((_tt(w), _t(s)) for w, s in ws)
+    g2 = torch.ones(D)
+    a = torch.randn(2, D)
+    spy_dispatch(monkeypatch, K, "_kernels",
+                 lambda: K.attnout_rms_glu_int8(a, a, wo, so, g2, wg, sg, wu, su, wd, sd,
+                                                EPS, 512),
+                 "attnout_rms_glu_int8", "attnout_rms_glu_int8_launch")
+
+
 def test_cpu_dispatch_is_the_plain_version_and_counts_nothing():
     rng = np.random.default_rng(0)
     D = 512

@@ -140,6 +140,61 @@ def test_matmul_int4_plain_matches_pallas(B, K, N, dtype):
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-6)
 
 
+# B8 writes its result in the type the caller names. With integer x and
+# half-integer weights at scale 1 every f32 sum is exact in any order, so
+# the bf16 result equals the Pallas kernel's f32 result rounded to bf16 bit
+# for bit, ties to even included (sums such as 257.5 sit on a tie). With
+# random inputs the f32 sums of the two orders may differ in their last
+# bits, so there the bf16 result is held, bit for bit, to the f32 result of
+# the same call cast to bf16: the cast it replaces in nn.linear.
+@pytest.mark.parametrize("B,K,N,dtype", [(1, 1024, 512, jnp.bfloat16),
+                                         (2, 2048, 1024, jnp.float32),
+                                         (8, 1024, 512, jnp.bfloat16)])
+def test_matmul_int4_bf16_out_matches_pallas_bit_for_bit(B, K, N, dtype):
+    rng = np.random.default_rng(B + K + 1)
+    wq, slo, shi = JQ.quantize_linear_weight_int4(jnp.asarray(_w(rng, (K, N), halves=True)))
+    assert float(jnp.max(slo)) == float(jnp.min(shi)) == 1.0
+    x = jnp.asarray(rng.integers(-40, 41, (B, K)).astype(np.float32)).astype(dtype)
+    ref = JM.matmul_int4(x, wq, slo, shi, interpret=True).astype(jnp.bfloat16)
+    out = M.matmul_int4(_t(x), _om(wq), _om(slo), _om(shi), torch.bfloat16)
+    assert out.dtype == torch.bfloat16 and out.shape == (B, N)
+    np.testing.assert_array_equal(out.float().numpy(), np.asarray(ref.astype(jnp.float32)))
+    x = _act(rng, (B, K), dtype)
+    args = (_t(x), _om(wq), _om(slo), _om(shi))
+    assert torch.equal(M.matmul_int4(*args, torch.bfloat16),
+                       M.matmul_int4(*args).to(torch.bfloat16))
+
+
+# The kernel's order of sums (packed rows split over 1, 2 or 4 blocks, eight
+# warps a block, each group's sums scaled where a warp's run leaves the
+# group) against the Pallas kernel, to f32 summation order as above; K =
+# 1024 gives each warp a quarter of a group, K = 4096 one or more groups.
+@pytest.mark.parametrize("B,K,N", [(2, 1024, 512), (8, 4096, 512), (1, 2048, 512)])
+@pytest.mark.parametrize("splits", [1, 2, 4])
+def test_matmul_int4_split_order_matches_pallas(B, K, N, splits):
+    rng = np.random.default_rng(B + K + splits)
+    wq, slo, shi = _packed(rng, K, N)
+    x = _act(rng, (B, K), jnp.bfloat16)
+    ref = np.asarray(JM.matmul_int4(x, wq, slo, shi, interpret=True))
+    out = M.matmul_int4_split_plain(_t(x), _om(wq), _om(slo), _om(shi), splits)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("B", [1, 2, 8])
+def test_int4_tiling_takes_whole_chunks_within_shared_memory(B):
+    """Every 520M linear shape (q/k/v/o, gate/up, down) and wider ones: a
+    tiling the kernel has, whole CHUNK-row chunks a block, within shared
+    memory, and no block taking more packed rows than INT4_SPAN* unless
+    MAX_SPLITS blocks already share them."""
+    span = M.INT4_SPAN if B <= 4 else M.INT4_SPAN_MANY_ROWS
+    for K, N in ((1024, 1024), (1024, 4096), (4096, 1024), (512, 512), (8192, 1024)):
+        cols, splits = M.int4_tiling(K // 2, N, B)
+        assert cols in (16, 32) and splits in (1, 2, M.MAX_SPLITS), (K, N)
+        assert N % cols == 0 and (K // 2) % (splits * M.CHUNK) == 0, (K, N)
+        assert M.int4_smem(cols, splits, K // 2) <= M.SMEM_LIMIT, (K, N)
+        assert K // 2 // splits <= span or splits == M.MAX_SPLITS, (K, N)
+
+
 # nn.linear casts the f32 product to x's type (bf16) and adds the bias in
 # bf16. B8's rows agree to f32 rounding before the cast, so a value may land
 # one bf16 ulp away (2**-8 of its magnitude, bias included); the dense paths
@@ -163,6 +218,19 @@ def test_linear_int4_branches_match_jax(rows, leaf):
     out = nn.linear(tp, _t(x))
     assert out.dtype == torch.bfloat16 and out.shape == rows + (N,)
     np.testing.assert_allclose(out.float().numpy(), ref, rtol=2.0 ** -8, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_linear_int4_returns_x_type_with_the_values_of_the_cast(dtype):
+    """B8 now rounds to x's type itself: nn.linear's result is bit for bit
+    the f32 product cast to x's type plus the bias, as it was."""
+    rng = np.random.default_rng(12)
+    wq, slo, shi = (_om(a) for a in _packed(rng, 1024, 512))
+    b = torch.from_numpy(_vec(rng, 512, 0.1)).to(dtype)
+    x = torch.from_numpy(rng.standard_normal((2, 1, 1024)).astype(np.float32)).to(dtype)
+    out = nn.linear({"w_q4": wq, "w_scale4_lo": slo, "w_scale4_hi": shi, "b": b}, x)
+    before = M.matmul_int4(x.reshape(2, 1024), wq, slo, shi).to(dtype).reshape(2, 1, 512) + b
+    assert out.dtype == dtype and torch.equal(out, before)
 
 
 def test_linear_sends_only_decode_sized_inputs_to_b8(monkeypatch):
