@@ -1,5 +1,6 @@
 // Helpers shared by the kernels (fused_layer.cu, int4.cu,
-// decode_attention.cu): block shape, reductions, the norm prologue, 16-wide
+// decode_attention.cu): block shape, reductions, the norm prologues (the
+// first designs' norm_bf16, the tensor-core kernels' norm_rows_bf16), 16-wide
 // dot products over shared-memory rows, gelu_new, the bulk copy
 // (cp.async.bulk) onto an mbarrier, the cluster barrier and stores into a
 // peer's shared memory, programmatic dependent launch, the bf16 tensor-core
@@ -256,6 +257,84 @@ __device__ __forceinline__ void stage_rows_bf16(const T* __restrict__ x, int ldx
     const int r = i / per_row, c = 8 * (i - r * per_row);
     const uint4 v = r < B ? bf16x8(x + (size_t)r * ldx + c) : make_uint4(0, 0, 0, 0);
     *reinterpret_cast<uint4*>(ys + (size_t)r * yld + c) = v;
+  }
+}
+
+// ys[r * yld + i] = bf16(norm(x[r * D + i])) for r < NB, rows B..NB-1
+// zero, in f32 as the Pallas kernels compute it (the rounding to bf16 is
+// theirs, before the product):
+//   LayerNorm (RMS = false): mean, then the mean of squared deviations;
+//                            (x - mu) * rsqrt(var + eps) * g + b
+//   RMSNorm   (RMS = true):  x * rsqrt(mean(x^2) + eps) * g   (b unused)
+// One warp a row (rows w, w + WARPS), shuffle reductions only; lane i
+// takes entries 8i + 256j, so D % 256 == 0. A bf16 x row is read from
+// device memory once, into its row of ys, and normalised there in place;
+// f32 x is reread from device memory in each pass. g and b (shared or
+// device memory, read 16 bytes at a time: scalar loads conflict 8 ways) are
+// read only after gb_bar, where given, has completed its first phase. The
+// caller synchronises the block before it reads ys.
+template <typename T, bool RMS>
+__device__ __forceinline__ void norm_rows_bf16(const T* __restrict__ x, const float* g,
+                                               const float* b, uint64_t* gb_bar, int B, int NB,
+                                               int D, float eps, __nv_bfloat16* ys, int yld) {
+  constexpr bool STAGE = sizeof(T) == 2;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r = warp; r < NB; r += WARPS) {
+    __nv_bfloat16* yr = ys + r * yld;
+    if (r >= B) {
+      for (int i = lane * 8; i < D; i += 256)
+        *reinterpret_cast<uint4*>(yr + i) = make_uint4(0, 0, 0, 0);
+      continue;
+    }
+    const T* xg = x + (size_t)r * D;
+    const T* xr = STAGE ? reinterpret_cast<const T*>(yr) : xg;   // the later passes' rows
+    float v[8], acc = 0.f;
+#pragma unroll 4
+    for (int i = lane * 8; i < D; i += 256) {
+      if constexpr (STAGE) {
+        const uint4 u = __ldg(reinterpret_cast<const uint4*>(xg + i));
+        *reinterpret_cast<uint4*>(yr + i) = u;
+        to_f32x8(u, v);
+      } else {
+        load8(xg + i, v);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc += RMS ? v[j] * v[j] : v[j];
+    }
+    float mu = 0.f, rs;
+    if (RMS) {
+      rs = rsqrtf(warp_sum(acc) / D + eps);
+    } else {
+      mu = warp_sum(acc) / D;
+      float q = 0.f;
+#pragma unroll 4
+      for (int i = lane * 8; i < D; i += 256) {
+        load8(xr + i, v);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) q += (v[j] - mu) * (v[j] - mu);
+      }
+      rs = rsqrtf(warp_sum(q) / D + eps);
+    }
+    if (gb_bar) mbar_wait(gb_bar, 0);
+#pragma unroll 4
+    for (int i = lane * 8; i < D; i += 256) {
+      load8(xr + i, v);            // in place when staged: each lane its own 8 entries
+      float gv[8], bv[8];
+      load8(g + i, gv);
+      if (!RMS) load8(b + i, bv);
+      float y[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        y[j] = RMS ? __fmul_rn(__fmul_rn(v[j], rs), gv[j])
+                   : __fadd_rn(__fmul_rn(__fmul_rn(v[j] - mu, rs), gv[j]), bv[j]);
+      uint32_t packed[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        __nv_bfloat162 p = __floats2bfloat162_rn(y[2 * j], y[2 * j + 1]);
+        packed[j] = *reinterpret_cast<uint32_t*>(&p);
+      }
+      *reinterpret_cast<uint4*>(yr + i) = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+    }
   }
 }
 

@@ -7,8 +7,8 @@
 //         out = (bf16(LN1(x)) @ Wqkv_int8) * s + bias
 //   B2  attnout_ln_mlp_int8  (_attnout_ln_mlp_kernel_i8):
 //         r   = x + (bf16(a) @ Wo_int8) * so + bo
-//         out = r + b2 + (bf16(gelu_new((bf16(LN2(r)) @ W1_int8) * s1 + b1))
-//                         @ W2_int8) * s2
+//         h   = bf16(gelu_new((bf16(LN2(r)) @ W1_int8) * s1 + b1))
+//         out = r + b2 + sum over hidden tiles t of (h_t @ W2_int8_t) * s2
 //   llama (520M CFG T3, 30 layers, batch 2 = cond and uncond rows):
 //   B5  rms_qkv_int8         (_rms_qkv_kernel_i8):
 //         out = (bf16(RMSNorm(x) * g) @ [Wq|Wk|Wv]_int8) * s
@@ -30,83 +30,33 @@
 // and B6 13.6 MB (4.07 us), B11 8.4 MB (2.5 us).
 //
 // Weights are stored OUT-MAJOR, (N, K) with K contiguous: the converter
-// transposes the JAX (K, N) layout once. B1 and B5 share a tensor-core
-// kernel, and B6's three phases another, each with its own note
-// (norm_qkv_tc_kernel, tc_int8_kernel below). The design of B2 and B11
-// (simple and right first; no TMA or tensor cores yet):
-//   * One warp owns one output column and streams its K int8 weights with
-//     16-byte loads: a warp reads 512 contiguous bytes per iteration, and
-//     every warp of the grid is resident at once, so all weight loads are in
-//     flight together.
-//   * Every kernel is a template on NB, the rows it unrolls (2, 4, 8, 16);
-//     a call of B rows runs the smallest instance with NB >= B, and rows
-//     past B are skipped inside the loop, so each weight byte is read once
-//     per call whatever B is.
-//   * The TPU kernels compute the norm once at grid step 0 and keep it in
-//     VMEM scratch, relying on the sequential grid. Blocks on Hopper run in
-//     no order, so every block recomputes the LayerNorm of its input rows
-//     into shared memory (up to 16 x 1024 floats, 64 KB, above the 48 KB
-//     default: each kernel opts in to Hopper's 227 KB once).
+// transposes the JAX (K, N) layout once. Every kernel here is a template on
+// NB, the rows its MMA tiles take (8, or 16 for 9-16 rows): a call of B
+// rows runs the smallest instance with NB >= B, and each weight byte is
+// read once per call whatever B is. B1 and B5 share a tensor-core kernel,
+// and B2, B6 and B11 the phases of another, each with its own note
+// (norm_qkv_tc_kernel, tc_int8_kernel below). The TPU kernels compute the
+// norm once at grid step 0 and keep it in VMEM scratch, relying on the
+// sequential grid; blocks on Hopper run in no order, so every block
+// normalises its input rows itself, while its weight slab streams.
 // Each second half (B2, B6) has two dependencies across the whole width
 // (attn-out and the norm before the MLP; all hidden units before the down
 // projection), so each is three launches on one stream: attn-out +
 // residual, norm + up-projection(s) + activation, down-projection +
 // residual, with r (f32) and h (bf16: its values are bf16-rounded) in small
-// global scratch buffers.
+// global scratch buffers; B11 is the last two on x.
 // Numerics mirror the Pallas kernels: norms in f32, the vector rounded to
 // bf16 before each product, int8 -> bf16 exact, f32 accumulation, scale
-// (and bias) applied after the K sum. B6 applies sd to each tw-wide hidden
-// tile's sum and accumulates the tiles in order onto r, as the Pallas grid
-// does; B2 runs its fc_out as one tile (s2 on the full sum, equal to the
-// Pallas per-tile form up to f32 rounding).
+// (and bias) applied after the K sum. B2 and B6 apply the down scale to each
+// tw-wide hidden tile's sum and accumulate the tiles in order onto r, as
+// the Pallas grid does; B11 scales the whole sum once, as its one-step
+// Pallas kernel does.
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
-
-// acc[r] = sum_k xs[r*ldx + k] * w[k], k < K, r < B, for one out-major
-// weight row, summed over the warp (every lane holds the totals). The row
-// loop is unrolled to NB >= B so acc stays in registers; K % K_STEP == 0.
-// The 2-row instance over f32 rows converts each weight where a row uses
-// it (measured ~6 % faster at one row than converting the 16 weights
-// first); with more rows each weight is converted once.
-template <int NB, typename XT>
-__device__ __forceinline__ void warp_dot_i8(const int8_t* __restrict__ w, const XT* xs,
-                                            int K, int ldx, int B, float acc[NB]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int r = 0; r < NB; ++r) acc[r] = 0.f;
-#pragma unroll 4
-  for (int k0 = lane * 16; k0 < K; k0 += K_STEP) {
-    const int4 pk = __ldg(reinterpret_cast<const int4*>(w + k0));
-    const int8_t* w8 = reinterpret_cast<const int8_t*>(&pk);
-    if constexpr (NB <= 2 && sizeof(XT) == sizeof(float)) {
-#pragma unroll
-      for (int r = 0; r < NB; ++r) {
-        if (r < B) {
-          const float4* x4 = reinterpret_cast<const float4*>(xs + (size_t)r * ldx + k0);
-          float s = 0.f;
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const float4 xv = x4[q];
-            s += xv.x * (float)w8[4 * q] + xv.y * (float)w8[4 * q + 1]
-               + xv.z * (float)w8[4 * q + 2] + xv.w * (float)w8[4 * q + 3];
-          }
-          acc[r] += s;
-        }
-      }
-    } else {
-      float wf[16];
-#pragma unroll
-      for (int j = 0; j < 16; ++j) wf[j] = (float)w8[j];
-#pragma unroll
-      for (int r = 0; r < NB; ++r)
-        if (r < B) acc[r] += dot16(xs + (size_t)r * ldx + k0, wf);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < NB; ++r) acc[r] = warp_sum(acc[r]);
-}
 
 // ---------------------------------------------------------------------------
 // B1 / B5 on the tensor cores: out = (bf16(norm(x)) @ W) * s (+ bias for
@@ -123,8 +73,8 @@ __device__ __forceinline__ void warp_dot_i8(const int8_t* __restrict__ w, const 
 //     K = 1024) as one 1-D bulk copy (TMA) into shared memory, completing on
 //     an mbarrier, and for g (and b) the same way on a second barrier. The
 //     grid's slabs are in flight at once while the norm runs.
-//   * The norm runs one row per warp (rows w, w + 8), with shuffle
-//     reductions only. A bf16 x row is read from device memory once, into
+//   * The norm (norm_rows_bf16, common.cuh) runs one row per warp (rows w,
+//     w + 8), with shuffle reductions only. A bf16 x row is read from device memory once, into
 //     its norm row in shared memory, and normalised there in place; f32 x
 //     (on no main path) is reread from device memory in each pass. The bf16
 //     result is exact (the Pallas kernels round y to bf16 before the
@@ -167,7 +117,6 @@ norm_qkv_tc_kernel(const T* __restrict__ x, const float* __restrict__ g,
                    float* __restrict__ out, int B, int D, int N, float eps) {
   constexpr int RT = NB / 8, MT = QKV_COLS / 16;
   constexpr int EPT = (NB * QKV_COLS + THREADS - 1) / THREADS;   // outputs per thread
-  constexpr bool STAGE = sizeof(T) == 2;   // bf16 x rows normalised in shared memory
   extern __shared__ float4 smem4[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem4);       // [0] g, b; [1] weights
   float* gb = reinterpret_cast<float*>(smem4 + 1);            // g, then b (LayerNorm)
@@ -199,64 +148,7 @@ norm_qkv_tc_kernel(const T* __restrict__ x, const float* __restrict__ g,
   }
   __syncthreads();  // the barriers are initialised
 
-  // norm rows: warp w takes rows w, w + WARPS; lane i takes entries 8i + 256j
-  for (int r = warp; r < NB; r += WARPS) {
-    __nv_bfloat16* yr = ys + r * yld;
-    if (r >= B) {
-      for (int i = lane * 8; i < D; i += 256)
-        *reinterpret_cast<uint4*>(yr + i) = make_uint4(0, 0, 0, 0);
-      continue;
-    }
-    const T* xg = x + (size_t)r * D;
-    const T* xr = STAGE ? reinterpret_cast<const T*>(yr) : xg;   // the later passes' rows
-    float v[8], acc = 0.f;
-#pragma unroll 4
-    for (int i = lane * 8; i < D; i += 256) {
-      if constexpr (STAGE) {
-        const uint4 u = __ldg(reinterpret_cast<const uint4*>(xg + i));
-        *reinterpret_cast<uint4*>(yr + i) = u;
-        to_f32x8(u, v);
-      } else {
-        load8(xg + i, v);
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc += RMS ? v[j] * v[j] : v[j];
-    }
-    float mu = 0.f, rs;
-    if (RMS) {
-      rs = rsqrtf(warp_sum(acc) / D + eps);
-    } else {
-      mu = warp_sum(acc) / D;
-      float q = 0.f;
-#pragma unroll 4
-      for (int i = lane * 8; i < D; i += 256) {
-        load8(xr + i, v);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) q += (v[j] - mu) * (v[j] - mu);
-      }
-      rs = rsqrtf(warp_sum(q) / D + eps);
-    }
-    mbar_wait(&bars[0], 0);
-#pragma unroll 4
-    for (int i = lane * 8; i < D; i += 256) {
-      load8(xr + i, v);            // in place when staged: each lane its own 8 entries
-      float gv[8], bv[8];          // 16-byte loads: scalar ones conflict 8 ways
-      load8(gb + i, gv);
-      if (!RMS) load8(gb + D + i, bv);
-      float y[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        y[j] = RMS ? __fmul_rn(__fmul_rn(v[j], rs), gv[j])
-                   : __fadd_rn(__fmul_rn(__fmul_rn(v[j] - mu, rs), gv[j]), bv[j]);
-      uint32_t packed[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        __nv_bfloat162 p = __floats2bfloat162_rn(y[2 * j], y[2 * j + 1]);
-        packed[j] = *reinterpret_cast<uint32_t*>(&p);
-      }
-      *reinterpret_cast<uint4*>(yr + i) = make_uint4(packed[0], packed[1], packed[2], packed[3]);
-    }
-  }
+  norm_rows_bf16<T, RMS>(x, gb, gb + D, &bars[0], B, NB, D, eps, ys, yld);
   __syncthreads();  // the norm rows are written
   mbar_wait(&bars[1], 0);
 
@@ -327,26 +219,34 @@ norm_qkv_tc_kernel(const T* __restrict__ x, const float* __restrict__ g,
 }
 
 // ---------------------------------------------------------------------------
-// B6 on the tensor cores, in three launches (tc_int8_kernel, one template
-// for the three phases; B2 / B11 can take them by their launch functions):
+// The second halves of B2 and B6, and B11, on the tensor cores: one template
+// (tc_int8_kernel) for their phases, each phase one launch:
 //   TC_ATTN_OUT  r = res + (bf16(x) @ W) * s (+ bias)
 //   TC_GLU       y = bf16(RMSNorm(x) * g);
 //                h = bf16(silu((y @ Wg) * sg) * ((y @ Wu) * su))
-//   TC_DOWN      out = res (+ bias) + sum over tw-wide tiles t of
-//                (x_t @ W_t) * s, the tiles added in order
-// Bound: the int8 weight bytes, 13.6 MB at D = 1024, I = 4096 (4.07 us at
-// 3.35 TB/s), at every row count 1-16.
+//   TC_GELU      y = bf16(LayerNorm(x) * g + b);
+//                h = bf16(gelu_new((y @ W) * s + bias))
+//   TC_DOWN      out = (res + bias) + sum over tw-wide tiles t of
+//                (x_t @ W_t) * s, the tiles added in order (B2, B6), or
+//                out = res + ((sum of the tiles) * s + bias) (B11)
+// B6 is TC_ATTN_OUT, TC_GLU, TC_DOWN; B2 is TC_ATTN_OUT (with bo), TC_GELU
+// on r, TC_DOWN over tw = 1024 tiles onto r + b2; B11 is TC_GELU on x, then
+// TC_DOWN with res = x in x's type. Bound: the int8 weight bytes, 13.6 MB
+// (B6), 9.44 MB (B2) and 8.39 MB (B11) at D = 1024, I = 4096 (4.07, 2.82
+// and 2.50 us at 3.35 TB/s), at every row count 1-16.
 //
 // The first design (one warp per output column, rows on the CUDA cores, the
-// rows staged or normalised before any weight load) took 31.48 us at 2 rows
-// and 87.02 us at 8 (NVIDIA H100 80GB HBM3, 700 W power limit;
-// chip_smoke.py phase 3). This design is B1 / B5's:
+// rows staged or normalised before any weight load) took B6 31.48 us at 2
+// rows and 87.02 us at 8, B2 20.38 us at 1 row and 70.40 at 8, B11 16.24 at
+// 1 row (NVIDIA H100 80GB HBM3, 700 W power limit; chip_smoke.py phase 3).
+// This design is B1 / B5's:
 //   * A block owns COLS output columns (TC_GLU: COLS / 2 hidden units, their
 //     gate and up rows) and 1 / KS of the contraction. At entry one thread
 //     starts the bulk copies (TMA) of its weight slab onto an mbarrier: one
 //     copy when KS = 1 (out-major columns are contiguous; two for the gate
 //     and up halves), else one per column. Then the rows are staged as bf16
-//     (or normalised, TC_GLU, one warp per row) while the slab streams.
+//     (or normalised, TC_GLU and TC_GELU, one warp per row) while the slab
+//     streams.
 //   * The rows go through mma.sync m16n8k16 (bf16, f32 sums), 16 weight
 //     columns as A (int8 -> bf16 in registers, exact), 8 rows as B (two
 //     tiles for 9-16 rows), with B1 / B5's permutation of k on both.
@@ -357,28 +257,31 @@ norm_qkv_tc_kernel(const T* __restrict__ x, const float* __restrict__ g,
 //     tile's sum. With KS > 1 the KS blocks of a column slab form a cluster,
 //     and each block writes its tiles' sums into rank 0's shared memory
 //     (between the two halves of the cluster barrier, as B3 does); rank 0
-//     applies the epilogue over the tiles in order: TC_ATTN_OUT sums them
-//     before the scale, TC_DOWN adds each tile's scaled sum onto res in turn
-//     (the Pallas grid's order).
-//   * TC_GLU and TC_DOWN call griddep_wait after their copies have started
-//     and before they read the previous phase's output, so with programmatic
-//     dependent launch each phase's weight stream overlaps the tail of the
-//     phase before.
-enum TcMode : int { TC_ATTN_OUT = 0, TC_GLU = 1, TC_DOWN = 2 };
+//     applies the epilogue over the tiles in order: TC_ATTN_OUT (and B11's
+//     TC_DOWN) sums them before the scale, B2 / B6's TC_DOWN adds each
+//     tile's scaled sum onto res in turn (the Pallas grid's order).
+//   * A phase after the first calls griddep_wait after its copies have
+//     started and before it reads the previous phase's output, so with
+//     programmatic dependent launch its weight stream overlaps the tail of
+//     the phase before.
+enum TcMode : int { TC_ATTN_OUT = 0, TC_GLU = 1, TC_GELU = 2, TC_DOWN = 3 };
 constexpr int TC_PAD = 8;          // bf16 entries after each staged row
 
 struct TcArgs {
-  const void* x;        // rows: TC_ATTN_OUT type T, TC_GLU f32, TC_DOWN bf16 (B, K)
-  const void* res;      // TC_ATTN_OUT: type T; TC_DOWN: f32 (B, N)
+  const void* x;        // rows (B, K): TC_DOWN bf16, the other phases type T
+  const void* res;      // TC_ATTN_OUT, TC_DOWN: type T (B, N)
   const int8_t* w;      // out-major (N, K); TC_GLU: the gate rows
   const int8_t* w2;     // TC_GLU: the up rows
   const float* s;       // per-column scales of w
   const float* s2;      // TC_GLU: of w2
-  const float* g;       // TC_GLU: the norm weight (K,)
-  const float* bias;    // TC_ATTN_OUT: after the scale; TC_DOWN: onto res; or null
-  void* out;            // TC_ATTN_OUT, TC_DOWN: (B, N) f32; TC_GLU: h (B, N) bf16
+  const float* g;       // TC_GLU, TC_GELU: the norm weight (K,)
+  const float* b;       // TC_GELU: the norm bias (K,)
+  const float* bias;    // (N,) or null: TC_ATTN_OUT, TC_GELU after the scale;
+                        // TC_DOWN onto res, or after the scale with scale_once
+  void* out;            // TC_ATTN_OUT: (B, N) f32; TC_DOWN: type T; TC_GLU, TC_GELU: h bf16
   int B, K, N, tw;      // tw: TC_DOWN's tile (K otherwise)
   float eps;
+  int scale_once;       // TC_DOWN: B11's order (see above)
 };
 
 // Shared memory of one block: the barrier, the slab, NB staged rows, the
@@ -392,10 +295,12 @@ __device__ __forceinline__ float silu(float x) { return x * (1.0f / (1.0f + expf
 
 // grid = N / UNITS * KS in clusters of KS consecutive blocks; NB = 8 or 16
 // rows; the tiles (K / NT wide) a multiple of 64, NT a multiple of KS, and
-// K a multiple of 256 for TC_GLU (tc_phase checks them).
+// K a multiple of 256 for the norm phases (tc_phase checks them).
 template <int MODE, typename T, int NB, int COLS, int KS>
 __global__ void __launch_bounds__(THREADS) tc_int8_kernel(const TcArgs p) {
-  static_assert(MODE != TC_GLU || KS == 1, "the norm needs the whole row");
+  constexpr bool NORM = MODE == TC_GLU || MODE == TC_GELU;
+  static_assert(!NORM || KS == 1, "the norm needs the whole row");
+  using XT = std::conditional_t<MODE == TC_DOWN, __nv_bfloat16, T>;
   constexpr int RT = NB / 8, MT = COLS / 16;
   constexpr int UNITS = MODE == TC_GLU ? COLS / 2 : COLS;     // outputs per row
   constexpr int EPT = (NB * UNITS + THREADS - 1) / THREADS;   // epilogue outputs a thread
@@ -435,6 +340,7 @@ __global__ void __launch_bounds__(THREADS) tc_int8_kernel(const TcArgs p) {
 
   // the epilogue's operands, loaded while the slab streams: output o = tid +
   // e * THREADS is (row o / UNITS, column n0 + o % UNITS)
+  const bool bias_on_res = MODE == TC_DOWN && !p.scale_once;
   float sc[EPT], sc2[EPT], rv[EPT], bv[EPT];
 #pragma unroll
   for (int e = 0; e < EPT; ++e) {
@@ -443,50 +349,19 @@ __global__ void __launch_bounds__(THREADS) tc_int8_kernel(const TcArgs p) {
     sc[e] = live ? p.s[n] : 0.f;
     sc2[e] = live && MODE == TC_GLU ? p.s2[n] : 0.f;
     rv[e] = bv[e] = 0.f;
-    const size_t at = (size_t)row * p.N + n;
-    if (live && MODE == TC_ATTN_OUT) rv[e] = to_f32(static_cast<const T*>(p.res)[at]);
-    if (live && MODE == TC_DOWN) rv[e] = static_cast<const float*>(p.res)[at];
+    if (live && (MODE == TC_ATTN_OUT || MODE == TC_DOWN))
+      rv[e] = to_f32(static_cast<const T*>(p.res)[(size_t)row * p.N + n]);
     if (live && MODE != TC_GLU && p.bias) {
-      if (MODE == TC_DOWN) rv[e] = __fadd_rn(rv[e], p.bias[n]);
+      if (bias_on_res) rv[e] = __fadd_rn(rv[e], p.bias[n]);
       else bv[e] = p.bias[n];
     }
   }
 
-  if (MODE == TC_GLU) {
-    // RMSNorm rows: warp w takes rows w, w + WARPS; lane i entries 8i + 256j
-    const float* x = static_cast<const float*>(p.x);
-    for (int r = warp; r < NB; r += WARPS) {
-      __nv_bfloat16* yr = ys + r * yld;
-      if (r >= B) {
-        for (int i = lane * 8; i < K; i += 256)
-          *reinterpret_cast<uint4*>(yr + i) = make_uint4(0, 0, 0, 0);
-        continue;
-      }
-      const float* xr = x + (size_t)r * K;
-      float v[8], acc = 0.f;
-#pragma unroll 4
-      for (int i = lane * 8; i < K; i += 256) {
-        load8(xr + i, v);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc += v[j] * v[j];
-      }
-      const float rs = rsqrtf(warp_sum(acc) / K + p.eps);
-#pragma unroll 4
-      for (int i = lane * 8; i < K; i += 256) {
-        float gv[8];
-        load8(xr + i, v);
-        load8(p.g + i, gv);
-        __nv_bfloat162 y[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          y[j] = __floats2bfloat162_rn(__fmul_rn(__fmul_rn(v[2 * j], rs), gv[2 * j]),
-                                       __fmul_rn(__fmul_rn(v[2 * j + 1], rs), gv[2 * j + 1]));
-        *reinterpret_cast<uint4*>(yr + i) = *reinterpret_cast<uint4*>(y);
-      }
-    }
-  } else {
-    stage_rows_bf16(static_cast<const T*>(p.x) + kb, K, B, NB, kspan, ys, yld);
-  }
+  if constexpr (NORM)
+    norm_rows_bf16<T, MODE == TC_GLU>(static_cast<const T*>(p.x), p.g, p.b, nullptr, B, NB, K,
+                                      p.eps, ys, yld);
+  else
+    stage_rows_bf16(static_cast<const XT*>(p.x) + kb, K, B, NB, kspan, ys, yld);
   __syncthreads();                 // the barrier is initialised, the rows staged
   if (KS > 1) cluster_arrive_relaxed();
   mbar_wait(bar, 0);
@@ -572,17 +447,21 @@ __global__ void __launch_bounds__(THREADS) tc_int8_kernel(const TcArgs p) {
       const float uu = __fmul_rn(sums[row * COLS + UNITS + u], sc2[e]);
       static_cast<__nv_bfloat16*>(p.out)[at] =
           __float2bfloat16(__fmul_rn(silu(ug), uu));
-    } else if (MODE == TC_ATTN_OUT) {
+    } else if (MODE == TC_GELU) {
+      const float hu = __fadd_rn(__fmul_rn(sums[row * COLS + u], sc[e]), bv[e]);
+      static_cast<__nv_bfloat16*>(p.out)[at] = __float2bfloat16(gelu_new(hu));
+    } else if (MODE == TC_ATTN_OUT || p.scale_once) {
       float sum = 0.f;
       for (int t = 0; t < NT; ++t) sum += sums[t * NB * COLS + row * COLS + u];
-      float v = __fadd_rn(rv[e], __fmul_rn(sum, sc[e]));
-      if (p.bias) v = __fadd_rn(v, bv[e]);
-      static_cast<float*>(p.out)[at] = v;
+      const float v = MODE == TC_ATTN_OUT
+                          ? __fadd_rn(__fadd_rn(rv[e], __fmul_rn(sum, sc[e])), bv[e])
+                          : __fadd_rn(rv[e], __fadd_rn(__fmul_rn(sum, sc[e]), bv[e]));
+      store(static_cast<std::conditional_t<MODE == TC_DOWN, T, float>*>(p.out) + at, v);
     } else {
       float v = rv[e];
       for (int t = 0; t < NT; ++t)
         v = __fadd_rn(v, __fmul_rn(sums[t * NB * COLS + row * COLS + u], sc[e]));
-      static_cast<float*>(p.out)[at] = v;
+      store(static_cast<T*>(p.out) + at, v);
     }
   }
 }
@@ -595,21 +474,22 @@ cudaError_t tc_launch(const TcArgs& p, unsigned grid, bool pdl, cudaStream_t st)
   return launch_ex<tc_int8_kernel<MODE, T, NB, COLS, KS>>(grid, smem, KS, pdl, st, p);
 }
 
-// One phase at KS blocks a column slab (1, 2 or 4; TC_GLU 1), after the
-// checks of the shapes the kernel takes.
+// One phase at KS blocks a column slab (1, 2 or 4; the norm phases 1),
+// after the checks of the shapes the kernel takes.
 template <int MODE, typename T, int COLS>
 cudaError_t tc_phase(const TcArgs& p, int ks, bool pdl, cudaStream_t st) {
+  constexpr bool NORM = MODE == TC_GLU || MODE == TC_GELU;
   constexpr int UNITS = MODE == TC_GLU ? COLS / 2 : COLS;
   const int NT = MODE == TC_DOWN ? p.K / p.tw : ks;
   if (p.B < 1 || p.B > 16 || p.N % UNITS || ks < 1 || NT % ks || p.K % NT || (p.K / NT) % 64
-      || (MODE == TC_DOWN && p.K % p.tw) || (MODE == TC_GLU && (ks != 1 || p.K % 256)))
+      || (MODE == TC_DOWN && p.K % p.tw) || (NORM && (ks != 1 || p.K % 256)))
     return cudaErrorInvalidValue;
   const unsigned grid = p.N / UNITS * ks;
   const bool two = p.B > 8;      // two 8-row MMA tiles
   if (ks == 1)
     return two ? tc_launch<MODE, T, 16, COLS, 1>(p, grid, pdl, st)
                : tc_launch<MODE, T, 8, COLS, 1>(p, grid, pdl, st);
-  if constexpr (MODE != TC_GLU) {
+  if constexpr (!NORM) {
     if (ks == 2)
       return two ? tc_launch<MODE, T, 16, COLS, 2>(p, grid, pdl, st)
                  : tc_launch<MODE, T, 8, COLS, 2>(p, grid, pdl, st);
@@ -622,89 +502,23 @@ cudaError_t tc_phase(const TcArgs& p, int ks, bool pdl, cudaStream_t st) {
 
 constexpr int TC_COLS = 16;        // output columns a block of TC_ATTN_OUT / TC_DOWN owns
 
-// B2 phase 1: r = xres + (bf16(a) @ Wo) * so + bo; grid = ceil(D / WARPS).
-template <typename T, int NB>
-__global__ void __launch_bounds__(THREADS)
-attn_out_kernel(const T* __restrict__ a, const T* __restrict__ xres,
-                const int8_t* __restrict__ wo_t, const float* __restrict__ so,
-                const float* __restrict__ bo, float* __restrict__ r_out, int B, int D) {
-  extern __shared__ float4 smem4[];
-  float* as = reinterpret_cast<float*>(smem4);
-  for (int i = threadIdx.x; i < B * D; i += blockDim.x) as[i] = round_bf16(to_f32(a[i]));
-  __syncthreads();
-  const int n = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (n >= D) return;
-  float acc[NB];
-  warp_dot_i8<NB>(wo_t + (size_t)n * D, as, D, D, B, acc);
-  if ((threadIdx.x & 31) == 0) {
-#pragma unroll
-    for (int r = 0; r < NB; ++r)
-      if (r < B) {
-        float v = to_f32(xres[(size_t)r * D + n]) + acc[r] * so[n];
-        if (bo) v += bo[n];
-        r_out[(size_t)r * D + n] = v;
-      }
-  }
+// TC_GELU at `units` hidden units a block (16, 32 or 64).
+template <typename T>
+cudaError_t gelu_phase(const TcArgs& p, int units, bool pdl, cudaStream_t st) {
+  return units == 64   ? tc_phase<TC_GELU, T, 64>(p, 1, pdl, st)
+         : units == 32 ? tc_phase<TC_GELU, T, 32>(p, 1, pdl, st)
+         : units == 16 ? tc_phase<TC_GELU, T, 16>(p, 1, pdl, st)
+                       : cudaErrorInvalidValue;
 }
 
-// B2 / B11 phase 2: h = bf16(gelu_new((bf16(LN2(r)) @ W1) * s1 + b1));
-// grid = ceil(I / WARPS), one hidden unit per warp.
-template <typename T, int NB>
-__global__ void __launch_bounds__(THREADS)
-ln_fc_in_kernel(const T* __restrict__ r, const float* __restrict__ g2,
-                const float* __restrict__ be2, const int8_t* __restrict__ w1_t,
-                const float* __restrict__ s1, const float* __restrict__ b1,
-                __nv_bfloat16* __restrict__ h, int B, int D, int I, float eps) {
-  extern __shared__ float4 smem4[];
-  float* ys = reinterpret_cast<float*>(smem4);
-  float* red = ys + (size_t)B * D;
-  norm_bf16<T, false>(r, g2, be2, B, D, eps, ys, red);
-  const int j = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (j >= I) return;
-  float acc[NB];
-  warp_dot_i8<NB>(w1_t + (size_t)j * D, ys, D, D, B, acc);
-  if ((threadIdx.x & 31) == 0) {
-#pragma unroll
-    for (int rr = 0; rr < NB; ++rr)
-      if (rr < B) h[(size_t)rr * I + j] = __float2bfloat16(gelu_new(acc[rr] * s1[j] + b1[j]));
-  }
-}
-
-// B2 / B11 phase 3: out = (r + b2) + sum over tw-wide tiles t of
-// (h_t @ W2_t) * s2, tiles added in order; r and out of type T (f32 for
-// B2, x's type for B11); grid = ceil(D / WARPS).
-template <typename T, int NB>
-__global__ void __launch_bounds__(THREADS)
-down_kernel(const __nv_bfloat16* __restrict__ h, const T* __restrict__ r,
-            const int8_t* __restrict__ w2_t, const float* __restrict__ s2,
-            const float* __restrict__ b2, T* __restrict__ out, int B, int D, int I,
-            int tw) {
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem4);
-  {  // B * I bf16 is a multiple of 8 (I % 512 == 0): copy 16 bytes a thread
-    const uint4* src = reinterpret_cast<const uint4*>(h);
-    uint4* dst = reinterpret_cast<uint4*>(hs);
-    for (int i = threadIdx.x; i < B * I / 8; i += blockDim.x) dst[i] = src[i];
-  }
-  __syncthreads();
-  const int n = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (n >= D) return;
-  float o[NB], acc[NB];
-#pragma unroll
-  for (int rr = 0; rr < NB; ++rr) {
-    o[rr] = rr < B ? to_f32(r[(size_t)rr * D + n]) : 0.f;
-    if (b2) o[rr] += b2[n];
-  }
-  for (int t0 = 0; t0 < I; t0 += tw) {
-    warp_dot_i8<NB>(w2_t + (size_t)n * I + t0, hs + t0, tw, I, B, acc);
-#pragma unroll
-    for (int rr = 0; rr < NB; ++rr) o[rr] += acc[rr] * s2[n];
-  }
-  if ((threadIdx.x & 31) == 0) {
-#pragma unroll
-    for (int rr = 0; rr < NB; ++rr)
-      if (rr < B) store(out + (size_t)rr * D + n, o[rr]);
-  }
+// B11: TC_GELU on x, then TC_DOWN with res = x, its KS blocks each taking
+// one tile of I / KS hidden units; eps is the Pallas kernel's fixed 1e-5.
+template <typename T>
+cudaError_t fused_mlp(const TcArgs& gelu, const TcArgs& down, int units, int ks_down, bool pdl,
+                      cudaStream_t st) {
+  const cudaError_t err = gelu_phase<T>(gelu, units, false, st);
+  if (err != cudaSuccess) return err;
+  return tc_phase<TC_DOWN, T, TC_COLS>(down, ks_down, pdl, st);
 }
 
 template <bool RMS>
@@ -724,56 +538,14 @@ cudaError_t launch_norm_qkv(const void* x, int x_bf16, const float* g, const flo
 #undef NORM_QKV
 }
 
-cudaError_t launch_attn_out(const void* a, const void* xres, int in_bf16,
-                            const int8_t* wo_t, const float* so, const float* bo,
-                            float* r_buf, int B, int D, cudaStream_t st) {
-  const size_t smem = (size_t)B * D * sizeof(float);
-  cudaError_t err = cudaSuccess;
-  if (in_bf16)
-    DISPATCH_ROWS(B, err = launch<attn_out_kernel<__nv_bfloat16, NB>>(blocks_for(D), smem, st,
-                                  (const __nv_bfloat16*)a, (const __nv_bfloat16*)xres, wo_t,
-                                  so, bo, r_buf, B, D));
-  else
-    DISPATCH_ROWS(B, err = launch<attn_out_kernel<float, NB>>(blocks_for(D), smem, st,
-                                  (const float*)a, (const float*)xres, wo_t, so, bo, r_buf,
-                                  B, D));
-  return err;
-}
-
-template <typename T>
-cudaError_t launch_down(const __nv_bfloat16* h_buf, const T* r_buf, const int8_t* w2_t,
-                        const float* s2, const float* b2, T* out, int B, int D, int I,
-                        int tw, cudaStream_t st) {
-  const size_t smem = (size_t)B * I * sizeof(__nv_bfloat16);
-  cudaError_t err = cudaSuccess;
-  DISPATCH_ROWS(B, err = launch<down_kernel<T, NB>>(blocks_for(D), smem, st, h_buf, r_buf,
-                                w2_t, s2, b2, out, B, D, I, tw));
-  return err;
-}
-
-// B11: phase 2 then phase 3 of B2 on x itself; eps is the Pallas kernel's
-// fixed 1e-5.
-template <typename T>
-cudaError_t launch_fused_mlp(const T* x, const float* g, const float* b, const int8_t* w1_t,
-                             const float* s1, const float* b1, const int8_t* w2_t,
-                             const float* s2, const float* b2, __nv_bfloat16* h_buf, T* out,
-                             int B, int D, int I, cudaStream_t st) {
-  const size_t smem_ln = ((size_t)B * D + WARPS) * sizeof(float);
-  cudaError_t err = cudaSuccess;
-  DISPATCH_ROWS(B, err = launch<ln_fc_in_kernel<T, NB>>(blocks_for(I), smem_ln, st, x, g, b,
-                                w1_t, s1, b1, h_buf, B, D, I, 1e-5f));
-  if (err != cudaSuccess) return err;
-  return launch_down<T>(h_buf, x, w2_t, s2, b2, out, B, D, I, I, st);
-}
-
 }  // namespace
 
-// The wrapper (kernels/fused_layer.py) checks shapes, types, 16-byte
-// alignment, 1 <= B <= 16, K % K_STEP == 0, N % QKV_COLS == 0 (B1, B5),
-// tw % K_STEP == 0 and I % tw == 0, and that each launch's shared memory
-// fits the 227 KB a block may opt in to. h_buf is (B, I) bf16 scratch, r_buf
-// (B, D) f32. B11's out has x's type. Each function returns the first CUDA
-// error of its launches (0 on success).
+// The wrappers (kernels/fused_layer.py, kernels/fused_mlp.py) check shapes,
+// types, 16-byte alignment, 1 <= B <= 16, the contraction a multiple of 512
+// (and of N % QKV_COLS == 0 for B1, B5), the tilings, and that each launch's
+// shared memory fits the 227 KB a block may opt in to. h_buf is (B, I) bf16
+// scratch, r_buf (B, D) f32. Each function returns the first CUDA error of
+// its launches (0 on success).
 extern "C" {
 
 int ln_qkv_int8_launch(const void* x, int x_bf16, const float* g, const float* b,
@@ -796,21 +568,31 @@ int rms_qkv_int8_launch(const void* x, int x_bf16, const float* g, const int8_t*
                                     eps, (cudaStream_t)stream);
 }
 
+// B2: the three tensor-core phases. tw: the hidden tile W2's scale applies
+// to; ks_attn, ks_down: blocks a column slab of attn-out and down (1, 2 or
+// 4); gelu_units: hidden units a TC_GELU block owns (16, 32 or 64); pdl:
+// the second and third phases by programmatic dependent launch.
 int attnout_ln_mlp_int8_launch(const void* a, const void* xres, int in_bf16,
                                const int8_t* wo_t, const float* so, const float* bo,
                                const float* g2, const float* be2,
                                const int8_t* w1_t, const float* s1, const float* b1,
                                const int8_t* w2_t, const float* s2, const float* b2,
                                float* r_buf, __nv_bfloat16* h_buf, float* out,
-                               int B, int D, int I, float eps, void* stream) {
+                               int B, int D, int I, int tw, float eps, int ks_attn,
+                               int gelu_units, int ks_down, int pdl, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = launch_attn_out(a, xres, in_bf16, wo_t, so, bo, r_buf, B, D, st);
+  const TcArgs p1 = {a, xres, wo_t, nullptr, so, nullptr, nullptr, nullptr, bo, r_buf,
+                     B, D, D, D, eps, 0};
+  cudaError_t err = in_bf16 ? tc_phase<TC_ATTN_OUT, __nv_bfloat16, TC_COLS>(p1, ks_attn, false, st)
+                            : tc_phase<TC_ATTN_OUT, float, TC_COLS>(p1, ks_attn, false, st);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem_ln = ((size_t)B * D + WARPS) * sizeof(float);
-  DISPATCH_ROWS(B, err = launch<ln_fc_in_kernel<float, NB>>(blocks_for(I), smem_ln, st, r_buf,
-                                g2, be2, w1_t, s1, b1, h_buf, B, D, I, eps));
+  const TcArgs p2 = {r_buf, nullptr, w1_t, nullptr, s1, nullptr, g2, be2, b1, h_buf,
+                     B, D, I, D, eps, 0};
+  err = gelu_phase<float>(p2, gelu_units, pdl != 0, st);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_down<float>(h_buf, r_buf, w2_t, s2, b2, out, B, D, I, I, st);
+  const TcArgs p3 = {h_buf, r_buf, w2_t, nullptr, s2, nullptr, nullptr, nullptr, b2, out,
+                     B, I, D, tw, eps, 0};
+  return (int)tc_phase<TC_DOWN, float, TC_COLS>(p3, ks_down, pdl != 0, st);
 }
 
 // B6: the three tensor-core phases. ks_attn, ks_down: blocks a column slab
@@ -826,32 +608,38 @@ int attnout_rms_glu_int8_launch(const void* a, const void* xres, int in_bf16,
                                 int B, int D, int I, int tw, float eps, int ks_attn,
                                 int glu_units, int ks_down, int pdl, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const TcArgs p1 = {a, xres, wo_t, nullptr, so, nullptr, nullptr, nullptr, r_buf,
-                     B, D, D, D, eps};
+  const TcArgs p1 = {a, xres, wo_t, nullptr, so, nullptr, nullptr, nullptr, nullptr, r_buf,
+                     B, D, D, D, eps, 0};
   cudaError_t err = in_bf16 ? tc_phase<TC_ATTN_OUT, __nv_bfloat16, TC_COLS>(p1, ks_attn, false, st)
                             : tc_phase<TC_ATTN_OUT, float, TC_COLS>(p1, ks_attn, false, st);
   if (err != cudaSuccess) return (int)err;
-  const TcArgs p2 = {r_buf, nullptr, wg_t, wu_t, sg, su, g2, nullptr, h_buf, B, D, I, D, eps};
+  const TcArgs p2 = {r_buf, nullptr, wg_t, wu_t, sg, su, g2, nullptr, nullptr, h_buf,
+                     B, D, I, D, eps, 0};
   err = glu_units == 32   ? tc_phase<TC_GLU, float, 64>(p2, 1, pdl != 0, st)
         : glu_units == 16 ? tc_phase<TC_GLU, float, 32>(p2, 1, pdl != 0, st)
                           : cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
-  const TcArgs p3 = {h_buf, r_buf, wd_t, nullptr, sd, nullptr, nullptr, nullptr, out,
-                     B, I, D, tw, eps};
-  return (int)tc_phase<TC_DOWN, __nv_bfloat16, TC_COLS>(p3, ks_down, pdl != 0, st);
+  const TcArgs p3 = {h_buf, r_buf, wd_t, nullptr, sd, nullptr, nullptr, nullptr, nullptr, out,
+                     B, I, D, tw, eps, 0};
+  return (int)tc_phase<TC_DOWN, float, TC_COLS>(p3, ks_down, pdl != 0, st);
 }
 
+// B11: out (x's type) = x + MLP(LN(x)); gelu_units and ks_down as B2's, the
+// down phase by programmatic dependent launch with pdl.
 int fused_mlp_int8_launch(const void* x, int x_bf16, const float* g, const float* b,
                           const int8_t* w1_t, const float* s1, const float* b1,
                           const int8_t* w2_t, const float* s2, const float* b2,
-                          __nv_bfloat16* h_buf, void* out, int B, int D, int I, void* stream) {
+                          __nv_bfloat16* h_buf, void* out, int B, int D, int I, int gelu_units,
+                          int ks_down, int pdl, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (ks_down < 1 || I % ks_down) return (int)cudaErrorInvalidValue;
+  const TcArgs gelu = {x, nullptr, w1_t, nullptr, s1, nullptr, g, b, b1, h_buf,
+                       B, D, I, D, 1e-5f, 0};
+  const TcArgs down = {h_buf, x, w2_t, nullptr, s2, nullptr, nullptr, nullptr, b2, out,
+                       B, I, D, I / ks_down, 1e-5f, 1};
   if (x_bf16)
-    return (int)launch_fused_mlp<__nv_bfloat16>((const __nv_bfloat16*)x, g, b, w1_t, s1, b1,
-                                                 w2_t, s2, b2, h_buf, (__nv_bfloat16*)out,
-                                                 B, D, I, st);
-  return (int)launch_fused_mlp<float>((const float*)x, g, b, w1_t, s1, b1, w2_t, s2, b2, h_buf,
-                                      (float*)out, B, D, I, st);
+    return (int)fused_mlp<__nv_bfloat16>(gelu, down, gelu_units, ks_down, pdl != 0, st);
+  return (int)fused_mlp<float>(gelu, down, gelu_units, ks_down, pdl != 0, st);
 }
 
 }  // extern "C"

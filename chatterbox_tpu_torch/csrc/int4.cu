@@ -26,19 +26,19 @@
 // (1.46 us); a Llama-520M layer's seven B8 calls 8.39 + 0.26 MB (2.58 us).
 // Half of what the int8 kernels B1, B2, B5 and B6 read for the same layer.
 //
-// B8 runs a tensor-core kernel with its own note (matmul_int4_tc_kernel
-// below). The design of B9 and B10 (B1 / B2's first one, simple and right
-// first; no TMA, no tensor cores):
-//   * Packed weights and scales are stored OUT-MAJOR: (N, K/2) bytes and
-//     (N, G) scales for the row split, (N/2, K) and (N/2, G) for the column
-//     split. One warp owns one output column (B10's phase 2: one packed
-//     column, i.e. hidden units c and c + I/2) and streams its bytes with
-//     16-byte loads, 512 bytes a warp per iteration.
+// B8 and B9 run a tensor-core kernel with its own note (int4_tc_kernel
+// below). The design of B10 (B2's first one, simple and right first; no
+// TMA, no tensor cores):
+//   * Packed weights and scales are stored OUT-MAJOR (every int4 kernel):
+//     (N, K/2) bytes and (N, G) scales for the row split, (N/2, K) and
+//     (N/2, G) for the column split. One warp owns one output column (phase
+//     2: one packed column, i.e. hidden units c and c + I/2) and streams its
+//     bytes with 16-byte loads, 512 bytes a warp per iteration.
 //   * 16 packed bytes are 16 rows of one 256-row group, so a lane scales
 //     its partial sums per load; the high nibble comes from the signed byte
 //     by an arithmetic shift, the low one as ((b & 15) ^ 8) - 8.
-//   * B9 and B10's phase 2 recompute the LayerNorm rows in every block, as
-//     B1's first design did; B10 is three launches on one stream, as B2 is:
+//   * Phase 2 recomputes the LayerNorm rows in every block, as B1's first
+//     design did; B10 is three launches on one stream, as B2 is:
 //     attn-out + residual, LN2 + fc_in + gelu, fc_out + residual, with r
 //     (f32) and h (bf16) in global scratch.
 
@@ -117,31 +117,6 @@ __device__ __forceinline__ void warp_dot_i4c(const int8_t* __restrict__ wc,
   for (int r = 0; r < NB; ++r) {
     a[r] = warp_sum(a[r]);
     b[r] = warp_sum(b[r]);
-  }
-}
-
-// B9: out = bias + (bf16(LN(x)) @ W); grid = ceil(N / WARPS).
-template <typename T, int NB>
-__global__ void __launch_bounds__(THREADS)
-ln_qkv_int4_kernel(const T* __restrict__ x, const float* __restrict__ g,
-                   const float* __restrict__ b, const int8_t* __restrict__ wp_t,
-                   const float* __restrict__ slo_t, const float* __restrict__ shi_t,
-                   const float* __restrict__ bias, float* __restrict__ out, int B, int D, int N,
-                   float eps) {
-  extern __shared__ float4 smem4[];
-  float* ys = reinterpret_cast<float*>(smem4);
-  float* red = ys + (size_t)B * D;
-  norm_bf16<T, false>(x, g, b, B, D, eps, ys, red);
-  const int n = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (n >= N) return;
-  const int K2 = D / 2, G = K2 / GROUP;
-  float acc[NB];
-  warp_dot_i4<NB>(wp_t + (size_t)n * K2, slo_t + (size_t)n * G, shi_t + (size_t)n * G, ys, K2,
-                  D, B, acc);
-  if ((threadIdx.x & 31) == 0) {
-#pragma unroll
-    for (int r = 0; r < NB; ++r)
-      if (r < B) out[(size_t)r * N + n] = bias[n] + acc[r];
   }
 }
 
@@ -231,37 +206,46 @@ down_int4_kernel(const __nv_bfloat16* __restrict__ h, const float* __restrict__ 
 }
 
 // ---------------------------------------------------------------------------
-// B8 on the tensor cores. Bound: the packed bytes and scales, 1.05 MB at
-// K = 4096, N = 1024 (0.31 us at 3.35 TB/s), at every row count 1-8.
+// B8 and B9 on the tensor cores (int4_tc_kernel, one template; LN selects
+// B9). Bound: the packed bytes and scales, 1.05 MB for B8 at K = 4096,
+// N = 1024 (0.31 us at 3.35 TB/s), 1.62 MB for B9 at D = 1024, N = 3072
+// (0.49 us), at every row count (B8 1-8, B9 1-16).
 //
-// The first design (one warp per output column, x staged as bf16 by every
-// block before its first weight load, one nibble at a time into floats and B
-// FMAs a nibble) took 7.62 us a call at 2 rows and 21.82 us at 8 (NVIDIA
-// H100 80GB HBM3, 700 W power limit; chip_smoke.py phase 3). This design is
-// B1 / B5's:
+// The first designs (one warp per output column, the rows staged as bf16 or
+// normalised by every block before its first weight load, one nibble at a
+// time into floats and B FMAs a nibble) took B8 7.62 us a call at 2 rows and
+// 21.82 us at 8, B9 7.00 us at 1 row and 31.32 at 8 (NVIDIA H100 80GB HBM3,
+// 700 W power limit; chip_smoke.py phase 3). This design is B1 / B5's:
 //   * A block owns COLS output columns and 1 / KS of the packed rows. At
 //     entry one thread starts the bulk copies (TMA) of its packed slab (one
 //     copy when KS = 1: out-major columns are contiguous; else one a column)
-//     and of the columns' lo and hi scales, on two mbarriers. While they fly
-//     the block stages x's two halves as bf16 (16-byte loads, f32 rounded).
+//     and of the columns' lo and hi scales (and B9's LayerNorm g and b), on
+//     two mbarriers. While they fly the block stages x's two halves as bf16
+//     (16-byte loads, f32 rounded), or, B9, computes bf16(LN(x)) of its rows
+//     (norm_rows_bf16, one warp a row, as B1): the normalised row is the two
+//     halves side by side, the layout B8 stages.
 //   * Nibbles become bf16 in registers, two at a time, exactly: the nibble
 //     XOR 8 is put in the mantissa of 128 (0x4300) and 136 is taken off.
-//   * mma.sync m16n8k16 (bf16, f32 sums): 16 columns as A, the 8 rows as B,
-//     so 1 and 8 rows cost the same; B1 / B5's permutation of k serves both
-//     operands (lane (g, t) reads 16 packed bytes of a column, i.e. 16 low
-//     and 16 high nibbles, and the matching 16 bf16 of each half of x).
+//   * mma.sync m16n8k16 (bf16, f32 sums): 16 columns as A, 8 rows as B (two
+//     tiles for 9-16 rows), so 1 and 8 rows cost the same; B1 / B5's
+//     permutation of k serves both operands (lane (g, t) reads 16 packed
+//     bytes of a column, i.e. 16 low and 16 high nibbles, and the matching
+//     16 bf16 of each half of the rows).
 //   * The warps split the block's packed rows into contiguous runs of
 //     64-row chunks. The low and high halves' MMAs accumulate in fresh
 //     fragments for as long as the chunks stay in one 256-row group; each
 //     takes its group's scale (s_lo, s_hi) once before it joins the warp's
 //     running sum, the Pallas order of operations. The warps' sums meet in
-//     shared memory in warp order; with KS > 1 the KS blocks of a column
-//     slab form a cluster, each writes its sum into rank 0's shared memory
-//     (as B3 does), and rank 0 adds them in order.
+//     shared memory and are added in warp order, B9's onto the bias (the
+//     Pallas accumulator starts at the bias and takes the groups in order);
+//     with KS > 1 the KS blocks of a column slab form a cluster, each writes
+//     its sum into rank 0's shared memory (as B3 does), and rank 0 adds them
+//     in order.
 //   * The result is written in the type the caller names (f32, the Pallas
-//     contract, or bf16: nn.linear's cast done in the kernel).
-// COLS and KS come from the wrapper (int4_tiling, from chip_smoke.py's
-// sweep on the card).
+//     contract, or bf16: nn.linear's cast done in the kernel; B9 f32).
+// COLS and KS come from the wrappers (int4_tiling, ln_qkv_int4_tiling, from
+// chip_smoke.py's sweeps on the card). B9 takes no split: its norm needs
+// every block to read whole rows.
 constexpr int I4_PAD = 8;          // bf16 entries after each staged row
 
 // The eight nibbles of four packed bytes as bf16 pairs: lo01 / lo23 the low
@@ -283,25 +267,31 @@ __device__ __forceinline__ void nibbles_to_bf16(uint32_t w, uint32_t& lo01, uint
   hi23 = cvt(b23 >> 4);
 }
 
-// Shared memory of one B8 block: two barriers, the scales, the slab, 8
-// staged rows of both halves, the warps' partial sums and the KS sums.
-__host__ __device__ constexpr size_t int4_tc_smem(int cols, int ks, int K2) {
-  return 16 + (size_t)2 * cols * (K2 / GROUP) * 4 + (size_t)cols * (K2 / ks)
-         + (size_t)8 * (2 * (K2 / ks) + I4_PAD) * 2 + (size_t)(WARPS + ks) * 8 * cols * 4;
+// Shared memory of one block: two barriers, g and b (B9: 2 K floats), the
+// scales, the slab, NB staged rows of both halves, the warps' partial sums
+// and the KS sums.
+__host__ __device__ constexpr size_t int4_tc_smem(int NB, int cols, int ks, int K2, bool ln) {
+  return 16 + (ln ? (size_t)4 * K2 * 4 : 0) + (size_t)2 * cols * (K2 / GROUP) * 4
+         + (size_t)cols * (K2 / ks) + (size_t)NB * (2 * (K2 / ks) + I4_PAD) * 2
+         + (size_t)(WARPS + ks) * NB * cols * 4;
 }
 
-// grid = N / COLS * KS in clusters of KS consecutive blocks; B <= 8;
-// K2 / KS a multiple of 64.
-template <typename T, typename OUT, int COLS, int KS>
+// grid = N / COLS * KS in clusters of KS consecutive blocks; B <= NB (8, or
+// 16 with LN); K2 / KS a multiple of 64; LN: KS = 1, g, b and bias given.
+template <typename T, typename OUT, int NB, int COLS, int KS, bool LN>
 __global__ void __launch_bounds__(THREADS)
-matmul_int4_tc_kernel(const T* __restrict__ x, const int8_t* __restrict__ wp_t,
-                      const float* __restrict__ slo_t, const float* __restrict__ shi_t,
-                      OUT* __restrict__ out, int B, int K2, int N) {
-  constexpr int NB = 8, MT = COLS / 16;
+int4_tc_kernel(const T* __restrict__ x, const float* __restrict__ g, const float* __restrict__ b,
+               const int8_t* __restrict__ wp_t, const float* __restrict__ slo_t,
+               const float* __restrict__ shi_t, const float* __restrict__ bias,
+               OUT* __restrict__ out, int B, int K2, int N, float eps) {
+  static_assert(!LN || KS == 1, "the norm needs the whole row");
+  constexpr int RT = NB / 8, MT = COLS / 16;
+  constexpr int EPT = (NB * COLS + THREADS - 1) / THREADS;    // epilogue outputs a thread
   extern __shared__ float4 smem4[];
   const int kspan = K2 / KS, G = K2 / GROUP, K = 2 * K2;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem4);        // [0] scales, [1] slab
-  float* scl = reinterpret_cast<float*>(smem4 + 1);            // [col][group]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem4);        // [0] scales (g, b), [1] slab
+  float* gb = reinterpret_cast<float*>(smem4 + 1);             // LN: g, then b
+  float* scl = gb + (LN ? 2 * K : 0);                          // [col][group]
   float* sch = scl + COLS * G;
   int8_t* ws = reinterpret_cast<int8_t*>(sch + COLS * G);
   __nv_bfloat16* ys = reinterpret_cast<__nv_bfloat16*>(ws + COLS * kspan);
@@ -317,9 +307,13 @@ matmul_int4_tc_kernel(const T* __restrict__ x, const int8_t* __restrict__ wp_t,
       mbar_init(&bars[1], 1);
       mbar_fence_init();
       mbar_expect_tx(&bars[1], COLS * kspan);
-      mbar_expect_tx(&bars[0], 2 * COLS * G * 4);
+      mbar_expect_tx(&bars[0], 2 * COLS * G * 4 + (LN ? 2 * K * 4 : 0));
       bulk_load(scl, slo_t + (size_t)n0 * G, COLS * G * 4, &bars[0]);
       bulk_load(sch, shi_t + (size_t)n0 * G, COLS * G * 4, &bars[0]);
+      if (LN) {
+        bulk_load(gb, g, K * 4, &bars[0]);
+        bulk_load(gb + K, b, K * 4, &bars[0]);
+      }
     }
     __syncwarp();
     if (KS == 1) {
@@ -329,9 +323,20 @@ matmul_int4_tc_kernel(const T* __restrict__ x, const int8_t* __restrict__ wp_t,
         bulk_load(ws + c * kspan, wp_t + (size_t)(n0 + c) * K2 + kb, kspan, &bars[1]);
     }
   }
-  stage_rows_bf16(x + kb, K, B, NB, kspan, ys, yld);
-  stage_rows_bf16(x + K2 + kb, K, B, NB, kspan, ys + kspan, yld);
-  __syncthreads();                 // the barriers are initialised, x staged
+  // the sums' start, loaded while the copies fly: output o = tid + e *
+  // THREADS is (row o / COLS, column n0 + o % COLS)
+  float start[EPT];
+#pragma unroll
+  for (int e = 0; e < EPT; ++e)
+    start[e] = LN && tid + e * THREADS < NB * COLS ? bias[n0 + (tid + e * THREADS) % COLS] : 0.f;
+  if constexpr (LN) {
+    __syncthreads();               // the barriers are initialised
+    norm_rows_bf16<T, false>(x, gb, gb + K, &bars[0], B, NB, K, eps, ys, yld);
+  } else {
+    stage_rows_bf16(x + kb, K, B, NB, kspan, ys, yld);
+    stage_rows_bf16(x + K2 + kb, K, B, NB, kspan, ys + kspan, yld);
+  }
+  __syncthreads();                 // the barriers are initialised, the rows staged
   if (KS > 1) cluster_arrive_relaxed();
   mbar_wait(&bars[0], 0);
   mbar_wait(&bars[1], 0);
@@ -339,11 +344,13 @@ matmul_int4_tc_kernel(const T* __restrict__ x, const int8_t* __restrict__ wp_t,
   const int gq = lane >> 2, tq = lane & 3;
   const int chunks = kspan / 64, per_warp = (chunks + WARPS - 1) / WARPS;
   const int c_lo = min(warp * per_warp, chunks), c_hi = min(c_lo + per_warp, chunks);
-  float run[MT][4], alo[MT][4], ahi[MT][4];
+  float run[MT][RT][4], alo[MT][RT][4], ahi[MT][RT][4];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) run[mt][i] = alo[mt][i] = ahi[mt][i] = 0.f;
+    for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) run[mt][rt][i] = alo[mt][rt][i] = ahi[mt][rt][i] = 0.f;
   // the group's sums, scaled, onto the running sum; fragment entry i holds
   // column 16 mt + g (+ 8 for i >= 2)
   const auto fold = [&](int grp) {
@@ -352,9 +359,13 @@ matmul_int4_tc_kernel(const T* __restrict__ x, const int8_t* __restrict__ wp_t,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int col = 16 * mt + gq + (i >= 2 ? 8 : 0);
-        run[mt][i] = __fadd_rn(run[mt][i], __fadd_rn(__fmul_rn(alo[mt][i], scl[col * G + grp]),
-                                                     __fmul_rn(ahi[mt][i], sch[col * G + grp])));
-        alo[mt][i] = ahi[mt][i] = 0.f;
+        const float sl = scl[col * G + grp], sh = sch[col * G + grp];
+#pragma unroll
+        for (int rt = 0; rt < RT; ++rt) {
+          run[mt][rt][i] = __fadd_rn(run[mt][rt][i], __fadd_rn(__fmul_rn(alo[mt][rt][i], sl),
+                                                               __fmul_rn(ahi[mt][rt][i], sh)));
+          alo[mt][rt][i] = ahi[mt][rt][i] = 0.f;
+        }
       }
   };
   int grp = c_lo < c_hi ? (kb + 64 * c_lo) / GROUP : 0;
@@ -364,13 +375,15 @@ matmul_int4_tc_kernel(const T* __restrict__ x, const int8_t* __restrict__ wp_t,
       fold(grp);
       grp = (kb + k0) / GROUP;
     }
-    const __nv_bfloat16* xr = ys + gq * yld + k0 + 16 * tq;
-    const uint4 xl[2] = {reinterpret_cast<const uint4*>(xr)[0],
-                         reinterpret_cast<const uint4*>(xr)[1]};
-    const uint4 xh[2] = {reinterpret_cast<const uint4*>(xr + kspan)[0],
-                         reinterpret_cast<const uint4*>(xr + kspan)[1]};
-    const uint32_t* xlb = reinterpret_cast<const uint32_t*>(xl);
-    const uint32_t* xhb = reinterpret_cast<const uint32_t*>(xh);
+    uint4 xl[RT][2], xh[RT][2];
+#pragma unroll
+    for (int rt = 0; rt < RT; ++rt) {
+      const __nv_bfloat16* xr = ys + (8 * rt + gq) * yld + k0 + 16 * tq;
+      xl[rt][0] = reinterpret_cast<const uint4*>(xr)[0];
+      xl[rt][1] = reinterpret_cast<const uint4*>(xr)[1];
+      xh[rt][0] = reinterpret_cast<const uint4*>(xr + kspan)[0];
+      xh[rt][1] = reinterpret_cast<const uint4*>(xr + kspan)[1];
+    }
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
       const int8_t* wc = ws + (16 * mt + gq) * kspan + k0 + 16 * tq;
@@ -383,27 +396,37 @@ matmul_int4_tc_kernel(const T* __restrict__ x, const int8_t* __restrict__ wp_t,
         uint32_t al[4], ah[4];   // columns g and g + 8, k slots 2t, 2t+1 | 2t+8, 2t+9
         nibbles_to_bf16(p0[j], al[0], al[2], ah[0], ah[2]);
         nibbles_to_bf16(p1[j], al[1], al[3], ah[1], ah[3]);
-        mma_bf16_16816(alo[mt], al, xlb[2 * j], xlb[2 * j + 1]);
-        mma_bf16_16816(ahi[mt], ah, xhb[2 * j], xhb[2 * j + 1]);
+#pragma unroll
+        for (int rt = 0; rt < RT; ++rt) {
+          const uint32_t* xlb = reinterpret_cast<const uint32_t*>(&xl[rt][0]);
+          const uint32_t* xhb = reinterpret_cast<const uint32_t*>(&xh[rt][0]);
+          mma_bf16_16816(alo[mt][rt], al, xlb[2 * j], xlb[2 * j + 1]);
+          mma_bf16_16816(ahi[mt][rt], ah, xhb[2 * j], xhb[2 * j + 1]);
+        }
       }
     }
   }
   if (c_lo < c_hi) fold(grp);
 
-  // lane (g, t) holds columns 16 mt + g, + 8 of rows 2t, 2t + 1
+  // lane (g, t) holds columns 16 mt + g, + 8 of rows 8 rt + 2t, + 1
   float* pw = part + warp * NB * COLS;
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    float* q = pw + 2 * tq * COLS + 16 * mt + gq;
-    q[0] = run[mt][0];
-    q[COLS] = run[mt][1];
-    q[8] = run[mt][2];
-    q[COLS + 8] = run[mt][3];
-  }
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int rt = 0; rt < RT; ++rt) {
+      float* q = pw + (8 * rt + 2 * tq) * COLS + 16 * mt + gq;
+      q[0] = run[mt][rt][0];
+      q[COLS] = run[mt][rt][1];
+      q[8] = run[mt][rt][2];
+      q[COLS + 8] = run[mt][rt][3];
+    }
   __syncthreads();
   if (KS > 1) cluster_wait();      // every block of the cluster runs
-  for (int o = tid; o < NB * COLS; o += THREADS) {
-    float sum = 0.f;
+#pragma unroll
+  for (int e = 0; e < EPT; ++e) {
+    const int o = tid + e * THREADS;
+    if (o >= NB * COLS) continue;
+    float sum = start[e];
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) sum += part[w * NB * COLS + o];
     if (KS > 1) st_cluster(sums + ks * NB * COLS + o, 0, sum);
@@ -421,26 +444,43 @@ matmul_int4_tc_kernel(const T* __restrict__ x, const int8_t* __restrict__ wp_t,
   }
 }
 
-template <typename T, typename OUT, int COLS, int KS>
-cudaError_t int4_tc_launch(const void* x, const int8_t* wp_t, const float* slo_t,
-                           const float* shi_t, void* out, int B, int K2, int N,
-                           cudaStream_t st) {
-  const size_t smem = int4_tc_smem(COLS, KS, K2);
+template <typename T, typename OUT, int NB, int COLS, int KS, bool LN>
+cudaError_t int4_tc_launch(const void* x, const float* g, const float* b, const int8_t* wp_t,
+                           const float* slo_t, const float* shi_t, const float* bias, void* out,
+                           int B, int K2, int N, float eps, cudaStream_t st) {
+  const size_t smem = int4_tc_smem(NB, COLS, KS, K2, LN);
   if (smem > SMEM_MAX) return cudaErrorInvalidValue;
-  return launch_ex<matmul_int4_tc_kernel<T, OUT, COLS, KS>>(
-      N / COLS * KS, smem, KS, false, st, (const T*)x, wp_t, slo_t, shi_t, (OUT*)out, B, K2, N);
+  return launch_ex<int4_tc_kernel<T, OUT, NB, COLS, KS, LN>>(
+      N / COLS * KS, smem, KS, false, st, (const T*)x, g, b, wp_t, slo_t, shi_t, bias,
+      (OUT*)out, B, K2, N, eps);
 }
 
 template <typename T, typename OUT>
-cudaError_t int4_tc_dispatch(const void* x, const int8_t* wp_t, const float* slo_t,
-                             const float* shi_t, void* out, int B, int K2, int N, int cols,
-                             int ks, cudaStream_t st) {
-#define I4_TC(C, S)                                                                       \
-  if (cols == C && ks == S)                                                              \
-    return int4_tc_launch<T, OUT, C, S>(x, wp_t, slo_t, shi_t, out, B, K2, N, st)
+cudaError_t matmul_int4_dispatch(const void* x, const int8_t* wp_t, const float* slo_t,
+                                 const float* shi_t, void* out, int B, int K2, int N, int cols,
+                                 int ks, cudaStream_t st) {
+#define I4_TC(C, S)                                                                        \
+  if (cols == C && ks == S)                                                               \
+    return int4_tc_launch<T, OUT, 8, C, S, false>(x, nullptr, nullptr, wp_t, slo_t, shi_t, \
+                                                  nullptr, out, B, K2, N, 0.f, st)
   I4_TC(16, 1); I4_TC(16, 2); I4_TC(16, 4);
   I4_TC(32, 1); I4_TC(32, 2); I4_TC(32, 4);
 #undef I4_TC
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t ln_qkv_int4_dispatch(const void* x, const float* g, const float* b,
+                                 const int8_t* wp_t, const float* slo_t, const float* shi_t,
+                                 const float* bias, float* out, int B, int K2, int N, int cols,
+                                 float eps, cudaStream_t st) {
+#define B9_TC(NB, C)                                                                      \
+  if (B <= NB && cols == C)                                                              \
+    return int4_tc_launch<T, float, NB, C, 1, true>(x, g, b, wp_t, slo_t, shi_t, bias, out, \
+                                                    B, K2, N, eps, st)
+  B9_TC(8, 16); B9_TC(8, 32); B9_TC(8, 64);
+  B9_TC(16, 16); B9_TC(16, 32); B9_TC(16, 64);
+#undef B9_TC
   return cudaErrorInvalidValue;
 }
 
@@ -465,32 +505,31 @@ int matmul_int4_launch(const void* x, int x_bf16, const int8_t* wp_t, const floa
     return (int)cudaErrorInvalidValue;
   using bf16 = __nv_bfloat16;
   if (x_bf16)
-    return (int)(out_bf16 ? int4_tc_dispatch<bf16, bf16>(x, wp_t, slo_t, shi_t, out, B, K2, N,
+    return (int)(out_bf16 ? matmul_int4_dispatch<bf16, bf16>(x, wp_t, slo_t, shi_t, out, B, K2, N,
                                                          cols, ks, st)
-                          : int4_tc_dispatch<bf16, float>(x, wp_t, slo_t, shi_t, out, B, K2,
+                          : matmul_int4_dispatch<bf16, float>(x, wp_t, slo_t, shi_t, out, B, K2,
                                                           N, cols, ks, st));
-  return (int)(out_bf16 ? int4_tc_dispatch<float, bf16>(x, wp_t, slo_t, shi_t, out, B, K2, N,
+  return (int)(out_bf16 ? matmul_int4_dispatch<float, bf16>(x, wp_t, slo_t, shi_t, out, B, K2, N,
                                                         cols, ks, st)
-                        : int4_tc_dispatch<float, float>(x, wp_t, slo_t, shi_t, out, B, K2, N,
+                        : matmul_int4_dispatch<float, float>(x, wp_t, slo_t, shi_t, out, B, K2, N,
                                                          cols, ks, st));
 }
 
+// B9 of 1-16 rows: out (B, N) f32; cols (16, 32 or 64) output columns a
+// block.
 int ln_qkv_int4_launch(const void* x, int x_bf16, const float* g, const float* b,
                        const int8_t* wp_t, const float* slo_t, const float* shi_t,
-                       const float* bias, float* out, int B, int D, int N, float eps,
+                       const float* bias, float* out, int B, int D, int N, int cols, float eps,
                        void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = ((size_t)B * D + WARPS) * sizeof(float);
-  cudaError_t err = cudaSuccess;
+  const int K2 = D / 2;
+  if (B < 1 || B > 16 || cols < 1 || N % cols || D % 2 || K2 % GROUP)
+    return (int)cudaErrorInvalidValue;
   if (x_bf16)
-    DISPATCH_ROWS(B, err = launch<ln_qkv_int4_kernel<__nv_bfloat16, NB>>(
-                         blocks_for(N), smem, st, (const __nv_bfloat16*)x, g, b, wp_t, slo_t,
-                         shi_t, bias, out, B, D, N, eps));
-  else
-    DISPATCH_ROWS(B, err = launch<ln_qkv_int4_kernel<float, NB>>(
-                         blocks_for(N), smem, st, (const float*)x, g, b, wp_t, slo_t, shi_t,
-                         bias, out, B, D, N, eps));
-  return (int)err;
+    return (int)ln_qkv_int4_dispatch<__nv_bfloat16>(x, g, b, wp_t, slo_t, shi_t, bias, out, B,
+                                                    K2, N, cols, eps, st);
+  return (int)ln_qkv_int4_dispatch<float>(x, g, b, wp_t, slo_t, shi_t, bias, out, B, K2, N,
+                                          cols, eps, st);
 }
 
 int attnout_ln_mlp_int4_launch(const void* a, const void* xres, int in_bf16,

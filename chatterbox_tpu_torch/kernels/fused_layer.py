@@ -5,8 +5,9 @@ Six functions carry every fused decode step, two per layer:
 GPT-2 (Turbo), int8 weights:
   ln_qkv_int8           out = (bf16(LN1(x)) @ Wqkv) * s + bias            (B, 3D)
   attnout_ln_mlp_int8   r = x + (bf16(a) @ Wo) * so + bo
-                        out = r + b2 + bf16(gelu_new((bf16(LN2(r)) @ W1) * s1
-                                                     + b1)) @ W2 * s2      (B, D)
+                        h = bf16(gelu_new((bf16(LN2(r)) @ W1) * s1 + b1))
+                        out = r + b2 + sum over hidden tiles t of
+                              (h_t @ W2_t) * s2                            (B, D)
 GPT-2 (Turbo), int4 weights ("int4_fused"; group scales per 256 rows):
   ln_qkv_int4           out = bias + bf16(LN1(x)) @ Wqkv                  (B, 3D)
   attnout_ln_mlp_int4   r = x + bf16(a) @ Wo + bo
@@ -39,7 +40,10 @@ the batched engine's rows).
 Dispatch: a CPU tensor takes the plain PyTorch version (`*_plain`), a CUDA
 tensor launches the kernel, and anything else raises. `launches` counts the
 kernel calls made by each wrapper (one per layer and step; each second-half
-kernel is three CUDA launches on one stream).
+kernel is three CUDA launches on one stream). The CUDA kernels sum in other
+orders than the Pallas grids; the `*_split_plain` versions spell those
+orders out for the tensor-core kernels, and the tests hold them against the
+Pallas kernels.
 """
 from __future__ import annotations
 
@@ -57,18 +61,24 @@ SMEM_LIMIT = 227 * 1024   # dynamic shared memory a block opts in to
 WARPS = 8
 GROUP = 256          # contraction rows per int4 scale (INT4_GROUP)
 QKV_COLS = 32        # output columns per block of the B1 / B5 kernel
-# B6's tensor-core phases (csrc/fused_layer.cu, tc_int8_kernel), tiled from
-# chip_smoke.py's sweep on an H100 (PERF.md): attn-out and down blocks own
-# TC_COLS output columns; attn-out splits its contraction over the fewest
-# blocks of a cluster that fit shared memory, down over the most (up to
-# TC_MAX_SPLITS) that divide its hidden tiles; a norm + gate/up block owns
-# GLU_UNITS hidden units (half as many where those do not fit); GLU_PDL
-# launches the second and third phases by programmatic dependent launch.
+# The tensor-core phases of B6, B2 and B11 (csrc/fused_layer.cu,
+# tc_int8_kernel), tiled from chip_smoke.py's sweeps on an H100 (PERF.md):
+# attn-out and down blocks own TC_COLS output columns; attn-out splits its
+# contraction over the fewest blocks of a cluster that fit shared memory,
+# down over the most (up to TC_MAX_SPLITS) that divide its hidden tiles;
+# B6's norm + gate/up block owns GLU_UNITS hidden units (half as many where
+# those do not fit), B2 / B11's norm + fc_in block the first of GELU_UNITS
+# that divides I and fits; TC_PDL launches the phases after the first by
+# programmatic dependent launch. B9 (csrc/int4.cu, B8's kernel with a
+# LayerNorm) owns the first of QKV4_COLS output columns a block that divides
+# N and fits, from its own sweep.
 TC_COLS = 16
 TC_MAX_SPLITS = 4
 TC_CHUNK = 64        # contraction entries of one step of a warp
 GLU_UNITS = 32
-GLU_PDL = True
+GELU_UNITS = (64, 32, 16)
+TC_PDL = True
+QKV4_COLS = (32, 16, 64)
 
 _lib = None
 _int4_lib = None
@@ -83,7 +93,7 @@ def _kernels():
         lib.ln_qkv_int8_launch.argtypes = [P, I, P, P, P, P, P, P, I, I, I, F, P]
         lib.ln_qkv_int8_launch.restype = I
         lib.attnout_ln_mlp_int8_launch.argtypes = [
-            P, P, I, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, F, P]
+            P, P, I, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, I, I, I, I, P]
         lib.attnout_ln_mlp_int8_launch.restype = I
         lib.rms_qkv_int8_launch.argtypes = [P, I, P, P, P, P, I, I, I, F, P]
         lib.rms_qkv_int8_launch.restype = I
@@ -93,7 +103,7 @@ def _kernels():
             P, P, I, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, F, I, I, I, I, P]
         lib.attnout_rms_glu_int8_launch.restype = I
         lib.fused_mlp_int8_launch.argtypes = [P, I, P, P, P, P, P, P, P, P, P, P,
-                                              I, I, I, P]
+                                              I, I, I, I, I, I, P]
         lib.fused_mlp_int8_launch.restype = I
         _lib = lib
     return _lib
@@ -108,7 +118,7 @@ def int4_kernels():
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.matmul_int4_launch.argtypes = [P, I, P, P, P, P, I, I, I, I, I, I, P]
         lib.matmul_int4_launch.restype = I
-        lib.ln_qkv_int4_launch.argtypes = [P, I, P, P, P, P, P, P, P, I, I, I, F, P]
+        lib.ln_qkv_int4_launch.argtypes = [P, I, P, P, P, P, P, P, P, I, I, I, I, F, P]
         lib.ln_qkv_int4_launch.restype = I
         lib.attnout_ln_mlp_int4_launch.argtypes = [
             P, P, I, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, F, P]
@@ -154,13 +164,18 @@ def ln_qkv_int8_plain(x, g, b, w_t, s, bias, eps: float):
 
 
 def attnout_ln_mlp_int8_plain(a, xres, wo_t, so, bo, g2, be2, w1_t, s1, b1,
-                              w2_t, s2, b2, eps: float):
+                              w2_t, s2, b2, eps: float, tw: int = 1024):
     a16 = a.to(torch.bfloat16).float()
     r = xres.float() + _dot_i8(a16, wo_t) * so + bo
     y2 = _ln_bf16(r, g2, be2, eps)
     u = _dot_i8(y2, w1_t) * s1 + b1
     h = _gelu_new_f32(u).to(torch.bfloat16).float()
-    return (r + b2) + _dot_i8(h, w2_t) * s2
+    # W2's scale multiplies each hidden tile's partial sum, added onto r + b2
+    # in order, as in the Pallas kernel's grid steps
+    out = r + b2
+    for j in range(0, h.shape[1], tw):
+        out = out + _dot_i8(h[:, j:j + tw], w2_t[:, j:j + tw]) * s2
+    return out
 
 
 def rms_qkv_int8_plain(x, g, w_t, s, eps: float):
@@ -223,6 +238,29 @@ def attnout_rms_glu_int8_split_plain(a, xres, wo_t, so, g2, wg_t, sg, wu_t, su,
     return out
 
 
+def attnout_ln_mlp_int8_split_plain(a, xres, wo_t, so, bo, g2, be2, w1_t, s1, b1,
+                                    w2_t, s2, b2, eps: float, tw: int, attn_splits: int):
+    """attnout_ln_mlp_int8 summed in the CUDA kernel's order, as B6's
+    (attnout_rms_glu_int8_split_plain): attn-out's contraction cut over
+    `attn_splits` blocks, their sums added in order before the scale, then
+    bo; fc_in one block's sum over its warps; each tw-wide tile of fc_out
+    one block's sum over its warps, scaled and added onto r + b2 in tile
+    order."""
+    D, I = a.shape[1], w1_t.shape[0]
+    a16 = a.to(torch.bfloat16).float()
+    span = D // attn_splits
+    acc = torch.zeros((a.shape[0], D))
+    for s in range(attn_splits):
+        acc = acc + _warp_dot_i8(a16, wo_t, s * span, (s + 1) * span)
+    r = xres.float() + acc * so + bo
+    y2 = _ln_bf16(r, g2, be2, eps)
+    h = _gelu_new_f32(_warp_dot_i8(y2, w1_t, 0, D) * s1 + b1).to(torch.bfloat16).float()
+    out = r + b2
+    for j in range(0, I, tw):
+        out = out + _warp_dot_i8(h, w2_t, j, j + tw) * s2
+    return out
+
+
 def unpack_int4(w: torch.Tensor, dtype=torch.float32):
     """Nibble-packed int8 bytes -> (low, high) values in [-7, 7] as `dtype`,
     by int32 arithmetic as the Pallas kernels do (torch's int8 shifts wrap):
@@ -259,6 +297,39 @@ def ln_qkv_int4_plain(x, g, b, wp_t, slo_t, shi_t, bias, eps: float):
     for k in range(lo.shape[0]):
         out = out + (lo[k] + hi[k])
     return out
+
+
+def int4_block_sum(xb, lo, hi, s_lo, s_hi, k0: int, k1: int, start):
+    """start + the row-split int4 product over packed rows [k0, k1), summed
+    as a block of B8 / B9's tensor-core kernel sums it: its WARPS warps take
+    contiguous runs of TC_CHUNK-row chunks; a warp adds, for each 256-row
+    group its run meets, (x_lo @ lo) * s_lo + (x_hi @ hi) * s_hi over the
+    rows of that group onto its running sum; the warps' sums are added onto
+    `start` in warp order. xb (B, K) f32, lo / hi (K/2, N) nibble values,
+    s_lo / s_hi (K/2/256, N)."""
+    K2 = lo.shape[0]
+    span = k1 - k0
+    per_warp = -(-(span // TC_CHUNK) // WARPS) * TC_CHUNK
+    total = start
+    for w in range(WARPS):
+        a, b = k0 + min(w * per_warp, span), k0 + min((w + 1) * per_warp, span)
+        run = torch.zeros_like(total)
+        while a < b:
+            g = a // GROUP
+            e = min(b, (g + 1) * GROUP)
+            run = run + (xb[:, a:e] @ lo[a:e] * s_lo[g] + xb[:, K2 + a:K2 + e] @ hi[a:e] * s_hi[g])
+            a = e
+        total = total + run
+    return total
+
+
+def ln_qkv_int4_split_plain(x, g, b, wp_t, slo_t, shi_t, bias, eps: float):
+    """ln_qkv_int4 summed in the CUDA kernel's order (int4_block_sum over all
+    the packed rows, onto the bias). The tiling (columns a block) and the
+    row tiles change no sum."""
+    lo, hi = unpack_int4(wp_t.T)
+    return int4_block_sum(_ln_bf16(x, g, b, eps), lo, hi, slo_t.T, shi_t.T, 0, wp_t.shape[1],
+                          bias.float().expand(x.shape[0], -1))
 
 
 def attnout_ln_mlp_int4_plain(a, xres, wo_t, so_lo, so_hi, bo, g2, be2, w1c_t,
@@ -342,8 +413,8 @@ def _qkv_limits(B, D, N, rms, what):
 
 
 def tc_smem(B: int, cols: int, splits: int, K: int, tiles: int) -> int:
-    """Shared memory bytes of one block of B6's tensor-core phases at B
-    rows (csrc/fused_layer.cu, tc_smem): cols weight columns over K /
+    """Shared memory bytes of one block of the tensor-core phases of B2, B6
+    and B11 at B rows (csrc/fused_layer.cu, tc_smem): cols weight columns over K /
     splits contraction entries, the contraction cut in `tiles` tiles."""
     NB = 8 if B <= 8 else 16
     span = K // splits
@@ -363,19 +434,72 @@ def _tc_splits(B, K, tiles, order):
     return None
 
 
+def _mlp_tiling(B, D, I, tiles, units, cols_per_unit, pdl):
+    """(attn_splits, units, down_splits, pdl): attn-out split over the fewest
+    blocks that fit, down over the most that divide its `tiles` (None: a
+    tile a block), and the first hidden units a norm block in `units` that
+    divide I and fit. None where no tiling fits."""
+    splits = (1, 2, TC_MAX_SPLITS)
+    attn = _tc_splits(B, D, None, splits)
+    down = _tc_splits(B, I, tiles, splits[::-1])
+    unit = next((u for u in units if I % u == 0
+                 and tc_smem(B, cols_per_unit * u, 1, D, 1) <= SMEM_LIMIT), None)
+    if None in (attn, unit, down):
+        return None
+    return attn, unit, down, pdl
+
+
 def glu_tiling(B: int, D: int, I: int, tw: int):
     """(attn_splits, glu_units, down_splits, pdl) of B6 at B rows: the
     blocks an attn-out and a down column slab are split over, the hidden
     units a norm + gate/up block owns, and whether the last two phases go by
     programmatic dependent launch. None where no tiling fits."""
+    return _mlp_tiling(B, D, I, I // tw, (GLU_UNITS, GLU_UNITS // 2), 2, TC_PDL)
+
+
+def gelu_tiling(B: int, D: int, I: int, tw):
+    """(attn_splits, gelu_units, down_splits, pdl) of B2 at B rows (tw its
+    hidden tile), as glu_tiling's, the norm + fc_in block owning gelu_units
+    hidden units; with tw None, of B11, whose down blocks each take a tile
+    of I / down_splits units of their own (B11 has no attn-out). None where
+    no tiling fits."""
+    return _mlp_tiling(B, D, I, None if tw is None else I // tw, GELU_UNITS, 1, TC_PDL)
+
+
+def tc_phases_limits(what, B, D, I, tiles, attn_splits, norm_cols, down_splits):
+    """Raise ValueError unless the tensor-core phases of B2 / B6 / B11 take
+    this tiling: attn-out (attn_splits None: none) and down split 1, 2 or
+    TC_MAX_SPLITS ways, each block whole tiles of TC_CHUNK multiples, and
+    every block (the norm phase's of norm_cols weight columns) within shared
+    memory."""
     splits = (1, 2, TC_MAX_SPLITS)
-    attn = _tc_splits(B, D, None, splits)
-    down = _tc_splits(B, I, I // tw, splits[::-1])
-    units = next((u for u in (GLU_UNITS, GLU_UNITS // 2) if I % u == 0
-                  and tc_smem(B, 2 * u, 1, D, 1) <= SMEM_LIMIT), None)
-    if None in (attn, units, down):
-        return None
-    return attn, units, down, GLU_PDL
+    attn = attn_splits or 1
+    if (attn not in splits or down_splits not in splits or tiles % down_splits
+            or (D // attn) % TC_CHUNK or (I // tiles) % TC_CHUNK):
+        raise ValueError(f"{what}: tiling ({attn_splits}, {down_splits} splits) does not "
+                         f"fit D {D}, I {I}, {tiles} hidden tiles")
+    smem = [tc_smem(B, norm_cols, 1, D, 1), tc_smem(B, TC_COLS, down_splits, I, tiles)]
+    if attn_splits:
+        smem.append(tc_smem(B, TC_COLS, attn, D, attn))
+    if max(smem) > SMEM_LIMIT:
+        raise ValueError(f"{what}: a block's shared memory exceeds {SMEM_LIMIT} bytes")
+
+
+def int4_smem(cols: int, splits: int, K2: int, B: int = 8, ln: bool = False) -> int:
+    """Shared memory bytes of one B8 (or, ln, B9) block at B rows (csrc/
+    int4.cu, int4_tc_smem): cols output columns, K2 packed rows split over
+    `splits` blocks."""
+    NB = 8 if B <= 8 else 16
+    span = K2 // splits
+    return (16 + (4 * K2 * 4 if ln else 0) + 2 * cols * (K2 // GROUP) * 4 + cols * span
+            + NB * (2 * span + 8) * 2 + (WARPS + splits) * NB * cols * 4)
+
+
+def ln_qkv_int4_tiling(B: int, D: int, N: int):
+    """Output columns a B9 block owns at B rows: the first of QKV4_COLS that
+    divides N and fits shared memory; None if none does."""
+    return next((c for c in QKV4_COLS if N % c == 0
+                 and int4_smem(c, 1, D // 2, B, ln=True) <= SMEM_LIMIT), None)
 
 
 def ln_qkv_int8(x, g, b, w_t, s, bias, eps: float):
@@ -406,19 +530,41 @@ def ln_qkv_int8(x, g, b, w_t, s, bias, eps: float):
 
 
 def attnout_ln_mlp_int8(a, xres, wo_t, so, bo, g2, be2, w1_t, s1, b1,
-                        w2_t, s2, b2, eps: float):
+                        w2_t, s2, b2, eps: float, tw: int = 1024):
     """Second half of a GPT-2 decode layer: a, xres (B, D) bf16/f32 (same
     type) -> new residual stream (B, D) f32. wo_t (D, D), w1_t (I, D),
-    w2_t (D, I) int8 out-major; the rest (D,) or (I,) f32."""
+    w2_t (D, I) int8 out-major; the rest (D,) or (I,) f32; tw is the hidden
+    tile W2's scale applies to (the JAX package's 1024)."""
     if not _check_device(a):
         return attnout_ln_mlp_int8_plain(a, xres, wo_t, so, bo, g2, be2, w1_t,
-                                         s1, b1, w2_t, s2, b2, eps)
+                                         s1, b1, w2_t, s2, b2, eps, tw)
+    tiling = gelu_tiling(a.shape[0], a.shape[1], w1_t.shape[0], tw)
+    if tiling is None:
+        raise ValueError("attnout_ln_mlp_int8: no tiling of the kernel fits these shapes")
+    return attnout_ln_mlp_int8_tiled(a, xres, wo_t, so, bo, g2, be2, w1_t, s1, b1, w2_t,
+                                     s2, b2, eps, tw, *tiling)
+
+
+def _mlp_tile_limits(B, D, I, tw, what):
+    _shape_limits(B, D, what)
+    _shape_limits(B, I, what)
+    if tw % K_STEP or I % tw:
+        raise ValueError(f"{what}: tile {tw} must be a multiple of {K_STEP} dividing {I}")
+
+
+def attnout_ln_mlp_int8_tiled(a, xres, wo_t, so, bo, g2, be2, w1_t, s1, b1, w2_t, s2, b2,
+                              eps: float, tw: int, attn_splits: int, gelu_units: int,
+                              down_splits: int, pdl: bool):
+    """B2's kernel at a given tiling (gelu_tiling's four numbers;
+    chip_smoke.py sweeps them). A CUDA a only."""
     B, D = a.shape
     I = w1_t.shape[0]
-    _shape_limits(B, D, "attnout_ln_mlp_int8")
-    _shape_limits(B, I, "attnout_ln_mlp_int8")
-    if (B * D + WARPS) * 4 > SMEM_LIMIT or B * I * 2 > SMEM_LIMIT:
-        raise ValueError("attnout_ln_mlp_int8: rows exceed shared memory")
+    _mlp_tile_limits(B, D, I, tw, "attnout_ln_mlp_int8")
+    if gelu_units not in GELU_UNITS:
+        raise ValueError(f"attnout_ln_mlp_int8: {gelu_units} hidden units a block is not "
+                         f"one of {GELU_UNITS}")
+    tc_phases_limits("attnout_ln_mlp_int8", B, D, I, I // tw, attn_splits, gelu_units,
+                     down_splits)
     dev = a.device
     _check("a", a, (B, D), _ACT, dev)
     _check("xres", xres, (B, D), (a.dtype,), dev)
@@ -438,8 +584,8 @@ def attnout_ln_mlp_int8(a, xres, wo_t, so, bo, g2, be2, w1_t, s1, b1,
         wo_t.data_ptr(), so.data_ptr(), bo.data_ptr(), g2.data_ptr(),
         be2.data_ptr(), w1_t.data_ptr(), s1.data_ptr(), b1.data_ptr(),
         w2_t.data_ptr(), s2.data_ptr(), b2.data_ptr(), r_buf.data_ptr(),
-        h_buf.data_ptr(), out.data_ptr(), B, D, I, eps,
-        torch.cuda.current_stream(dev).cuda_stream)
+        h_buf.data_ptr(), out.data_ptr(), B, D, I, tw, eps, attn_splits, gelu_units,
+        down_splits, int(pdl), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"attnout_ln_mlp_int8 launch failed: CUDA error {err}")
     launches["attnout_ln_mlp_int8"] += 1
@@ -493,22 +639,12 @@ def attnout_rms_glu_int8_tiled(a, xres, wo_t, so, g2, wg_t, sg, wu_t, su, wd_t, 
     chip_smoke.py sweeps them). A CUDA a only."""
     B, D = a.shape
     I = wg_t.shape[0]
-    _shape_limits(B, D, "attnout_rms_glu_int8")
-    _shape_limits(B, I, "attnout_rms_glu_int8")
-    if tw % K_STEP or I % tw:
-        raise ValueError(f"attnout_rms_glu_int8: tile {tw} must be a multiple "
-                         f"of {K_STEP} dividing {I}")
-    tiles = I // tw
-    if (attn_splits not in (1, 2, TC_MAX_SPLITS) or down_splits not in (1, 2, TC_MAX_SPLITS)
-            or glu_units not in (GLU_UNITS, GLU_UNITS // 2) or tiles % down_splits
-            or (D // attn_splits) % TC_CHUNK):
-        raise ValueError(f"attnout_rms_glu_int8: tiling ({attn_splits}, {glu_units}, "
-                         f"{down_splits}) does not fit D {D}, I {I}, tile {tw}")
-    if max(tc_smem(B, TC_COLS, attn_splits, D, attn_splits),
-           tc_smem(B, 2 * glu_units, 1, D, 1),
-           tc_smem(B, TC_COLS, down_splits, I, tiles)) > SMEM_LIMIT:
-        raise ValueError("attnout_rms_glu_int8: a block's shared memory exceeds "
-                         f"{SMEM_LIMIT} bytes")
+    _mlp_tile_limits(B, D, I, tw, "attnout_rms_glu_int8")
+    if glu_units not in (GLU_UNITS, GLU_UNITS // 2):
+        raise ValueError(f"attnout_rms_glu_int8: {glu_units} hidden units a block is not "
+                         f"{GLU_UNITS} or {GLU_UNITS // 2}")
+    tc_phases_limits("attnout_rms_glu_int8", B, D, I, I // tw, attn_splits, 2 * glu_units,
+                     down_splits)
     dev = a.device
     _check("a", a, (B, D), _ACT, dev)
     _check("xres", xres, (B, D), (a.dtype,), dev)
@@ -549,11 +685,25 @@ def ln_qkv_int4(x, g, b, wp_t, slo_t, shi_t, bias, eps: float):
     g, b (D,) and bias (N,) f32."""
     if not _check_device(x):
         return ln_qkv_int4_plain(x, g, b, wp_t, slo_t, shi_t, bias, eps)
+    cols = ln_qkv_int4_tiling(x.shape[0], x.shape[1], wp_t.shape[0])
+    if cols is None:
+        raise ValueError("ln_qkv_int4: no tiling of the kernel fits these shapes")
+    return ln_qkv_int4_tiled(x, g, b, wp_t, slo_t, shi_t, bias, eps, cols)
+
+
+def ln_qkv_int4_tiled(x, g, b, wp_t, slo_t, shi_t, bias, eps: float, cols: int):
+    """B9's kernel at `cols` output columns a block (chip_smoke.py sweeps
+    them). A CUDA x only."""
     B, D = x.shape
     N = wp_t.shape[0]
     _int4_limits(B, D // 2, "ln_qkv_int4")
-    if (B * D + WARPS) * 4 > SMEM_LIMIT:
-        raise ValueError("ln_qkv_int4: LayerNorm rows exceed shared memory")
+    if D % 2:
+        raise ValueError(f"ln_qkv_int4: width {D} is odd")
+    if cols not in QKV4_COLS or N % cols:
+        raise ValueError(f"ln_qkv_int4: {cols} columns a block (one of {QKV4_COLS}) do not "
+                         f"divide {N}")
+    if int4_smem(cols, 1, D // 2, B, ln=True) > SMEM_LIMIT:
+        raise ValueError(f"ln_qkv_int4: a block's shared memory exceeds {SMEM_LIMIT} bytes")
     dev = x.device
     _check("x", x, (B, D), _ACT, dev)
     for name, t in (("g", g), ("b", b)):
@@ -566,7 +716,7 @@ def ln_qkv_int4(x, g, b, wp_t, slo_t, shi_t, bias, eps: float):
     err = int4_kernels().ln_qkv_int4_launch(
         x.data_ptr(), int(x.dtype == torch.bfloat16), g.data_ptr(), b.data_ptr(),
         wp_t.data_ptr(), slo_t.data_ptr(), shi_t.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), B, D, N, eps, torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), B, D, N, cols, eps, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"ln_qkv_int4 launch failed: CUDA error {err}")
     launches["ln_qkv_int4"] += 1

@@ -43,8 +43,8 @@ from __future__ import annotations
 
 import torch
 
-from .fused_layer import (GROUP, SMEM_LIMIT, WARPS, _ACT, _F32, _I8, _check,
-                          _check_device, int4_kernels, row_split_dots,
+from .fused_layer import (GROUP, SMEM_LIMIT, _ACT, _F32, _I8, _check, _check_device,
+                          int4_block_sum, int4_kernels, int4_smem, row_split_dots,
                           unpack_int4)
 
 launches = {"matmul_int4": 0}
@@ -87,31 +87,11 @@ def matmul_int4_split_plain(x, w, s_lo, s_hi, splits: int, out_dtype=torch.float
     xb = x.to(torch.bfloat16).float()
     lo, hi = unpack_int4(w)
     span = K2 // splits
-    per_warp = -(-(span // CHUNK) // WARPS) * CHUNK
     total = torch.zeros((x.shape[0], N))
     for s in range(splits):
-        block = torch.zeros_like(total)
-        for wp in range(WARPS):
-            a = s * span + min(wp * per_warp, span)
-            b = s * span + min((wp + 1) * per_warp, span)
-            run = torch.zeros_like(total)
-            while a < b:
-                g = a // GROUP
-                e = min(b, (g + 1) * GROUP)
-                acc_lo = xb[:, a:e] @ lo[a:e]
-                acc_hi = xb[:, K2 + a:K2 + e] @ hi[a:e]
-                run = run + (acc_lo * s_lo[g] + acc_hi * s_hi[g])
-                a = e
-            block = block + run
-        total = total + block
+        total = total + int4_block_sum(xb, lo, hi, s_lo, s_hi, s * span, (s + 1) * span,
+                                       torch.zeros_like(total))
     return total.to(out_dtype)
-
-
-def int4_smem(cols: int, splits: int, K2: int) -> int:
-    """Shared memory bytes of one B8 block (csrc/int4.cu, int4_tc_smem)."""
-    span = K2 // splits
-    return (16 + 2 * cols * (K2 // GROUP) * 4 + cols * span + 8 * (2 * span + 8) * 2
-            + (WARPS + splits) * 8 * cols * 4)
 
 
 def int4_tiling(K2: int, N: int, B: int):

@@ -5,10 +5,11 @@
     python3 chip_smoke.py --ab <other checkout>
 
 The second form runs phases 1 and 2, then times the fused decode-layer
-kernels (B1, B2, B5, B6) of this checkout against those of the other at 1,
-2, 8 and 16 rows, B8 on the 520M int4 weights at 1, 2 and 8 rows (f32
-result), and the decode-attention kernels (B3, B4, B7) at phase 3's
-attention shapes, in turns on the same operands, and stops.
+kernels (B1, B2, B5, B6, and B9 on the Turbo int4_fused weights) and B11
+of this checkout against those of the other at 1, 2, 8 and 16 rows, B8 on
+the 520M int4 weights at 1, 2 and 8 rows (f32 result), and the
+decode-attention kernels (B3, B4, B7) at phase 3's attention shapes, in
+turns on the same operands, and stops.
 
 The port's paths, each at full width with random weights from a seed,
 served as bench.py serves them (T3 cast to bf16 and quantized int8_fused,
@@ -53,8 +54,11 @@ Phases, in order; any failure exits non-zero without the final "ok" line:
      there; first, a sweep of B3's kernel at 1, 2, 4, 8 and 16 blocks a
      window at the Turbo, 520M, batched and long-window shapes, and of the
      tilings of B8 (columns a block, split of the packed rows; at each 520M
-     linear shape, 2 and 8 rows) and B6 (attn-out and down splits, hidden
-     units a gate/up block, programmatic dependent launch; 2 and 8 rows);
+     linear shape, 2 and 8 rows), B6 (attn-out and down splits, hidden
+     units a gate/up block, programmatic dependent launch; 2 and 8 rows),
+     B9 (columns a block; 1 and 8 rows), B2 and B11 (attn-out and down
+     splits, hidden units a norm + fc_in block, dependent launch; 1 and 8
+     rows);
   4. reference: the CUDA path against the CPU path (plain kernel versions)
      on small models, same weights and noise: Turbo T3 teacher-forced
      logits on the bf16 and the int8 cache and meanflow S3Gen waveform;
@@ -523,9 +527,9 @@ def check_int4_kernels(turbo4, cfg4, turbo, K, M, FM) -> list:
 
 
 def _load_other_kernels(root: str):
-    """Another checkout's kernels/fused_layer.py, decode_attention.py and
-    int4_matmul.py, imported as a package of their own (its csrc/ builds
-    into its own _build/)."""
+    """Another checkout's kernels/fused_layer.py, decode_attention.py,
+    int4_matmul.py and fused_mlp.py, imported as a package of their own (its
+    csrc/ builds into its own _build/)."""
     import importlib
     import types
     from pathlib import Path
@@ -533,7 +537,7 @@ def _load_other_kernels(root: str):
     pkg.__path__ = [str(Path(root).resolve() / "chatterbox_tpu_torch" / "kernels")]
     sys.modules["other_kernels"] = pkg
     return tuple(importlib.import_module(f"other_kernels.{m}")
-                 for m in ("fused_layer", "decode_attention", "int4_matmul"))
+                 for m in ("fused_layer", "decode_attention", "int4_matmul", "fused_mlp"))
 
 
 def _ab(sp, L, other, label) -> None:
@@ -554,17 +558,20 @@ def _ab(sp, L, other, label) -> None:
         f"{b / a:.3f}")
 
 
-def ab_kernels(turbo, cfg520, cfg4, K, A, M, bb, root: str) -> None:
-    """B1, B2 (Turbo weights) and B5, B6 (520M weights) at 1, 2, 8 and 16
+def ab_kernels(turbo, cfg520, turbo4, cfg4, K, A, M, FM, bb, root: str) -> None:
+    """B1, B2 (Turbo weights), B5, B6 (520M weights), B9 (Turbo int4_fused
+    weights) and B11 (Turbo int8 MLP weights, f32 x) at 1, 2, 8 and 16
     rows, B8 (520M int4 weights, f32 result: the type both checkouts
     write) at 1, 2 and 8 rows, and B3 / B4 / B7 at phase 3's attention
     shapes, of this checkout against those of the checkout at `root`."""
-    other_k, other_a, other_m = _load_other_kernels(root)
+    other_k, other_a, other_m, other_fm = _load_other_kernels(root)
     L1, L2 = turbo.hp.backbone.num_layers, cfg520.hp.backbone.num_layers
     for B in (1, 2, 8, 16):
         for L, specs in ((L1, gpt2_specs(turbo, K, B=B)), (L2, llama_specs(cfg520, K, B=B))):
             for sp in specs:
                 _ab(sp, L, other_k, f"B={B}")
+        _ab(int4_gpt2_specs(turbo4, K, B=B)[0], L1, other_k, f"B={B}")
+        _ab(b11_specs(turbo, FM, B=B)[0], L1, other_fm, f"B={B}")
     for B in (1, 2, 8):
         (sp,), n = b8_specs(cfg4, M, B=B, out_bf16=False)
         _ab(sp, n, other_m, f"B={B}, {n} linears")
@@ -575,6 +582,11 @@ def ab_kernels(turbo, cfg520, cfg4, K, A, M, bb, root: str) -> None:
 
 
 INT4_TILINGS = ((16, 1), (16, 2), (16, 4), (32, 1), (32, 2), (32, 4))
+# B2's (attn-out split, hidden units a norm + fc_in block, down split,
+# dependent launch): every split and unit count with dependent launch, and
+# gelu_tiling's choice at one row without it; B11 takes the last three
+GELU_SWEEP = tuple((a, u, d, True) for a in (1, 2) for u in (16, 32, 64) for d in (1, 2, 4)) \
+    + ((1, 64, 4, False),)
 
 
 def _sweep_time(sp, L, f, label) -> str:
@@ -588,14 +600,17 @@ def _sweep_time(sp, L, f, label) -> str:
     return f"{device_time_ms(lambda: [sp.call(i, f) for i in range(L)], 50) / L * 1e3:.2f} us"
 
 
-def sweep_tilings(cfg520, cfg4, K, M) -> None:
-    """The knobs of B8 and B6, each setting checked against the plain
-    version and timed by CUDA-graph replay (the evidence for int4_tiling
-    and glu_tiling): B8's columns a block and split of the packed rows at
-    each 520M linear shape, over that shape's linears of every layer, at 2
-    and 8 rows; B6's attn-out and down splits, hidden units a norm +
-    gate/up block and programmatic dependent launch on and off, over the
-    520M layers at 2 and 8 rows."""
+def sweep_tilings(turbo, cfg520, turbo4, cfg4, K, M, FM) -> None:
+    """The knobs of B8, B6, B9, B2 and B11, each setting checked against the
+    plain version and timed by CUDA-graph replay (the evidence for
+    int4_tiling, glu_tiling, ln_qkv_int4_tiling and gelu_tiling): B8's
+    columns a block and split of the packed rows at each 520M linear shape,
+    over that shape's linears of every layer, at 2 and 8 rows; B6's
+    attn-out and down splits, hidden units a norm + gate/up block and
+    programmatic dependent launch on and off, over the 520M layers at 2 and
+    8 rows; B9's columns a block over the Turbo int4_fused layers, and B2's
+    and B11's splits, hidden units a norm + fc_in block and dependent launch
+    over the Turbo int8 layers, at 1 and 8 rows."""
     import functools
     ps = b8_linears(cfg4)
     shape = lambda p: (2 * p["w_q4"].shape[0], p["w_q4"].shape[1])
@@ -626,6 +641,32 @@ def sweep_tilings(cfg520, cfg4, K, M) -> None:
         log(f"tiling sweep B6 (B={B}, D={D}, I={I}, tw={tw}; attn splits, units, down "
             f"splits, pdl): " + ", ".join(rows)
             + f" (glu_tiling: {K.glu_tiling(B, D, I, tw)})")
+    cfg = turbo.hp.backbone
+    D, I, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    for B in (1, 8):
+        sp = int4_gpt2_specs(turbo4, K, B=B)[0]
+        times = [_sweep_time(sp, L, functools.partial(K.ln_qkv_int4_tiled, cols=c),
+                             f"B9 B={B}, {c} columns") for c in K.QKV4_COLS]
+        log(f"tiling sweep B9 (B={B}, D={D}, N={3 * D}; columns a block): "
+            + ", ".join(f"{c} {t}" for c, t in zip(K.QKV4_COLS, times))
+            + f" (ln_qkv_int4_tiling: {K.ln_qkv_int4_tiling(B, D, 3 * D)})")
+        sp, rows = gpt2_specs(turbo, K, B=B)[1], []
+        for attn, units, down, pdl in GELU_SWEEP:
+            f = functools.partial(K.attnout_ln_mlp_int8_tiled, tw=1024, attn_splits=attn,
+                                  gelu_units=units, down_splits=down, pdl=pdl)
+            t = _sweep_time(sp, L, f, f"B2 B={B}, ({attn}, {units}, {down}, {pdl})")
+            rows.append(f"({attn},{units},{down},{int(pdl)}) {t}")
+        log(f"tiling sweep B2 (B={B}, D={D}, I={I}, tw=1024; attn splits, units, down "
+            f"splits, pdl): " + ", ".join(rows)
+            + f" (gelu_tiling: {K.gelu_tiling(B, D, I, 1024)})")
+        sp, rows = b11_specs(turbo, FM, B=B)[0], []
+        for _, units, down, pdl in {(1, u, d, p) for _, u, d, p in GELU_SWEEP}:
+            f = functools.partial(FM.fused_mlp_int8_tiled, gelu_units=units, down_splits=down,
+                                  pdl=pdl)
+            t = _sweep_time(sp, L, f, f"B11 B={B}, ({units}, {down}, {pdl})")
+            rows.append(f"({units},{down},{int(pdl)}) {t}")
+        log(f"tiling sweep B11 (B={B}, D={D}, I={I}; units, down splits, pdl): "
+            + ", ".join(sorted(rows)) + f" (gelu_tiling: {K.gelu_tiling(B, D, I, None)})")
 
 
 # Attention tolerance: the outputs are bf16, compared in f32; the kernel and
@@ -1091,13 +1132,17 @@ def profile_decode(decode, step_s: float, label: str, n1: int = 9, n2: int = 41)
     """Device time of one decode step by kernel name (torch.profiler): the
     difference of decode(n2) and decode(n1), decodes of n2 and n1 tokens, so
     the prefill they share drops out; beside the unprofiled wall time of a
-    step."""
-    a = _profiled_decode(decode, n1)
-    b = _profiled_decode(decode, n2)
+    step. A second try where the profiler saw no device time (it has missed
+    a whole window on the card now and then)."""
     steps = n2 - n1
-    rows = [((b[k][0] - a.get(k, (0.0, 0))[0]) / steps,
-             (b[k][1] - a.get(k, (0.0, 0))[1]) / steps, k) for k in b]
-    total = sum(r[0] for r in rows)
+    for _ in range(2):
+        a = _profiled_decode(decode, n1)
+        b = _profiled_decode(decode, n2)
+        rows = [((b[k][0] - a.get(k, (0.0, 0))[0]) / steps,
+                 (b[k][1] - a.get(k, (0.0, 0))[1]) / steps, k) for k in b]
+        total = sum(r[0] for r in rows)
+        if total > 0:
+            break
     if total <= 0:
         log(f"{label} decode profile: the profiler saw no device time (not measured)")
         return
@@ -1372,12 +1417,12 @@ def main(argv) -> int:
         f"{turbo.hp.backbone_name} int4_fused, {cfg520.hp.backbone_name} int4; "
         f"the S3Gen engines and conditionals shared)")
     if ab_root is not None:
-        ab_kernels(turbo, cfg520, cfg4, K, A, M, bb, ab_root)
+        ab_kernels(turbo, cfg520, turbo4, cfg4, K, A, M, FM, bb, ab_root)
         return 0
 
     t0 = time.perf_counter()
     sweep_splits(turbo, cfg520, A, bb)
-    sweep_tilings(cfg520, cfg4, K, M)
+    sweep_tilings(turbo, cfg520, turbo4, cfg4, K, M, FM)
     rows = (check_kernels(turbo, cfg520, K) + check_attention(turbo, cfg520, A, bb)
             + check_int4_kernels(turbo4, cfg4, turbo, K, M, FM))
     log(f"phase 3 (kernels) {time.perf_counter() - t0:.1f} s")

@@ -704,3 +704,248 @@ def test_b8_and_b6_refuse_what_the_kernels_do_not_take(dev):
     ops[0] = torch.empty(2 * 1024 + 8, dtype=torch.bfloat16, device=dev)[4:-4].view(2, 1024)
     with pytest.raises(ValueError):          # a not 16-byte aligned
         K.attnout_rms_glu_int8(*ops, EPS, 1024)
+
+
+# ---------------------------------------------------------------------------
+# B9, B2 and B11 on the tensor cores
+# ---------------------------------------------------------------------------
+
+# B9 at every row count it takes (one 8-row MMA tile for 1-8 rows, two for
+# 9-16), D 512-2048, both x types, at the tiling the wrapper picks: sums of
+# exact f32 products in another order, and the norm's f32 sums in another
+# order too, where a norm value may round to the other bf16 neighbour and
+# move its row's outputs by up to ulp(y) * 7 * s (outputs of order 1-10).
+@pytest.mark.parametrize("B", range(1, 17))
+def test_ln_qkv_int4_tc_kernel_at_every_row_count(dev, B):
+    for D in (512, 1024, 2048):
+        for dtype in (torch.bfloat16, torch.float32):
+            ops = _b9_operands(dev, B, D, dtype, seed=B + D)
+            out = K.ln_qkv_int4(*ops, EPS)
+            ref = K.ln_qkv_int4_plain(*ops, EPS)
+            torch.cuda.synchronize()
+            assert out.shape == (B, 3 * D) and torch.isfinite(out).all(), (D, dtype)
+            assert (out - ref).abs().max().item() <= 1e-3, (D, dtype)
+
+
+# Each tiling B9 has, at the Turbo width, 1, 8, 9 and 16 rows.
+@pytest.mark.parametrize("cols", K.QKV4_COLS)
+@pytest.mark.parametrize("B", [1, 8, 9, 16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ln_qkv_int4_every_tiling_matches_plain(dev, cols, B, dtype):
+    ops = _b9_operands(dev, B, 1024, dtype, seed=cols + B)
+    out = K.ln_qkv_int4_tiled(*ops, EPS, cols)
+    torch.cuda.synchronize()
+    assert (out - K.ln_qkv_int4_plain(*ops, EPS)).abs().max().item() <= 1e-3
+
+
+def test_ln_qkv_int4_on_a_case_checked_by_hand(dev):
+    """Row r of x is (r + 1) * (+1, -1, ...): unit gain and zero bias give
+    y = (+1, -1, ...) exactly. Packed byte (n, k) holds c_n * sign(k) in
+    both nibbles with c_n = n % 15 - 7, so each half of column n sums to
+    (D / 2) c_n, and with every group scale 1 / D and bias 0.25 each output
+    is 0.25 + c_n exactly (small integers and halves add exactly in f32)."""
+    D, N = 1024, 3072
+    K2 = D // 2
+    sign = 1.0 - 2.0 * (torch.arange(D, device=dev) % 2)
+    g, b = torch.ones(D, device=dev), torch.zeros(D, device=dev)
+    c = torch.arange(N, device=dev) % 15 - 7
+    nib = (c[:, None] * sign[None, :K2]).to(torch.int32)      # the same sign in both halves
+    wp = ((nib & 15) | ((nib & 15) << 4)).to(torch.uint8).view(torch.int8)
+    s = torch.full((N, K2 // 256), 1.0 / D, device=dev)
+    bias = torch.full((N,), 0.25, device=dev)
+    for B in (1, 2, 8, 9, 16):
+        x = (torch.arange(1, B + 1, device=dev, dtype=torch.float32)[:, None] * sign).bfloat16()
+        for cols in K.QKV4_COLS:
+            out = K.ln_qkv_int4_tiled(x, g, b, wp, s, s, bias, EPS, cols)
+            assert torch.equal(out, (0.25 + c.float()).expand(B, N)), (B, cols)
+
+
+def _b2_phases(ops, tw, tiling):
+    """B2's three launches at `tiling` with r and h kept: (r, h, out)."""
+    a = ops[0]
+    B, D = a.shape
+    I = ops[7].shape[0]
+    r = torch.empty((B, D), device=a.device)
+    h = torch.empty((B, I), dtype=torch.bfloat16, device=a.device)
+    out = torch.empty((B, D), device=a.device)
+    err = K._kernels().attnout_ln_mlp_int8_launch(
+        *(t.data_ptr() for t in ops[:2]), int(a.dtype == torch.bfloat16),
+        *(t.data_ptr() for t in ops[2:]), r.data_ptr(), h.data_ptr(), out.data_ptr(),
+        B, D, I, tw, EPS, *(int(t) for t in tiling), torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    return r, h, out
+
+
+def _gelu_h(y, w1, s1, b1):
+    return K._gelu_new_f32((y @ w1.float().T) * s1 + b1).to(torch.bfloat16).float()
+
+
+def _h_close(h, h_ref):
+    """h (bf16) within one bf16 ulp of its magnitude (2**-7 of it) where its
+    f32 sums of the two orders round apart, plus 1e-4 of the largest |h|
+    for the units near zero, and for at most 5 % of the units (the norm's
+    f32 sums in another order move bf16 values of y, and so of h, by less
+    than an ulp), as B6's check."""
+    dh = (h.float() - h_ref).abs()
+    return bool((dh <= 2.0 ** -7 * h_ref.abs() + 1e-4 * h_ref.abs().max()).all()
+                and (dh > 0).sum().item() <= h.numel() // 20)
+
+
+def _check_b2_phases(ops, tw, tiling):
+    """Each phase against its plain step on the kernel's own input to it, as
+    _check_b6_phases: r to f32 summation order (1e-4), h by _h_close, out
+    given r and h to f32 summation order (1e-4), W2's tiles in order."""
+    a, xres, wo, so, bo, g2, be2, w1, s1, b1, w2, s2, b2 = ops
+    r, h, out = _b2_phases(ops, tw, tiling)
+    torch.cuda.synchronize()
+    r_ref = xres.float() + (a.to(torch.bfloat16).float() @ wo.float().T) * so + bo
+    assert (r - r_ref).abs().max().item() <= 1e-4
+    assert _h_close(h, _gelu_h(K._ln_bf16(r, g2, be2, EPS), w1, s1, b1))
+    o_ref = r + b2
+    for j in range(0, h.shape[1], tw):
+        o_ref = o_ref + (h.float()[:, j:j + tw] @ w2[:, j:j + tw].float().T) * s2
+    assert torch.isfinite(out).all() and (out - o_ref).abs().max().item() <= 1e-4
+    return out
+
+
+# B2 at 1-16 rows, D 512-2048, bf16 and f32 input, phase by phase, at the
+# tiling the wrapper picks (the end-to-end tests at the Turbo shape are above).
+@pytest.mark.parametrize("D,I", [(512, 2048), (1024, 4096), (2048, 4096)])
+@pytest.mark.parametrize("B", [1, 2, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attnout_ln_mlp_tc_phases_match_plain(dev, D, I, B, dtype):
+    ops = _b2_operands(dev, B, D, I, dtype, seed=D + B)
+    tiling = K.gelu_tiling(B, D, I, 1024)
+    out = _check_b2_phases(ops, 1024, tiling)
+    before = K.launches["attnout_ln_mlp_int8"]
+    assert torch.equal(K.attnout_ln_mlp_int8(*ops, EPS), out)
+    assert K.launches["attnout_ln_mlp_int8"] == before + 1
+
+
+# Each tiling at the Turbo shape, 2 and 16 rows, with and without
+# programmatic dependent launch.
+@pytest.mark.parametrize("attn,down", [(1, 1), (2, 2), (4, 4), (1, 4), (4, 1)])
+@pytest.mark.parametrize("units", K.GELU_UNITS)
+@pytest.mark.parametrize("pdl", [False, True])
+def test_attnout_ln_mlp_every_tiling_matches_plain(dev, attn, down, units, pdl):
+    for B in (2, 16):
+        ops = _b2_operands(dev, B, 1024, 4096, torch.bfloat16, seed=attn + down + units)
+        out = _check_b2_phases(ops, 1024, (attn, units, down, pdl))
+        assert torch.equal(out, K.attnout_ln_mlp_int8_tiled(*ops, EPS, 1024, attn, units,
+                                                            down, pdl))
+
+
+def _b11_phases(ops, tiling):
+    """B11's two launches at (gelu_units, down_splits, pdl) with h kept:
+    (h, out)."""
+    x = ops[0]
+    B, D = x.shape
+    I = ops[3].shape[1]
+    h = torch.empty((B, I), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty_like(x)
+    from chatterbox_tpu_torch.kernels import fused_mlp as FM  # noqa: F401 (the wrapper's library)
+    err = K._kernels().fused_mlp_int8_launch(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), *(t.data_ptr() for t in ops[1:]),
+        h.data_ptr(), out.data_ptr(), B, D, I, *(int(t) for t in tiling),
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    return h, out
+
+
+def _check_b11_phases(ops, tiling):
+    """h by _h_close on the kernel's own LayerNorm input; out given h to f32
+    summation order (1e-4), or, in bf16, within half a bf16 ulp of the f32
+    value (2**-8 of it) plus 1e-4."""
+    x, g, b, w1, s1, b1, w2, s2, b2 = ops
+    h, out = _b11_phases(ops, tiling)
+    torch.cuda.synchronize()
+    assert _h_close(h, _gelu_h(K._ln_bf16(x, g, b, 1e-5), w1.T, s1, b1))
+    o_ref = x.float() + ((h.float() @ w2.float()) * s2 + b2)
+    tol = 1e-4 + (0 if x.dtype == torch.float32 else 2.0 ** -8 * o_ref.abs())
+    assert out.dtype == x.dtype and torch.isfinite(out).all()
+    assert ((out.float() - o_ref).abs() <= tol).all()
+    return out
+
+
+@pytest.mark.parametrize("D,I", [(512, 2048), (1024, 4096), (2048, 4096)])
+@pytest.mark.parametrize("B", [1, 2, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_mlp_tc_phases_match_plain(dev, D, I, B, dtype):
+    from chatterbox_tpu_torch.kernels import fused_mlp as FM
+    ops = _b11_operands(dev, B, D, I, dtype, seed=D + B)
+    out = _check_b11_phases(ops, K.gelu_tiling(B, D, I, None)[1:])
+    before = FM.launches["fused_mlp_int8"]
+    assert torch.equal(FM.fused_mlp_int8(*ops), out)
+    assert FM.launches["fused_mlp_int8"] == before + 1
+
+
+@pytest.mark.parametrize("down", [1, 2, 4])
+@pytest.mark.parametrize("units", K.GELU_UNITS)
+@pytest.mark.parametrize("pdl", [False, True])
+def test_fused_mlp_every_tiling_matches_plain(dev, down, units, pdl):
+    from chatterbox_tpu_torch.kernels import fused_mlp as FM
+    for B, dtype in ((2, torch.float32), (16, torch.bfloat16)):
+        ops = _b11_operands(dev, B, 1024, 4096, dtype, seed=down + units)
+        out = _check_b11_phases(ops, (units, down, pdl))
+        assert torch.equal(out, FM.fused_mlp_int8_tiled(*ops, units, down, pdl))
+
+
+def test_b9_b2_b11_replay_in_a_cuda_graph_with_new_inputs(dev):
+    """The three kernels captured in one CUDA graph (B2 and B11 with their
+    dependent launches) and replayed after new inputs are copied in."""
+    from chatterbox_tpu_torch.kernels import fused_mlp as FM
+    b9 = list(_b9_operands(dev, 1, 1024, torch.bfloat16))
+    b2 = list(_b2_operands(dev, 8, 1024, 4096, torch.bfloat16))
+    b11 = list(_b11_operands(dev, 2, 1024, 4096, torch.float32))
+    K.ln_qkv_int4(*b9, EPS)
+    K.attnout_ln_mlp_int8(*b2, EPS)
+    FM.fused_mlp_int8(*b11)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out9 = K.ln_qkv_int4(*b9, EPS)
+        out2 = K.attnout_ln_mlp_int8(*b2, EPS)
+        out11 = FM.fused_mlp_int8(*b11)
+    for seed in (21, 22):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        for t in (b9[0], b2[0], b2[1], b11[0]):
+            t.copy_(torch.randn(t.shape, generator=g, device=dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert (out9 - K.ln_qkv_int4_plain(*b9, EPS)).abs().max() <= 1e-3
+        assert (out2 - K.attnout_ln_mlp_int8_plain(*b2, EPS)).abs().max() <= 1e-2
+        assert (out11 - FM.fused_mlp_int8_plain(*b11)).abs().max() <= 1e-2
+
+
+def test_b9_b2_b11_refuse_what_the_kernels_do_not_take(dev):
+    from chatterbox_tpu_torch.kernels import fused_mlp as FM
+    ops = _b9_operands(dev, 2, 1024, torch.bfloat16)
+    for cols in (8, 48, 128):                # tilings the kernel has no instance of
+        with pytest.raises(ValueError):
+            K.ln_qkv_int4_tiled(*ops, EPS, cols)
+    x, g, b, wp, slo, shi, bias = _b9_operands(dev, 2, 1024, torch.bfloat16)
+    n = 3072 - 16                            # not a multiple of 32 or 64 columns
+    with pytest.raises(ValueError):
+        K.ln_qkv_int4_tiled(x, g, b, wp[:n].contiguous(), slo[:n].contiguous(),
+                            shi[:n].contiguous(), bias[:n].contiguous(), EPS, 32)
+    # D = 8192 at 16 rows: the norm rows alone take 256 KB
+    assert K.ln_qkv_int4_tiling(16, 8192, 3072) is None
+    ops = list(_b9_operands(dev, 17, 1024, torch.float32))
+    with pytest.raises(ValueError):          # 17 rows
+        K.ln_qkv_int4(*ops, EPS)
+    ops = _b2_operands(dev, 2, 1024, 4096, torch.bfloat16)
+    with pytest.raises(ValueError):          # down split 4 ways over 2 hidden tiles of 2048
+        K.attnout_ln_mlp_int8_tiled(*ops, EPS, 2048, 1, 32, 4, False)
+    with pytest.raises(ValueError):          # 24 hidden units a block
+        K.attnout_ln_mlp_int8_tiled(*ops, EPS, 1024, 1, 24, 1, False)
+    with pytest.raises(ValueError):          # hidden tile not dividing I
+        K.attnout_ln_mlp_int8(*ops, EPS, 1536)
+    ops = _b11_operands(dev, 2, 1024, 4096, torch.bfloat16)
+    with pytest.raises(ValueError):          # 3 down blocks
+        FM.fused_mlp_int8_tiled(*ops, 32, 3, True)
+    with pytest.raises(ValueError):          # 24 hidden units a block
+        FM.fused_mlp_int8_tiled(*ops, 24, 1, True)
+    ops = list(_b11_operands(dev, 2, 1024, 4096, torch.bfloat16))
+    ops[0] = torch.empty(2 * 1024 + 8, dtype=torch.bfloat16, device=dev)[4:-4].view(2, 1024)
+    with pytest.raises(ValueError):          # x not 16-byte aligned
+        FM.fused_mlp_int8(*ops)

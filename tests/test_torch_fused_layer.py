@@ -108,6 +108,81 @@ def test_attnout_ln_mlp_int8_matches_pallas(D, I, B, dtype):
                                atol=ATOL_B2)
 
 
+def _b2_case(D, I, B, dtype, seed):
+    """B2's operands (JAX arrays and numpy) and the Pallas kernel's output."""
+    rng = np.random.default_rng(seed)
+    a = _act(rng, B, D, dtype, 0.5)
+    xres = _act(rng, B, D, dtype)
+    (wo, so), (w1, s1), (w2, s2) = (_quant(rng, k, n) for k, n in ((D, D), (D, I), (I, D)))
+    bo, b1, b2 = _vec(rng, D), _vec(rng, I), _vec(rng, D)
+    g2, be2 = _vec(rng, D, 0.1, 1.0), _vec(rng, D, 0.1)
+    ref = jax_b2(a, xres, jnp.asarray(wo), _b8(so), _b8(bo), _b8(g2), _b8(be2),
+                 jnp.asarray(w1), _b8(s1), _b8(b1), jnp.asarray(w2), _b8(s2),
+                 _b8(b2), eps=EPS, interpret=True)
+    tt = lambda w: torch.from_numpy(w.T.copy())
+    ops = (_t(a), _t(xres), tt(wo), _t(so), _t(bo), _t(g2), _t(be2), tt(w1), _t(s1),
+           _t(b1), tt(w2), _t(s2), _t(b2))
+    return ops, np.asarray(ref)
+
+
+# The CUDA kernel's order of sums (attnout_ln_mlp_int8_split_plain): attn-out
+# split over 1, 2 or 4 blocks of eight warps, fc_in and each 1024-wide tile
+# of fc_out over eight warps, the tiles added onto r + b2 in order; at 1-16
+# rows (one and two MMA row tiles) and both input types, against the Pallas
+# kernel at B2's tolerance above (the bf16 roundings of y and h are where
+# the orders part).
+_B2_REFS = {}
+
+
+@pytest.mark.parametrize("B", [1, 2, 8, 16])
+@pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float32])
+@pytest.mark.parametrize("attn_splits", [1, 2, 4])
+def test_attnout_ln_mlp_split_order_matches_pallas(B, dtype, attn_splits):
+    key = (B, dtype)
+    if key not in _B2_REFS:
+        _B2_REFS[key] = _b2_case(512, 2048, B, dtype, seed=70 + B)
+    ops, ref = _B2_REFS[key]
+    out = K.attnout_ln_mlp_int8_split_plain(*ops, EPS, 1024, attn_splits)
+    assert out.dtype == torch.float32 and out.shape == (B, 512)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=RTOL, atol=ATOL_B2)
+
+
+@pytest.mark.parametrize("attn_splits", [1, 4])
+def test_attnout_ln_mlp_split_order_matches_pallas_at_turbo_width(attn_splits):
+    ops, ref = _b2_case(1024, 4096, 2, jnp.bfloat16, seed=80 + attn_splits)
+    out = K.attnout_ln_mlp_int8_split_plain(*ops, EPS, 1024, attn_splits)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=RTOL, atol=ATOL_B2)
+
+
+@pytest.mark.parametrize("B", [1, 2, 8, 16])
+def test_gelu_tiling_fits_every_shape_the_kernel_takes(B):
+    """B2's tiling (tw given) and B11's (tw None) within shared memory at D
+    512-2048 and I up to 8192, each down block taking whole hidden tiles,
+    the norm block's units from GELU_UNITS dividing I; the Turbo shape
+    takes attn-out unsplit, the first choice of units and down split
+    TC_MAX_SPLITS ways (the sweep's choice)."""
+    for D, I, tw in ((512, 2048, 1024), (1024, 4096, 1024), (2048, 4096, 1024),
+                     (2048, 8192, 1024), (1024, 4096, None), (2048, 8192, None)):
+        attn, units, down, pdl = K.gelu_tiling(B, D, I, tw)
+        tiles = down if tw is None else I // tw
+        K.tc_phases_limits("B2", B, D, I, tiles, attn, units, down)
+        assert units in K.GELU_UNITS and I % units == 0 and pdl == K.TC_PDL
+        assert tiles % down == 0 and (D // attn) % K.TC_CHUNK == 0
+        if (D, I) == (1024, 4096):
+            assert (attn, units, down) == (1, K.GELU_UNITS[0], K.TC_MAX_SPLITS)
+    with pytest.raises(ValueError):          # 3 down blocks over 4 tiles
+        K.tc_phases_limits("B2", B, 1024, 4096, 4, 1, 32, 3)
+    with pytest.raises(ValueError):          # hidden tiles of 32 units, not whole 64-wide steps
+        K.tc_phases_limits("B2", B, 1024, 4096, 128, 1, 32, 4)
+
+
+def test_b2_wrapper_launches_or_raises_on_a_device_tensor(monkeypatch):
+    from tests.test_torch_int4 import spy_dispatch
+    ops, _ = _b2_case(512, 2048, 2, jnp.float32, seed=90)
+    spy_dispatch(monkeypatch, K, "_kernels", lambda: K.attnout_ln_mlp_int8(*ops, EPS),
+                 "attnout_ln_mlp_int8", "attnout_ln_mlp_int8_launch")
+
+
 def test_cpu_dispatch_is_the_plain_version_and_counts_nothing():
     rng = np.random.default_rng(0)
     D = 512

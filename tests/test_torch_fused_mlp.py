@@ -62,6 +62,29 @@ def test_fused_mlp_plain_matches_pallas(B, dtype):
     np.testing.assert_allclose(out.float().numpy(), ref, rtol=0, atol=tol)
 
 
+# The CUDA kernel's order of sums (fused_mlp_int8_split_plain: each hidden
+# unit over eight warps, fc_out's contraction over 1, 2 or 4 blocks of
+# eight warps, scaled once) at 1-16 rows (one and two MMA row tiles) and
+# both types, against the Pallas kernel at the tolerances above.
+_REFS = {}
+
+
+@pytest.mark.parametrize("B", [1, 2, 8, 16])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("down_splits", [1, 2, 4])
+def test_fused_mlp_split_order_matches_pallas(B, dtype, down_splits):
+    key = (B, dtype)
+    if key not in _REFS:
+        ops = _operands(np.random.default_rng(70 + B), B, 512, 2048, dtype)
+        _REFS[key] = (_port(ops),
+                      np.asarray(jax_fused_mlp(*ops, interpret=True).astype(jnp.float32)))
+    t, ref = _REFS[key]
+    out = FM.fused_mlp_int8_split_plain(*t, down_splits)
+    assert out.dtype == t[0].dtype and out.shape == (B, 512)
+    tol = 1e-4 if dtype == jnp.float32 else 2.0 ** -8 * np.abs(ref).max()
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=0, atol=tol)
+
+
 def test_fused_mlp_on_port_quantized_weights_matches_pallas():
     """The port's own int8 quantization of the weights feeds both."""
     rng = np.random.default_rng(60)

@@ -275,6 +275,51 @@ def test_ln_qkv_int4_plain_matches_pallas(B, dtype):
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-4)
 
 
+# B9's kernel order (int4_block_sum onto the bias: eight warps' runs of
+# 64-row chunks, each group's sums scaled where a run leaves the group)
+# at the kernel's row tiles (1-8 rows one MMA tile, 9-16 two) and both x
+# types; the columns a block owns (the tiling) change no sum. Against the
+# plain version, which shares its LayerNorm: f32 summation order (1e-5 of
+# outputs of order 1). Against the Pallas kernel: that, plus a norm value
+# that the two packages' f32 LayerNorm sums put on either side of a bf16
+# rounding boundary (one of 4096 in a run seen at 8 rows), which moves its
+# row's outputs by ulp(y) * 7 * s, at most 2**-7 * max|y| * 7 * max(s).
+@pytest.mark.parametrize("B", [1, 2, 8, 16])
+@pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float32])
+@pytest.mark.parametrize("D", [512, 1024])
+def test_ln_qkv_int4_split_order_matches_pallas(B, dtype, D):
+    rng = np.random.default_rng(100 + B + D)
+    x = _act(rng, (B, D), dtype)
+    g, be, bias = _vec(rng, D, 0.1, 1.0), _vec(rng, D, 0.1), _vec(rng, 3 * D)
+    wp, slo, shi = _packed(rng, D, 3 * D)
+    ref = np.asarray(JF.ln_qkv_int4(x, _b8(g), _b8(be), wp, slo, shi, _b8(bias), eps=EPS,
+                                    interpret=True))
+    args = (_t(x), _t(g), _t(be), _tt(wp), _tt(slo), _tt(shi), _t(bias), EPS)
+    out = K.ln_qkv_int4_split_plain(*args)
+    assert out.dtype == torch.float32 and out.shape == (B, 3 * D)
+    np.testing.assert_allclose(out.numpy(), K.ln_qkv_int4_plain(*args).numpy(), rtol=0,
+                               atol=1e-5)
+    y_max = K._ln_bf16(*args[:3], EPS).abs().max().item()
+    s_max = max(np.abs(np.asarray(slo)).max(), np.abs(np.asarray(shi)).max())
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0,
+                               atol=1e-4 + 2.0 ** -7 * y_max * 7 * s_max)
+
+
+@pytest.mark.parametrize("B", [1, 2, 8, 9, 16])
+def test_ln_qkv_int4_tiling_fits_every_shape_the_kernel_takes(B):
+    """Columns a block from QKV4_COLS dividing N, within shared memory, at D
+    512-4096; the Turbo shape takes the first choice; a width whose norm
+    rows alone overflow shared memory has no tiling."""
+    for D in (512, 1024, 2048, 4096):
+        N = 3 * D
+        cols = K.ln_qkv_int4_tiling(B, D, N)
+        assert cols in K.QKV4_COLS and N % cols == 0, D
+        assert K.int4_smem(cols, 1, D // 2, B, ln=True) <= K.SMEM_LIMIT, D
+    assert K.ln_qkv_int4_tiling(B, 1024, 3072) == K.QKV4_COLS[0]
+    assert K.ln_qkv_int4_tiling(B, 1024, 3072 + 8) is None
+    assert K.ln_qkv_int4_tiling(16, 8192, 3 * 8192) is None
+
+
 def _b10_operands(rng, D, I):
     wo_p, so_lo, so_hi = _packed(rng, D, D)
     w1c, s1_lo, s1_hi = JQ.quantize_linear_weight_int4_colsplit(jnp.asarray(_w(rng, (D, I))))
@@ -345,6 +390,51 @@ def spy_dispatch(monkeypatch, mod, lib_attr, call, name, launch):
             call()
         assert lib.called == [launch]
         assert mod.launches[name] == before + (0 if err else 1)
+
+
+def _c_signatures(name):
+    """{function: [ctypes type of each parameter]} of the extern "C"
+    functions of csrc/<name>.cu: pointers c_void_p, int c_int, float
+    c_float."""
+    import ctypes
+    import re
+    from pathlib import Path
+    src = (Path(K.__file__).resolve().parent.parent / "csrc" / f"{name}.cu").read_text()
+    body = src[src.index('extern "C"'):]
+    kind = lambda p: (ctypes.c_void_p if "*" in p else ctypes.c_float
+                      if p.split()[0] == "float" else ctypes.c_int)
+    return {m.group(1): [kind(p) for p in m.group(2).split(",")] for m in re.finditer(
+        r'^(?:extern "C" )?(?:int|size_t)\s+(\w+)\(([^)]*)\)', body, re.M)}
+
+
+class _DeclaredLib:
+    """Stands in for a loaded library while the wrappers declare its
+    functions' argtypes."""
+
+    def __init__(self):
+        self.fns = {}
+
+    def __getattr__(self, name):
+        return self.fns.setdefault(name, types.SimpleNamespace())
+
+
+def test_ctypes_declarations_match_the_c_sources(monkeypatch):
+    """Every function the wrappers declare exists in its CUDA source with
+    the declared parameters, in number and kind: a mismatch would pass a
+    wrong argument on the card, where nothing checks it."""
+    from chatterbox_tpu_torch.kernels import build
+    from chatterbox_tpu_torch.kernels import decode_attention as A
+    libs = {}
+    monkeypatch.setattr(build, "load", lambda name: libs.setdefault(name, _DeclaredLib()))
+    for mod, attr in ((K, "_lib"), (K, "_int4_lib"), (A, "_lib")):
+        monkeypatch.setattr(mod, attr, None)
+    K._kernels(), K.int4_kernels(), A._kernel()
+    assert set(libs) == set(build.sources())
+    for name, lib in libs.items():
+        sigs = _c_signatures(name)
+        assert set(lib.fns) == set(sigs), name
+        for fn, decl in lib.fns.items():
+            assert decl.argtypes == sigs[fn], (name, fn)
 
 
 def test_int4_wrappers_launch_or_raise_on_a_device_tensor(monkeypatch):
