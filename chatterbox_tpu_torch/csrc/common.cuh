@@ -1,7 +1,6 @@
 // Helpers shared by the kernels (fused_layer.cu, int4.cu,
-// decode_attention.cu): block shape, reductions, the norm prologues (the
-// first designs' norm_bf16, the tensor-core kernels' norm_rows_bf16), 16-wide
-// dot products over shared-memory rows, gelu_new, the bulk copy
+// decode_attention.cu): block shape, the warp reduction, the tensor-core
+// kernels' norm prologue (norm_rows_bf16), gelu_new, the bulk copy
 // (cp.async.bulk) onto an mbarrier, the cluster barrier and stores into a
 // peer's shared memory, programmatic dependent launch, the bf16 tensor-core
 // MMA and its operand conversions, rows staged as bf16, and the launches
@@ -16,97 +15,17 @@ namespace {
 
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
-constexpr int K_STEP = 32 * 16;           // bytes a warp reads per iteration
 constexpr int SMEM_MAX = 227 * 1024;      // dynamic shared memory a block may opt in to
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// Sum over the block; every thread gets the result. red: WARPS floats.
-__device__ float block_sum(float v, float* red) {
-  v = warp_sum(v);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();  // red may still be read by a previous call
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float t = lane < WARPS ? red[lane] : 0.f;
-  return warp_sum(t);
-}
-
-// ys[r, :] = bf16(norm(x[r, :])) for the B rows, in shared memory, in f32:
-//   LayerNorm (RMS = false): mean, then the mean of squared deviations;
-//                            (x - mu) * rsqrt(var + eps) * g + b
-//   RMSNorm   (RMS = true):  x * rsqrt(mean(x^2) + eps) * g   (b unused)
-template <typename T, bool RMS>
-__device__ void norm_bf16(const T* __restrict__ x, const float* __restrict__ g,
-                          const float* __restrict__ b, int B, int D, float eps,
-                          float* ys, float* red) {
-  for (int r = 0; r < B; ++r) {
-    const T* xr = x + (size_t)r * D;
-    float* yr = ys + (size_t)r * D;
-    float s = 0.f;
-    for (int i = threadIdx.x; i < D; i += blockDim.x) {
-      const float v = to_f32(xr[i]);
-      yr[i] = v;
-      s += RMS ? v * v : v;
-    }
-    if (RMS) {
-      const float rs = rsqrtf(block_sum(s, red) / D + eps);
-      for (int i = threadIdx.x; i < D; i += blockDim.x)
-        yr[i] = round_bf16(yr[i] * rs * g[i]);
-    } else {
-      const float mu = block_sum(s, red) / D;
-      float q = 0.f;
-      for (int i = threadIdx.x; i < D; i += blockDim.x) {
-        const float d = yr[i] - mu;
-        q += d * d;
-      }
-      const float rs = rsqrtf(block_sum(q, red) / D + eps);
-      for (int i = threadIdx.x; i < D; i += blockDim.x)
-        yr[i] = round_bf16((yr[i] - mu) * rs * g[i] + b[i]);
-    }
-  }
-  __syncthreads();
-}
-
-// sum_j x[j] * w[j] over 16 consecutive entries of one row of xs (f32 or
-// bf16 in shared memory) and the 16 weights already converted to float.
-__device__ __forceinline__ float dot16(const float* x, const float w[16]) {
-  const float4* x4 = reinterpret_cast<const float4*>(x);
-  float s = 0.f;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const float4 xv = x4[q];
-    s += xv.x * w[4 * q] + xv.y * w[4 * q + 1] + xv.z * w[4 * q + 2] + xv.w * w[4 * q + 3];
-  }
-  return s;
-}
-
-__device__ __forceinline__ float dot16(const __nv_bfloat16* x, const float w[16]) {
-  const uint4* x4 = reinterpret_cast<const uint4*>(x);
-  float s = 0.f;
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const uint4 u = x4[q];
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(h[j]);
-      s += f.x * w[8 * q + 2 * j] + f.y * w[8 * q + 2 * j + 1];
-    }
-  }
-  return s;
 }
 
 __device__ __forceinline__ float gelu_new(float x) {
@@ -338,8 +257,6 @@ __device__ __forceinline__ void norm_rows_bf16(const T* __restrict__ x, const fl
   }
 }
 
-inline unsigned blocks_for(int n) { return (unsigned)((n + WARPS - 1) / WARPS); }
-
 // Kernel<<<grid, THREADS, smem, st>>>(args...) through cudaLaunchKernelEx:
 // consecutive blocks in clusters of `cluster` (1: no cluster), and with
 // `pdl` the launch may begin while the previous kernel on the stream runs
@@ -393,14 +310,5 @@ template <auto Kernel, typename... Args>
 cudaError_t launch(unsigned grid, size_t smem, cudaStream_t st, Args... args) {
   return launch_ex<Kernel>(grid, smem, 1, false, st, args...);
 }
-
-// The smallest row instance that holds B rows (the wrappers check B <= 16).
-#define DISPATCH_ROWS(B, ...)                      \
-  do {                                             \
-    if ((B) <= 2) { constexpr int NB = 2; __VA_ARGS__; }       \
-    else if ((B) <= 4) { constexpr int NB = 4; __VA_ARGS__; }  \
-    else if ((B) <= 8) { constexpr int NB = 8; __VA_ARGS__; }  \
-    else { constexpr int NB = 16; __VA_ARGS__; }               \
-  } while (0)
 
 }  // namespace

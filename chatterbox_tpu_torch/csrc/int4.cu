@@ -26,21 +26,10 @@
 // (1.46 us); a Llama-520M layer's seven B8 calls 8.39 + 0.26 MB (2.58 us).
 // Half of what the int8 kernels B1, B2, B5 and B6 read for the same layer.
 //
-// B8 and B9 run a tensor-core kernel with its own note (int4_tc_kernel
-// below). The design of B10 (B2's first one, simple and right first; no
-// TMA, no tensor cores):
-//   * Packed weights and scales are stored OUT-MAJOR (every int4 kernel):
-//     (N, K/2) bytes and (N, G) scales for the row split, (N/2, K) and
-//     (N/2, G) for the column split. One warp owns one output column (phase
-//     2: one packed column, i.e. hidden units c and c + I/2) and streams its
-//     bytes with 16-byte loads, 512 bytes a warp per iteration.
-//   * 16 packed bytes are 16 rows of one 256-row group, so a lane scales
-//     its partial sums per load; the high nibble comes from the signed byte
-//     by an arithmetic shift, the low one as ((b & 15) ^ 8) - 8.
-//   * Phase 2 recomputes the LayerNorm rows in every block, as B1's first
-//     design did; B10 is three launches on one stream, as B2 is:
-//     attn-out + residual, LN2 + fc_in + gelu, fc_out + residual, with r
-//     (f32) and h (bf16) in global scratch.
+// All three run one tensor-core kernel (int4_tc_kernel below, with its own
+// note), B10 as three launches of it.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -48,205 +37,72 @@ namespace {
 
 constexpr int GROUP = 256;                 // rows per scale group
 
-// The 16 packed bytes at w as their 16 low and 16 high nibble values.
-__device__ __forceinline__ void unpack16(const int8_t* __restrict__ w, float lo[16],
-                                         float hi[16]) {
-  const int4 pk = __ldg(reinterpret_cast<const int4*>(w));
-  const int8_t* b = reinterpret_cast<const int8_t*>(&pk);
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int v = b[j];                    // sign-extended
-    lo[j] = (float)(((v & 15) ^ 8) - 8);
-    hi[j] = (float)(v >> 4);               // arithmetic shift of the signed byte
-  }
-}
-
-// Row split, one out-major packed column wp (K2 bytes, scales s_lo / s_hi
-// of K2 / GROUP each): acc[r] = sum over groups of (x_lo @ lo_g) * s_lo[g]
-// + (x_hi @ hi_g) * s_hi[g], where row r of xs holds x_lo at xs + r * ldx
-// and x_hi K2 further. Summed over the warp; K2 % GROUP == 0.
-template <int NB, typename XT>
-__device__ __forceinline__ void warp_dot_i4(const int8_t* __restrict__ wp,
-                                            const float* __restrict__ s_lo,
-                                            const float* __restrict__ s_hi, const XT* xs,
-                                            int K2, int ldx, int B, float acc[NB]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int r = 0; r < NB; ++r) acc[r] = 0.f;
-#pragma unroll 2
-  for (int k0 = lane * 16; k0 < K2; k0 += K_STEP) {
-    float lo[16], hi[16];
-    unpack16(wp + k0, lo, hi);
-    const float sl = __ldg(s_lo + k0 / GROUP), sh = __ldg(s_hi + k0 / GROUP);
-#pragma unroll
-    for (int r = 0; r < NB; ++r)
-      if (r < B) {
-        const XT* xr = xs + (size_t)r * ldx + k0;
-        acc[r] += dot16(xr, lo) * sl + dot16(xr + K2, hi) * sh;
-      }
-  }
-#pragma unroll
-  for (int r = 0; r < NB; ++r) acc[r] = warp_sum(acc[r]);
-}
-
-// Column split, one out-major packed column wc (K bytes, scales of
-// K / GROUP): a[r] = sum over groups of (x @ lo_g) * s_lo[g] and b[r] the
-// same over the high nibbles, x = row r of xs (f32, stride ldx).
-template <int NB>
-__device__ __forceinline__ void warp_dot_i4c(const int8_t* __restrict__ wc,
-                                             const float* __restrict__ s_lo,
-                                             const float* __restrict__ s_hi, const float* xs,
-                                             int K, int ldx, int B, float a[NB], float b[NB]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int r = 0; r < NB; ++r) a[r] = b[r] = 0.f;
-#pragma unroll 2
-  for (int k0 = lane * 16; k0 < K; k0 += K_STEP) {
-    float lo[16], hi[16];
-    unpack16(wc + k0, lo, hi);
-    const float sl = __ldg(s_lo + k0 / GROUP), sh = __ldg(s_hi + k0 / GROUP);
-#pragma unroll
-    for (int r = 0; r < NB; ++r)
-      if (r < B) {
-        const float* xr = xs + (size_t)r * ldx + k0;
-        a[r] += dot16(xr, lo) * sl;
-        b[r] += dot16(xr, hi) * sh;
-      }
-  }
-#pragma unroll
-  for (int r = 0; r < NB; ++r) {
-    a[r] = warp_sum(a[r]);
-    b[r] = warp_sum(b[r]);
-  }
-}
-
-// B10 phase 1: r = xres + (bf16(a) @ Wo) + bo; grid = ceil(D / WARPS).
-template <typename T, int NB>
-__global__ void __launch_bounds__(THREADS)
-attn_out_int4_kernel(const T* __restrict__ a, const T* __restrict__ xres,
-                     const int8_t* __restrict__ wo_t, const float* __restrict__ slo_t,
-                     const float* __restrict__ shi_t, const float* __restrict__ bo,
-                     float* __restrict__ r_out, int B, int D) {
-  extern __shared__ float4 smem4[];
-  float* as = reinterpret_cast<float*>(smem4);
-  for (int i = threadIdx.x; i < B * D; i += blockDim.x) as[i] = round_bf16(to_f32(a[i]));
-  __syncthreads();
-  const int n = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (n >= D) return;
-  const int K2 = D / 2, G = K2 / GROUP;
-  float acc[NB];
-  warp_dot_i4<NB>(wo_t + (size_t)n * K2, slo_t + (size_t)n * G, shi_t + (size_t)n * G, as, K2,
-                  D, B, acc);
-  if ((threadIdx.x & 31) == 0) {
-#pragma unroll
-    for (int r = 0; r < NB; ++r)
-      if (r < B) r_out[(size_t)r * D + n] = to_f32(xres[(size_t)r * D + n]) + acc[r] + bo[n];
-  }
-}
-
-// B10 phase 2: y2 = bf16(LN2(r)); packed column c gives hidden units c
-// (low nibbles) and c + I/2 (high): h = bf16(gelu_new(b1 + y2 @ W1));
-// grid = ceil((I / 2) / WARPS).
-template <int NB>
-__global__ void __launch_bounds__(THREADS)
-ln_fc_in_int4_kernel(const float* __restrict__ r, const float* __restrict__ g2,
-                     const float* __restrict__ be2, const int8_t* __restrict__ w1c_t,
-                     const float* __restrict__ slo_t, const float* __restrict__ shi_t,
-                     const float* __restrict__ b1, __nv_bfloat16* __restrict__ h, int B, int D,
-                     int I, float eps) {
-  extern __shared__ float4 smem4[];
-  float* ys = reinterpret_cast<float*>(smem4);
-  float* red = ys + (size_t)B * D;
-  norm_bf16<float, false>(r, g2, be2, B, D, eps, ys, red);
-  const int IH = I / 2;
-  const int c = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (c >= IH) return;
-  const int G = D / GROUP;
-  float ua[NB], ub[NB];
-  warp_dot_i4c<NB>(w1c_t + (size_t)c * D, slo_t + (size_t)c * G, shi_t + (size_t)c * G, ys, D,
-                   D, B, ua, ub);
-  if ((threadIdx.x & 31) == 0) {
-#pragma unroll
-    for (int rr = 0; rr < NB; ++rr)
-      if (rr < B) {
-        h[(size_t)rr * I + c] = __float2bfloat16(gelu_new(b1[c] + ua[rr]));
-        h[(size_t)rr * I + IH + c] = __float2bfloat16(gelu_new(b1[IH + c] + ub[rr]));
-      }
-  }
-}
-
-// B10 phase 3: out = (r + b2) + h @ W2 (row split: the low nibble of
-// packed row k pairs with hidden unit k, the high with k + I/2);
-// grid = ceil(D / WARPS).
-template <int NB>
-__global__ void __launch_bounds__(THREADS)
-down_int4_kernel(const __nv_bfloat16* __restrict__ h, const float* __restrict__ r,
-                 const int8_t* __restrict__ w2_t, const float* __restrict__ slo_t,
-                 const float* __restrict__ shi_t, const float* __restrict__ b2,
-                 float* __restrict__ out, int B, int D, int I) {
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem4);
-  {  // B * I bf16 is a multiple of 8 (I % 512 == 0): copy 16 bytes a thread
-    const uint4* src = reinterpret_cast<const uint4*>(h);
-    uint4* dst = reinterpret_cast<uint4*>(hs);
-    for (int i = threadIdx.x; i < B * I / 8; i += blockDim.x) dst[i] = src[i];
-  }
-  __syncthreads();
-  const int n = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (n >= D) return;
-  const int IH = I / 2, G = IH / GROUP;
-  float acc[NB];
-  warp_dot_i4<NB>(w2_t + (size_t)n * IH, slo_t + (size_t)n * G, shi_t + (size_t)n * G, hs, IH,
-                  I, B, acc);
-  if ((threadIdx.x & 31) == 0) {
-#pragma unroll
-    for (int rr = 0; rr < NB; ++rr)
-      if (rr < B) out[(size_t)rr * D + n] = r[(size_t)rr * D + n] + b2[n] + acc[rr];
-  }
-}
-
 // ---------------------------------------------------------------------------
-// B8 and B9 on the tensor cores (int4_tc_kernel, one template; LN selects
-// B9). Bound: the packed bytes and scales, 1.05 MB for B8 at K = 4096,
-// N = 1024 (0.31 us at 3.35 TB/s), 1.62 MB for B9 at D = 1024, N = 3072
-// (0.49 us), at every row count (B8 1-8, B9 1-16).
+// B8, B9 and B10's three phases on the tensor cores (int4_tc_kernel, one
+// template; MODE selects the function):
+//   I4_MATMUL  B8:  out = x @ W (row split)
+//   I4_LN      B9:  out = bias + bf16(LN(x)) @ W (row split)
+//   I4_ATTN    B10 attn-out: r = (res + bf16(x) @ Wo) + bias
+//   I4_FC_IN   B10 LN2 + fc_in: packed column c gives hidden units c (low
+//              nibbles) and c + N (high), both over y = bf16(LN2(r)):
+//              h = bf16(gelu_new(b1 + y @ W1)) (column split)
+//   I4_DOWN    B10 fc_out: out = (r + b2) + h @ W2 (row split)
+// Bound: the packed bytes and scales, 1.05 MB for B8 at K = 4096, N = 1024
+// (0.31 us at 3.35 TB/s), 1.62 MB for B9 at D = 1024, N = 3072 (0.49 us),
+// 4.86 MB for B10 at D = 1024, I = 4096 (1.45 us), at every row count (B8
+// 1-8, B9 and B10 1-16).
 //
-// The first designs (one warp per output column, the rows staged as bf16 or
-// normalised by every block before its first weight load, one nibble at a
-// time into floats and B FMAs a nibble) took B8 7.62 us a call at 2 rows and
-// 21.82 us at 8, B9 7.00 us at 1 row and 31.32 at 8 (NVIDIA H100 80GB HBM3,
-// 700 W power limit; chip_smoke.py phase 3). This design is B1 / B5's:
-//   * A block owns COLS output columns and 1 / KS of the packed rows. At
-//     entry one thread starts the bulk copies (TMA) of its packed slab (one
-//     copy when KS = 1: out-major columns are contiguous; else one a column)
-//     and of the columns' lo and hi scales (and B9's LayerNorm g and b), on
-//     two mbarriers. While they fly the block stages x's two halves as bf16
-//     (16-byte loads, f32 rounded), or, B9, computes bf16(LN(x)) of its rows
-//     (norm_rows_bf16, one warp a row, as B1): the normalised row is the two
-//     halves side by side, the layout B8 stages.
+// The first designs (one warp per output column on the CUDA cores, the rows
+// staged as bf16 or normalised by every block before its first weight load,
+// one nibble at a time into floats and B FMAs a nibble; B10's three launches
+// in strict series) took B8 7.62 us a call at 2 rows and 21.82 us at 8, B9
+// 7.00 us at 1 row and 31.32 at 8, B10 16.73 us at 1 row and 111.20 at 16
+// (NVIDIA H100 80GB HBM3, 700 W power limit; chip_smoke.py phase 3). This
+// design is B1 / B5's:
+//   * A block owns COLS output columns (I4_FC_IN: COLS packed columns, i.e.
+//     2 COLS hidden units) and 1 / KS of the packed rows. At entry one
+//     thread starts the bulk copies (TMA) of its packed slab (one copy when
+//     KS = 1: out-major columns are contiguous; else one a column) and of
+//     the columns' lo and hi scales (and the LayerNorm's g and b), on two
+//     mbarriers. While they fly the block stages x's two halves as bf16
+//     (16-byte loads, f32 rounded), or, I4_LN and I4_FC_IN, computes
+//     bf16(LN(x)) of its rows (norm_rows_bf16, one warp a row, as B1): the
+//     normalised row is the two halves side by side, the layout B8 stages,
+//     or, column split, the one row both nibbles of a byte meet.
 //   * Nibbles become bf16 in registers, two at a time, exactly: the nibble
 //     XOR 8 is put in the mantissa of 128 (0x4300) and 136 is taken off.
 //   * mma.sync m16n8k16 (bf16, f32 sums): 16 columns as A, 8 rows as B (two
 //     tiles for 9-16 rows), so 1 and 8 rows cost the same; B1 / B5's
 //     permutation of k serves both operands (lane (g, t) reads 16 packed
 //     bytes of a column, i.e. 16 low and 16 high nibbles, and the matching
-//     16 bf16 of each half of the rows).
+//     16 bf16 of each half of the rows, or, column split, of the one row:
+//     the low nibbles' MMA and the high nibbles' take the same B fragment).
 //   * The warps split the block's packed rows into contiguous runs of
-//     64-row chunks. The low and high halves' MMAs accumulate in fresh
+//     64-row chunks. The low and high nibbles' MMAs accumulate in fresh
 //     fragments for as long as the chunks stay in one 256-row group; each
 //     takes its group's scale (s_lo, s_hi) once before it joins the warp's
-//     running sum, the Pallas order of operations. The warps' sums meet in
-//     shared memory and are added in warp order, B9's onto the bias (the
-//     Pallas accumulator starts at the bias and takes the groups in order);
-//     with KS > 1 the KS blocks of a column slab form a cluster, each writes
-//     its sum into rank 0's shared memory (as B3 does), and rank 0 adds them
-//     in order.
+//     running sum, the Pallas order of operations (column split: two running
+//     sums, one for each hidden unit of a packed column). The warps' sums
+//     meet in shared memory and are added in warp order onto the start (B9
+//     and I4_FC_IN: the bias, I4_DOWN: r + b2, as the Pallas accumulators
+//     start); with KS > 1 the KS blocks of a column slab form a cluster,
+//     each writes its sum into rank 0's shared memory (as B3 does), and rank
+//     0 adds them in order onto the start.
 //   * The result is written in the type the caller names (f32, the Pallas
-//     contract, or bf16: nn.linear's cast done in the kernel; B9 f32).
-// COLS and KS come from the wrappers (int4_tiling, ln_qkv_int4_tiling, from
-// chip_smoke.py's sweeps on the card). B9 takes no split: its norm needs
-// every block to read whole rows.
+//     contract, or bf16: nn.linear's cast done in the kernel; B9 f32); B10's
+//     phases write r (f32), h (bf16, gelu_new of the sum) and out (f32).
+//   * B10's phases call griddep_wait after their copies have started and
+//     before they read the previous phase's output, so with programmatic
+//     dependent launch each phase's weight stream overlaps the tail of the
+//     phase before (as B2's).
+// COLS and KS come from the wrappers (int4_tiling, ln_qkv_int4_tiling,
+// int4_mlp_tiling, from chip_smoke.py's sweeps on the card). The norm
+// phases take no split: every block must read whole rows.
 constexpr int I4_PAD = 8;          // bf16 entries after each staged row
+
+enum I4Mode : int { I4_MATMUL = 0, I4_LN = 1, I4_ATTN = 2, I4_FC_IN = 3, I4_DOWN = 4 };
+
+__host__ __device__ constexpr bool i4_norm(int mode) { return mode == I4_LN || mode == I4_FC_IN; }
 
 // The eight nibbles of four packed bytes as bf16 pairs: lo01 / lo23 the low
 // nibbles of bytes 0, 1 and 2, 3 (the lower byte in the lower half), hi01 /
@@ -267,37 +123,47 @@ __device__ __forceinline__ void nibbles_to_bf16(uint32_t w, uint32_t& lo01, uint
   hi23 = cvt(b23 >> 4);
 }
 
-// Shared memory of one block: two barriers, g and b (B9: 2 K floats), the
-// scales, the slab, NB staged rows of both halves, the warps' partial sums
-// and the KS sums.
-__host__ __device__ constexpr size_t int4_tc_smem(int NB, int cols, int ks, int K2, bool ln) {
-  return 16 + (ln ? (size_t)4 * K2 * 4 : 0) + (size_t)2 * cols * (K2 / GROUP) * 4
-         + (size_t)cols * (K2 / ks) + (size_t)NB * (2 * (K2 / ks) + I4_PAD) * 2
-         + (size_t)(WARPS + ks) * NB * cols * 4;
+// Shared memory of one block: two barriers, g and b (the norm modes: a row
+// each), the scales, the slab, NB staged rows (both halves; column split:
+// the one row), the warps' partial sums and the KS sums, over the block's
+// outputs (2 cols a row for the column split).
+__host__ __device__ constexpr size_t int4_tc_smem(int NB, int cols, int ks, int K2, int mode) {
+  return 16 + (i4_norm(mode) ? (size_t)2 * (mode == I4_FC_IN ? K2 : 2 * K2) * 4 : 0)
+         + (size_t)2 * cols * (K2 / GROUP) * 4 + (size_t)cols * (K2 / ks)
+         + (size_t)NB * ((mode == I4_FC_IN ? 1 : 2) * (K2 / ks) + I4_PAD) * 2
+         + (size_t)(WARPS + ks) * NB * (mode == I4_FC_IN ? 2 : 1) * cols * 4;
 }
 
 // grid = N / COLS * KS in clusters of KS consecutive blocks; B <= NB (8, or
-// 16 with LN); K2 / KS a multiple of 64; LN: KS = 1, g, b and bias given.
-template <typename T, typename OUT, int NB, int COLS, int KS, bool LN>
+// 16 but for I4_MATMUL); K2 / KS a multiple of 64; the norm modes KS = 1.
+// x: (B, K) rows of type T (K = 2 K2, or K2 for the column split); res:
+// I4_ATTN (B, N) of type T, I4_DOWN (B, N) f32; bias: I4_LN, I4_ATTN,
+// I4_DOWN (N,), I4_FC_IN (2N,); out (B, N) of type OUT, I4_FC_IN (B, 2N).
+template <int MODE, typename T, typename OUT, int NB, int COLS, int KS>
 __global__ void __launch_bounds__(THREADS)
-int4_tc_kernel(const T* __restrict__ x, const float* __restrict__ g, const float* __restrict__ b,
+int4_tc_kernel(const T* __restrict__ x, const void* __restrict__ res,
+               const float* __restrict__ g, const float* __restrict__ b,
                const int8_t* __restrict__ wp_t, const float* __restrict__ slo_t,
                const float* __restrict__ shi_t, const float* __restrict__ bias,
                OUT* __restrict__ out, int B, int K2, int N, float eps) {
+  constexpr bool LN = i4_norm(MODE), COLSPLIT = MODE == I4_FC_IN;
+  constexpr bool PDL = MODE == I4_ATTN || MODE == I4_FC_IN || MODE == I4_DOWN;
   static_assert(!LN || KS == 1, "the norm needs the whole row");
   constexpr int RT = NB / 8, MT = COLS / 16;
-  constexpr int EPT = (NB * COLS + THREADS - 1) / THREADS;    // epilogue outputs a thread
+  constexpr int UNITS = COLSPLIT ? 2 * COLS : COLS;           // outputs a row
+  constexpr int EPT = (NB * UNITS + THREADS - 1) / THREADS;   // epilogue outputs a thread
+  using RES = std::conditional_t<MODE == I4_ATTN, T, float>;
   extern __shared__ float4 smem4[];
-  const int kspan = K2 / KS, G = K2 / GROUP, K = 2 * K2;
+  const int kspan = K2 / KS, G = K2 / GROUP, K = COLSPLIT ? K2 : 2 * K2;
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem4);        // [0] scales (g, b), [1] slab
   float* gb = reinterpret_cast<float*>(smem4 + 1);             // LN: g, then b
   float* scl = gb + (LN ? 2 * K : 0);                          // [col][group]
   float* sch = scl + COLS * G;
   int8_t* ws = reinterpret_cast<int8_t*>(sch + COLS * G);
   __nv_bfloat16* ys = reinterpret_cast<__nv_bfloat16*>(ws + COLS * kspan);
-  const int yld = 2 * kspan + I4_PAD;                         // low half, then high
-  float* part = reinterpret_cast<float*>(ys + NB * yld);      // [warp][row][col]
-  float* sums = part + WARPS * NB * COLS;                      // [rank][row][col], rank 0's
+  const int yld = (COLSPLIT ? 1 : 2) * kspan + I4_PAD;        // low half, then high
+  float* part = reinterpret_cast<float*>(ys + NB * yld);      // [warp][row][unit]
+  float* sums = part + WARPS * NB * UNITS;                     // [rank][row][unit], rank 0's
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int ks = blockIdx.x % KS, n0 = blockIdx.x / KS * COLS, kb = ks * kspan;
@@ -323,12 +189,30 @@ int4_tc_kernel(const T* __restrict__ x, const float* __restrict__ g, const float
         bulk_load(ws + c * kspan, wp_t + (size_t)(n0 + c) * K2 + kb, kspan, &bars[1]);
     }
   }
-  // the sums' start, loaded while the copies fly: output o = tid + e *
-  // THREADS is (row o / COLS, column n0 + o % COLS)
-  float start[EPT];
+  if constexpr (PDL) {
+    griddep_launch_dependents();
+    griddep_wait();                // the previous phase's output (x, res) is written
+  }
+  // the sums' start (and I4_ATTN's residual and bias), loaded while the
+  // copies fly: output o = tid + e * THREADS is (row o / UNITS, unit o %
+  // UNITS: column n0 + u, or, column split, hidden unit n0 + u for u < COLS
+  // and N + n0 + u - COLS above)
+  float start[EPT], rv[EPT], bv[EPT];
 #pragma unroll
-  for (int e = 0; e < EPT; ++e)
-    start[e] = LN && tid + e * THREADS < NB * COLS ? bias[n0 + (tid + e * THREADS) % COLS] : 0.f;
+  for (int e = 0; e < EPT; ++e) {
+    const int o = tid + e * THREADS, row = o / UNITS, u = o % UNITS;
+    const bool live = o < NB * UNITS;
+    start[e] = rv[e] = bv[e] = 0.f;
+    if (live && MODE == I4_LN) start[e] = bias[n0 + u];
+    if (live && MODE == I4_FC_IN) start[e] = bias[u < COLS ? n0 + u : N + n0 + u - COLS];
+    if (live && row < B && MODE == I4_DOWN)
+      start[e] = __fadd_rn(to_f32(static_cast<const RES*>(res)[(size_t)row * N + n0 + u]),
+                           bias[n0 + u]);
+    if (live && row < B && MODE == I4_ATTN) {
+      rv[e] = to_f32(static_cast<const RES*>(res)[(size_t)row * N + n0 + u]);
+      bv[e] = bias[n0 + u];
+    }
+  }
   if constexpr (LN) {
     __syncthreads();               // the barriers are initialised
     norm_rows_bf16<T, false>(x, gb, gb + K, &bars[0], B, NB, K, eps, ys, yld);
@@ -344,14 +228,19 @@ int4_tc_kernel(const T* __restrict__ x, const float* __restrict__ g, const float
   const int gq = lane >> 2, tq = lane & 3;
   const int chunks = kspan / 64, per_warp = (chunks + WARPS - 1) / WARPS;
   const int c_lo = min(warp * per_warp, chunks), c_hi = min(c_lo + per_warp, chunks);
-  float run[MT][RT][4], alo[MT][RT][4], ahi[MT][RT][4];
+  constexpr int MT2 = COLSPLIT ? MT : 1;
+  float run[MT][RT][4], run2[MT2][RT][4], alo[MT][RT][4], ahi[MT][RT][4];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int rt = 0; rt < RT; ++rt)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) run[mt][rt][i] = alo[mt][rt][i] = ahi[mt][rt][i] = 0.f;
-  // the group's sums, scaled, onto the running sum; fragment entry i holds
+      for (int i = 0; i < 4; ++i) {
+        run[mt][rt][i] = alo[mt][rt][i] = ahi[mt][rt][i] = 0.f;
+        if (COLSPLIT) run2[mt % MT2][rt][i] = 0.f;
+      }
+  // the group's sums, scaled, onto the running sum (column split: the low
+  // nibbles' onto run, the high ones' onto run2); fragment entry i holds
   // column 16 mt + g (+ 8 for i >= 2)
   const auto fold = [&](int grp) {
 #pragma unroll
@@ -362,8 +251,13 @@ int4_tc_kernel(const T* __restrict__ x, const float* __restrict__ g, const float
         const float sl = scl[col * G + grp], sh = sch[col * G + grp];
 #pragma unroll
         for (int rt = 0; rt < RT; ++rt) {
-          run[mt][rt][i] = __fadd_rn(run[mt][rt][i], __fadd_rn(__fmul_rn(alo[mt][rt][i], sl),
-                                                               __fmul_rn(ahi[mt][rt][i], sh)));
+          if constexpr (COLSPLIT) {
+            run[mt][rt][i] = __fadd_rn(run[mt][rt][i], __fmul_rn(alo[mt][rt][i], sl));
+            run2[mt][rt][i] = __fadd_rn(run2[mt][rt][i], __fmul_rn(ahi[mt][rt][i], sh));
+          } else {
+            run[mt][rt][i] = __fadd_rn(run[mt][rt][i], __fadd_rn(__fmul_rn(alo[mt][rt][i], sl),
+                                                                 __fmul_rn(ahi[mt][rt][i], sh)));
+          }
           alo[mt][rt][i] = ahi[mt][rt][i] = 0.f;
         }
       }
@@ -381,8 +275,10 @@ int4_tc_kernel(const T* __restrict__ x, const float* __restrict__ g, const float
       const __nv_bfloat16* xr = ys + (8 * rt + gq) * yld + k0 + 16 * tq;
       xl[rt][0] = reinterpret_cast<const uint4*>(xr)[0];
       xl[rt][1] = reinterpret_cast<const uint4*>(xr)[1];
-      xh[rt][0] = reinterpret_cast<const uint4*>(xr + kspan)[0];
-      xh[rt][1] = reinterpret_cast<const uint4*>(xr + kspan)[1];
+      if constexpr (!COLSPLIT) {
+        xh[rt][0] = reinterpret_cast<const uint4*>(xr + kspan)[0];
+        xh[rt][1] = reinterpret_cast<const uint4*>(xr + kspan)[1];
+      }
     }
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
@@ -399,7 +295,8 @@ int4_tc_kernel(const T* __restrict__ x, const float* __restrict__ g, const float
 #pragma unroll
         for (int rt = 0; rt < RT; ++rt) {
           const uint32_t* xlb = reinterpret_cast<const uint32_t*>(&xl[rt][0]);
-          const uint32_t* xhb = reinterpret_cast<const uint32_t*>(&xh[rt][0]);
+          const uint32_t* xhb = reinterpret_cast<const uint32_t*>(COLSPLIT ? &xl[rt][0]
+                                                                           : &xh[rt][0]);
           mma_bf16_16816(alo[mt][rt], al, xlb[2 * j], xlb[2 * j + 1]);
           mma_bf16_16816(ahi[mt][rt], ah, xhb[2 * j], xhb[2 * j + 1]);
         }
@@ -408,50 +305,77 @@ int4_tc_kernel(const T* __restrict__ x, const float* __restrict__ g, const float
   }
   if (c_lo < c_hi) fold(grp);
 
-  // lane (g, t) holds columns 16 mt + g, + 8 of rows 8 rt + 2t, + 1
-  float* pw = part + warp * NB * COLS;
+  // lane (g, t) holds columns 16 mt + g, + 8 of rows 8 rt + 2t, + 1 (column
+  // split: run2's units COLS further)
+  float* pw = part + warp * NB * UNITS;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int rt = 0; rt < RT; ++rt) {
-      float* q = pw + (8 * rt + 2 * tq) * COLS + 16 * mt + gq;
+      float* q = pw + (8 * rt + 2 * tq) * UNITS + 16 * mt + gq;
       q[0] = run[mt][rt][0];
-      q[COLS] = run[mt][rt][1];
+      q[UNITS] = run[mt][rt][1];
       q[8] = run[mt][rt][2];
-      q[COLS + 8] = run[mt][rt][3];
+      q[UNITS + 8] = run[mt][rt][3];
+      if constexpr (COLSPLIT) {
+        q[COLS] = run2[mt][rt][0];
+        q[UNITS + COLS] = run2[mt][rt][1];
+        q[COLS + 8] = run2[mt][rt][2];
+        q[UNITS + COLS + 8] = run2[mt][rt][3];
+      }
     }
   __syncthreads();
   if (KS > 1) cluster_wait();      // every block of the cluster runs
+  // output o's value from its sum
+  const auto finish = [&](int e, int o, float sum) {
+    const int row = o / UNITS, u = o % UNITS;
+    if constexpr (MODE == I4_ATTN) {
+      out[(size_t)row * N + n0 + u] = __fadd_rn(__fadd_rn(rv[e], sum), bv[e]);
+    } else if constexpr (COLSPLIT) {
+      const int unit = u < COLS ? n0 + u : N + n0 + u - COLS;
+      out[(size_t)row * 2 * N + unit] = __float2bfloat16(gelu_new(sum));
+    } else {
+      store(out + (size_t)row * N + n0 + u, sum);
+    }
+  };
 #pragma unroll
   for (int e = 0; e < EPT; ++e) {
     const int o = tid + e * THREADS;
-    if (o >= NB * COLS) continue;
-    float sum = start[e];
+    if (o >= NB * UNITS) continue;
+    float sum = KS > 1 ? 0.f : start[e];
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) sum += part[w * NB * COLS + o];
-    if (KS > 1) st_cluster(sums + ks * NB * COLS + o, 0, sum);
-    else if (o / COLS < B) store(out + (size_t)(o / COLS) * N + n0 + o % COLS, sum);
+    for (int w = 0; w < WARPS; ++w) sum += part[w * NB * UNITS + o];
+    if (KS > 1) st_cluster(sums + ks * NB * UNITS + o, 0, sum);
+    else if (o / UNITS < B) finish(e, o, sum);
   }
   if (KS == 1) return;
   cluster_arrive_release();
   if (ks != 0) return;
   cluster_wait();                  // every block's sum is in
-  for (int o = tid; o < B * COLS; o += THREADS) {
-    float sum = 0.f;
 #pragma unroll
-    for (int r = 0; r < KS; ++r) sum += sums[r * NB * COLS + o];
-    store(out + (size_t)(o / COLS) * N + n0 + o % COLS, sum);
+  for (int e = 0; e < EPT; ++e) {
+    const int o = tid + e * THREADS;
+    if (o >= NB * UNITS || o / UNITS >= B) continue;
+    float sum = start[e];
+#pragma unroll
+    for (int r = 0; r < KS; ++r) sum += sums[r * NB * UNITS + o];
+    finish(e, o, sum);
   }
 }
 
-template <typename T, typename OUT, int NB, int COLS, int KS, bool LN>
-cudaError_t int4_tc_launch(const void* x, const float* g, const float* b, const int8_t* wp_t,
-                           const float* slo_t, const float* shi_t, const float* bias, void* out,
-                           int B, int K2, int N, float eps, cudaStream_t st) {
-  const size_t smem = int4_tc_smem(NB, COLS, KS, K2, LN);
-  if (smem > SMEM_MAX) return cudaErrorInvalidValue;
-  return launch_ex<int4_tc_kernel<T, OUT, NB, COLS, KS, LN>>(
-      N / COLS * KS, smem, KS, false, st, (const T*)x, g, b, wp_t, slo_t, shi_t, bias,
+// One launch of int4_tc_kernel over N / COLS column slabs, KS blocks each
+// (a cluster), after the checks of what the kernel takes.
+template <int MODE, typename T, typename OUT, int NB, int COLS, int KS>
+cudaError_t int4_tc_launch(const void* x, const void* res, const float* g, const float* b,
+                           const int8_t* wp_t, const float* slo_t, const float* shi_t,
+                           const float* bias, void* out, int B, int K2, int N, float eps,
+                           bool pdl, cudaStream_t st) {
+  const size_t smem = int4_tc_smem(NB, COLS, KS, K2, MODE);
+  if (B < 1 || B > NB || N % COLS || K2 % GROUP || K2 % KS || (K2 / KS) % 64
+      || smem > SMEM_MAX)
+    return cudaErrorInvalidValue;
+  return launch_ex<int4_tc_kernel<MODE, T, OUT, NB, COLS, KS>>(
+      N / COLS * KS, smem, KS, pdl, st, (const T*)x, res, g, b, wp_t, slo_t, shi_t, bias,
       (OUT*)out, B, K2, N, eps);
 }
 
@@ -459,10 +383,11 @@ template <typename T, typename OUT>
 cudaError_t matmul_int4_dispatch(const void* x, const int8_t* wp_t, const float* slo_t,
                                  const float* shi_t, void* out, int B, int K2, int N, int cols,
                                  int ks, cudaStream_t st) {
-#define I4_TC(C, S)                                                                        \
-  if (cols == C && ks == S)                                                               \
-    return int4_tc_launch<T, OUT, 8, C, S, false>(x, nullptr, nullptr, wp_t, slo_t, shi_t, \
-                                                  nullptr, out, B, K2, N, 0.f, st)
+#define I4_TC(C, S)                                                                         \
+  if (cols == C && ks == S)                                                                \
+    return int4_tc_launch<I4_MATMUL, T, OUT, 8, C, S>(x, nullptr, nullptr, nullptr, wp_t,  \
+                                                      slo_t, shi_t, nullptr, out, B, K2, N, \
+                                                      0.f, false, st)
   I4_TC(16, 1); I4_TC(16, 2); I4_TC(16, 4);
   I4_TC(32, 1); I4_TC(32, 2); I4_TC(32, 4);
 #undef I4_TC
@@ -474,14 +399,59 @@ cudaError_t ln_qkv_int4_dispatch(const void* x, const float* g, const float* b,
                                  const int8_t* wp_t, const float* slo_t, const float* shi_t,
                                  const float* bias, float* out, int B, int K2, int N, int cols,
                                  float eps, cudaStream_t st) {
-#define B9_TC(NB, C)                                                                      \
-  if (B <= NB && cols == C)                                                              \
-    return int4_tc_launch<T, float, NB, C, 1, true>(x, g, b, wp_t, slo_t, shi_t, bias, out, \
-                                                    B, K2, N, eps, st)
+#define B9_TC(NB, C)                                                                         \
+  if (B <= NB && cols == C)                                                                 \
+    return int4_tc_launch<I4_LN, T, float, NB, C, 1>(x, nullptr, g, b, wp_t, slo_t, shi_t,  \
+                                                     bias, out, B, K2, N, eps, false, st)
   B9_TC(8, 16); B9_TC(8, 32); B9_TC(8, 64);
   B9_TC(16, 16); B9_TC(16, 32); B9_TC(16, 64);
 #undef B9_TC
   return cudaErrorInvalidValue;
+}
+
+// B10: attn-out at cols_attn columns a block, LN2 + fc_in at cols_fc_in
+// packed columns, fc_out at cols_down columns and ks_down blocks a column
+// slab; with pdl the second and third by programmatic dependent launch.
+template <typename T>
+cudaError_t int4_mlp(const void* a, const void* xres, const int8_t* wo_t, const float* so_lo,
+                     const float* so_hi, const float* bo, const float* g2, const float* be2,
+                     const int8_t* w1c_t, const float* s1_lo, const float* s1_hi,
+                     const float* b1, const int8_t* w2_t, const float* s2_lo,
+                     const float* s2_hi, const float* b2, float* r_buf, __nv_bfloat16* h_buf,
+                     float* out, int B, int D, int I, float eps, int cols_attn, int cols_fc_in,
+                     int cols_down, int ks_down, bool pdl, cudaStream_t st) {
+  using bf16 = __nv_bfloat16;
+  const bool two = B > 8;
+  const int IH = I / 2;
+  cudaError_t err = cudaErrorInvalidValue;
+#define ATTN(NB, C)                                                                        \
+  if (two == (NB == 16) && cols_attn == C)                                                \
+    err = int4_tc_launch<I4_ATTN, T, float, NB, C, 1>(a, xres, nullptr, nullptr, wo_t,     \
+                                                      so_lo, so_hi, bo, r_buf, B, D / 2, D, \
+                                                      eps, false, st)
+  ATTN(8, 16); ATTN(8, 32); ATTN(16, 16); ATTN(16, 32);
+#undef ATTN
+  if (err != cudaSuccess) return err;
+  err = cudaErrorInvalidValue;
+#define FC_IN(NB, C)                                                                       \
+  if (two == (NB == 16) && cols_fc_in == C)                                               \
+    err = int4_tc_launch<I4_FC_IN, float, bf16, NB, C, 1>(r_buf, nullptr, g2, be2, w1c_t,  \
+                                                         s1_lo, s1_hi, b1, h_buf, B, D, IH, \
+                                                         eps, pdl, st)
+  FC_IN(8, 16); FC_IN(8, 32); FC_IN(8, 64); FC_IN(16, 16); FC_IN(16, 32); FC_IN(16, 64);
+#undef FC_IN
+  if (err != cudaSuccess) return err;
+  err = cudaErrorInvalidValue;
+#define DOWN(NB, C, S)                                                                     \
+  if (two == (NB == 16) && cols_down == C && ks_down == S)                                \
+    err = int4_tc_launch<I4_DOWN, bf16, float, NB, C, S>(h_buf, r_buf, nullptr, nullptr,   \
+                                                        w2_t, s2_lo, s2_hi, b2, out, B, IH, \
+                                                        D, eps, pdl, st)
+  DOWN(8, 16, 1); DOWN(8, 16, 2); DOWN(8, 16, 4); DOWN(8, 32, 1); DOWN(8, 32, 2);
+  DOWN(8, 32, 4); DOWN(16, 16, 1); DOWN(16, 16, 2); DOWN(16, 16, 4); DOWN(16, 32, 1);
+  DOWN(16, 32, 2); DOWN(16, 32, 4);
+#undef DOWN
+  return err;
 }
 
 }  // namespace
@@ -489,9 +459,10 @@ cudaError_t ln_qkv_int4_dispatch(const void* x, const float* g, const float* b,
 // The wrappers (kernels/int4_matmul.py, kernels/fused_layer.py) check
 // shapes, types, out-major contiguity, 16-byte alignment, the row counts
 // (B8: 1-8; B9, B10: 1-16), that every packed half is a whole number of
-// 256-row groups (B8: of 64 rows a block of a cluster), and that each
-// launch's shared memory fits the 227 KB a block may opt in to. h_buf is (B, I) bf16 scratch, r_buf (B, D) f32. Each
-// function returns the first CUDA error of its launches (0 on success).
+// 256-row groups (and of 64 rows a block of a cluster), and that each
+// launch's shared memory fits the 227 KB a block may opt in to. h_buf is
+// (B, I) bf16 scratch, r_buf (B, D) f32. Each function returns the first
+// CUDA error of its launches (0 on success).
 extern "C" {
 
 // B8 of B <= 8 rows: out (B, N) f32 (out_bf16 = 0) or bf16; cols (16 or
@@ -532,6 +503,11 @@ int ln_qkv_int4_launch(const void* x, int x_bf16, const float* g, const float* b
                                           cols, eps, st);
 }
 
+// B10 of 1-16 rows: the three tensor-core phases. cols_attn (16 or 32)
+// output columns an attn-out block, cols_fc_in (16, 32 or 64) packed
+// columns an LN2 + fc_in block, cols_down (16 or 32) output columns and
+// ks_down (1, 2 or 4) blocks a column slab of fc_out; pdl: the second and
+// third phases by programmatic dependent launch.
 int attnout_ln_mlp_int4_launch(const void* a, const void* xres, int in_bf16,
                                const int8_t* wo_t, const float* so_lo, const float* so_hi,
                                const float* bo, const float* g2, const float* be2,
@@ -539,29 +515,18 @@ int attnout_ln_mlp_int4_launch(const void* a, const void* xres, int in_bf16,
                                const float* b1, const int8_t* w2_t, const float* s2_lo,
                                const float* s2_hi, const float* b2, float* r_buf,
                                __nv_bfloat16* h_buf, float* out, int B, int D, int I, float eps,
-                               void* stream) {
+                               int cols_attn, int cols_fc_in, int cols_down, int ks_down,
+                               int pdl, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem_a = (size_t)B * D * sizeof(float);
-  cudaError_t err = cudaSuccess;
+  if (B < 1 || B > 16 || D % (2 * GROUP) || I % (2 * GROUP)) return (int)cudaErrorInvalidValue;
   if (in_bf16)
-    DISPATCH_ROWS(B, err = launch<attn_out_int4_kernel<__nv_bfloat16, NB>>(
-                         blocks_for(D), smem_a, st, (const __nv_bfloat16*)a,
-                         (const __nv_bfloat16*)xres, wo_t, so_lo, so_hi, bo, r_buf, B, D));
-  else
-    DISPATCH_ROWS(B, err = launch<attn_out_int4_kernel<float, NB>>(
-                         blocks_for(D), smem_a, st, (const float*)a, (const float*)xres, wo_t,
-                         so_lo, so_hi, bo, r_buf, B, D));
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem_ln = ((size_t)B * D + WARPS) * sizeof(float);
-  DISPATCH_ROWS(B, err = launch<ln_fc_in_int4_kernel<NB>>(
-                       blocks_for(I / 2), smem_ln, st, (const float*)r_buf, g2, be2, w1c_t,
-                       s1_lo, s1_hi, b1, h_buf, B, D, I, eps));
-  if (err != cudaSuccess) return (int)err;
-  const size_t smem_h = (size_t)B * I * sizeof(__nv_bfloat16);
-  DISPATCH_ROWS(B, err = launch<down_int4_kernel<NB>>(
-                       blocks_for(D), smem_h, st, (const __nv_bfloat16*)h_buf,
-                       (const float*)r_buf, w2_t, s2_lo, s2_hi, b2, out, B, D, I));
-  return (int)err;
+    return (int)int4_mlp<__nv_bfloat16>(a, xres, wo_t, so_lo, so_hi, bo, g2, be2, w1c_t, s1_lo,
+                                        s1_hi, b1, w2_t, s2_lo, s2_hi, b2, r_buf, h_buf, out, B,
+                                        D, I, eps, cols_attn, cols_fc_in, cols_down, ks_down,
+                                        pdl != 0, st);
+  return (int)int4_mlp<float>(a, xres, wo_t, so_lo, so_hi, bo, g2, be2, w1c_t, s1_lo, s1_hi,
+                              b1, w2_t, s2_lo, s2_hi, b2, r_buf, h_buf, out, B, D, I, eps,
+                              cols_attn, cols_fc_in, cols_down, ks_down, pdl != 0, st);
 }
 
 }  // extern "C"

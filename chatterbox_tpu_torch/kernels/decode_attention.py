@@ -13,12 +13,12 @@ Three wrappers keep the signatures of chatterbox_tpu/ops/pallas_attention.py:
 
 q is (B, H, 1, D) bf16 or f32 and the result has q's type and shape; k, v
 are (B, H, T, D) bf16 (int8 for B4); k_s, v_s (B, H, T) bf16; cur_len and
-lo (B,) integers. B3 and B7 share one CUDA kernel (csrc/decode_attention.cu
-`split_decode_kernel`; B7 is it with lo = 0): each (row, head) window split
-over `split_count(B, H, T)` blocks of a thread-block cluster, chosen from the
-cache shape alone so that the launch does not depend on cur_len. B4 keeps
-its first kernel (one block per (row, head)). Each keeps its own wrapper,
-plain version and launch count.
+lo (B,) integers. The three share one CUDA kernel (csrc/decode_attention.cu
+`split_decode_kernel`, templated over the cache type; B7 is B3's with lo =
+0): each (row, head) window split over `split_count(B, H, T)` blocks of a
+thread-block cluster (`split_count_int8` for B4), chosen from the cache
+shape alone so that the launch does not depend on cur_len. Each keeps its
+own wrapper, plain version and launch count.
 
 The plain versions follow the Pallas arithmetic, not `nn.mha`: f32 scores
 times 1/sqrt(D), keys outside the window masked, an online max / sum over
@@ -27,8 +27,9 @@ rounded before the value product, the denominator clamped at 1e-30. B7's
 plain version is the whole-slice softmax of `_decode_attn_kernel`.
 
 `split_window_plain` is the split kernel's arithmetic in PyTorch (each
-split's max, sum and accumulator, then their merge), for the tests; the CPU
-route keeps the plain versions above.
+split's max, sum and accumulator, then their merge; for the int8 cache its
+chunks on multiples of 8 keys), for the tests; the CPU route keeps the plain
+versions above.
 
 Dispatch: a CPU tensor takes the plain version, a CUDA tensor launches the
 kernel, and anything else raises. `launches` counts the kernel launches of
@@ -56,7 +57,10 @@ M_FLOOR = -3.0e38              # the Pallas kernels' clamp of the running max
 MAX_SPLITS = 16                # the largest cluster (above 8: non-portable)
 SPLIT_CAP = 8                  # split_count's limit: the portable cluster size
 SPLIT_KEYS = 80                # least keys split_count gives a split of a full cache
+SPLIT_KEYS_INT8 = 160          # the same for the int8 cache (split_count_int8)
+SPLIT_CAP_INT8 = 4             # split_count_int8's limit
 SPLIT_BLOCKS = 256             # split_count stops doubling at this many blocks
+SPLIT_BLOCKS_INT8 = 128        # split_count_int8 stops doubling at this many blocks
 
 _lib = None
 
@@ -67,9 +71,7 @@ def _kernel():
         from .build import load
         lib = load("decode_attention")
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.flash_decode_int8_launch.argtypes = [P, I, P, P, P, P, P, P, P, I, I, I, I, P]
-        lib.flash_decode_int8_launch.restype = I
-        lib.split_decode_launch.argtypes = [P, I, P, P, P, P, P, I, I, I, I, I, P]
+        lib.split_decode_launch.argtypes = [P, I, P, P, P, P, P, P, P, I, I, I, I, I, P]
         lib.split_decode_launch.restype = I
         _lib = lib
     return _lib
@@ -83,8 +85,21 @@ def split_count(B: int, H: int, T: int) -> int:
     chip_smoke.py's sweep of S on an H100 (PERF.md): 8 at Turbo's
     single stream (16 heads, 768 keys), 4 at the 520M pair (512), 2 at
     eight batched rows."""
+    return _splits(B, H, T, SPLIT_KEYS)
+
+
+def split_count_int8(B: int, H: int, T: int) -> int:
+    """S of the int8 cache (B4), as split_count with SPLIT_KEYS_INT8 keys,
+    SPLIT_BLOCKS_INT8 blocks and up to SPLIT_CAP_INT8: an int8 key is half
+    the bytes, and chip_smoke.py's sweeps of B4 on an H100 (PERF.md) found 4
+    splits best at Turbo's single stream (768 and 1536 keys), 2 at the 520M
+    pair and 1 at eight batched rows."""
+    return _splits(B, H, T, SPLIT_KEYS_INT8, SPLIT_CAP_INT8, SPLIT_BLOCKS_INT8)
+
+
+def _splits(B, H, T, keys, cap=SPLIT_CAP, blocks=SPLIT_BLOCKS):
     s = 1
-    while s < SPLIT_CAP and B * H * s < SPLIT_BLOCKS and T >= 2 * s * SPLIT_KEYS:
+    while s < cap and B * H * s < blocks and T >= 2 * s * keys:
         s *= 2
     return s
 
@@ -153,25 +168,41 @@ def decode_attention_plain(q, k, v, cur_len):
     return torch.einsum("bht,bhtd->bhd", p, v.float()).to(q.dtype)[:, :, None]
 
 
-def split_window_plain(q, k, v, cur_len, lo, splits):
-    """B3 / B7's kernel arithmetic at `splits` blocks a window, in PyTorch
-    (for the tests): the window [lo[b], min(cur_len[b], T - 1)] (lo None:
-    from 0) cut into `splits` chunks of ceil(window / splits) keys, each
-    chunk's max m, sum l and accumulator acc over its keys in f32, then the
-    merge: sum_s acc_s e^(m_s - m) / max(sum_s l_s e^(m_s - m), 1e-30), an
-    empty chunk weighing nothing. Reads cur_len and lo on the host."""
+INT8_ALIGN = 8                 # keys the int8 kernel's chunks start on (16-byte scale copies)
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def split_window_plain(q, k, v, cur_len, lo, splits, k_s=None, v_s=None):
+    """The split kernel's arithmetic at `splits` blocks a window, in
+    PyTorch (for the tests): the window [first, last] = [lo[b], min(cur_len[b],
+    T - 1)] (lo None: from 0) cut into `splits` chunks of ceil(window /
+    splits) keys from base = first, each chunk's max m, sum l and accumulator
+    acc over its keys in f32, then the merge: sum_s acc_s e^(m_s - m) /
+    max(sum_s l_s e^(m_s - m), 1e-30), an empty chunk weighing nothing.
+    With k_s, v_s (B4's int8 cache): base is first rounded down to a
+    multiple of INT8_ALIGN keys and the chunk rounded up to one (the keys
+    below first masked), each score times K's scale, l over the weights and
+    acc over the weights times V's scale. Reads cur_len and lo on the
+    host."""
     B, H, _, D = q.shape
     T = k.shape[2]
+    align = 1 if k_s is None else INT8_ALIGN
     s_all = torch.einsum("bhtd,bhd->bht", k.float(), q[:, :, 0].float()) * (1.0 / math.sqrt(D))
+    if k_s is not None:
+        s_all = s_all * k_s.float()
     out = torch.zeros((B, H, D), device=q.device)
     for b in range(B):
         first = 0 if lo is None else max(int(lo[b]), 0)
         last = min(int(cur_len[b]), T - 1)
-        chunk = -(-max(last - first + 1, 0) // splits)
+        base = first // align * align
+        chunk = _ceil(_ceil(max(last - base + 1, 0), splits), align) * align
         ms, ls, accs = [], [], []
         for s in range(splits):
-            a = first + s * chunk
-            e = min(a + chunk, last + 1)
+            a = max(base + s * chunk, first)
+            e = min(base + (s + 1) * chunk, last + 1)
             if e <= a:
                 continue                   # an empty chunk weighs nothing
             sc = s_all[b, :, a:e]
@@ -179,6 +210,8 @@ def split_window_plain(q, k, v, cur_len, lo, splits):
             p = torch.exp(sc - m[:, None])
             ms.append(m)
             ls.append(p.sum(-1))
+            if v_s is not None:
+                p = p * v_s[b, :, a:e].float()
             accs.append(torch.einsum("ht,htd->hd", p, v[b, :, a:e].float()))
         if not ms:
             continue                       # an empty window gives 0
@@ -203,7 +236,10 @@ def _operands(name, q, k, v, cur_len, lo, k_s=None, v_s=None, tiled=True):
     """Check what the kernels take; returns (cur_len, lo) as int32 on q's
     device. The rows of K and V are D * 2 (bf16) or D (int8) bytes, whole
     multiples of 16 for D in HEAD_DIMS, so with 16-byte aligned tensors every
-    chunk and piece a kernel copies starts 16-byte aligned."""
+    chunk and piece a kernel copies starts 16-byte aligned. So do the int8
+    cache's scale rows (contiguous, 16-byte aligned): its chunks start on
+    multiples of INT8_ALIGN keys, and each piece's scale copy, rounded up to
+    INT8_ALIGN keys, stays inside T (a multiple of TT)."""
     B, H, one, D = q.shape
     T = k.shape[2]
     if one != 1:
@@ -238,31 +274,18 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _launch_int8(name, q, k, v, cur_len, lo, k_s, v_s):
-    B, H, _, D = q.shape
-    cur_len, lo = _operands(name, q, k, v, cur_len, lo, k_s, v_s)
-    out = torch.empty_like(q)
-    err = _kernel().flash_decode_int8_launch(
-        q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(), v.data_ptr(),
-        k_s.data_ptr(), v_s.data_ptr(), cur_len.data_ptr(), _ptr(lo), out.data_ptr(),
-        B, H, k.shape[2], D, _stream(q.device))
-    if err:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    launches[name] += 1
-    return out
-
-
-def _launch_split(name, q, k, v, cur_len, lo, splits=None, tiled=True):
+def _launch_split(name, q, k, v, cur_len, lo, splits=None, tiled=True, k_s=None, v_s=None):
     B, H, _, D = q.shape
     T = k.shape[2]
-    cur_len, lo = _operands(name, q, k, v, cur_len, lo, tiled=tiled)
-    S = split_count(B, H, T) if splits is None else splits
+    cur_len, lo = _operands(name, q, k, v, cur_len, lo, k_s, v_s, tiled=tiled)
+    S = (split_count if k_s is None else split_count_int8)(B, H, T) if splits is None else splits
     if not 1 <= S <= MAX_SPLITS:
         raise ValueError(f"{name}: {S} splits, the kernel takes 1..{MAX_SPLITS}")
     out = torch.empty_like(q)
     err = _kernel().split_decode_launch(
         q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(), v.data_ptr(),
-        cur_len.data_ptr(), _ptr(lo), out.data_ptr(), B, H, T, D, S, _stream(q.device))
+        _ptr(k_s), _ptr(v_s), cur_len.data_ptr(), _ptr(lo), out.data_ptr(), B, H, T, D, S,
+        _stream(q.device))
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     launches[name] += 1
@@ -290,7 +313,18 @@ def decode_attention_streamed_int8(q, k_q, k_s, v_q, v_s, cur_len, lo=None):
     v_s (B, H, T) bf16."""
     if not _check_device(q):
         return decode_attention_streamed_int8_plain(q, k_q, k_s, v_q, v_s, cur_len, lo)
-    return _launch_int8("decode_attention_streamed_int8", q, k_q, v_q, cur_len, lo, k_s, v_s)
+    return _launch_split("decode_attention_streamed_int8", q, k_q, v_q, cur_len, lo,
+                         k_s=k_s, v_s=v_s)
+
+
+def decode_attention_streamed_int8_split(q, k_q, k_s, v_q, v_s, cur_len, lo, splits):
+    """B4's kernel (CUDA tensors only) at a given split count, for timing
+    split_count_int8's choice; counts as a B4 launch."""
+    if not _check_device(q):
+        raise ValueError("decode_attention_streamed_int8_split launches the kernel: CUDA "
+                         "tensors only")
+    return _launch_split("decode_attention_streamed_int8", q, k_q, v_q, cur_len, lo, splits,
+                         k_s=k_s, v_s=v_s)
 
 
 def decode_attention(q, k, v, cur_len):

@@ -71,7 +71,13 @@ QKV_COLS = 32        # output columns per block of the B1 / B5 kernel
 # that divides I and fits; TC_PDL launches the phases after the first by
 # programmatic dependent launch. B9 (csrc/int4.cu, B8's kernel with a
 # LayerNorm) owns the first of QKV4_COLS output columns a block that divides
-# N and fits, from its own sweep.
+# N and fits, from its own sweep. B10's three phases (the same kernel) own
+# the first of MLP4_ATTN_COLS, MLP4_FC_IN_COLS* (packed columns: two hidden
+# units each; fewer at up to MLP4_FEW_ROWS rows, where the LayerNorm every
+# block computes is cheap) and MLP4_DOWN_COLS that divide their width and
+# fit; fc_out splits its packed rows over the fewest blocks (1, 2 or
+# TC_MAX_SPLITS) that leave each at most MLP4_DOWN_SPAN rows and fit;
+# MLP4_PDL launches the last two phases by programmatic dependent launch.
 TC_COLS = 16
 TC_MAX_SPLITS = 4
 TC_CHUNK = 64        # contraction entries of one step of a warp
@@ -79,6 +85,12 @@ GLU_UNITS = 32
 GELU_UNITS = (64, 32, 16)
 TC_PDL = True
 QKV4_COLS = (32, 16, 64)
+MLP4_ATTN_COLS = (16, 32)
+MLP4_FEW_ROWS = 4
+MLP4_FC_IN_COLS_FEW, MLP4_FC_IN_COLS = (16, 32, 64), (32, 16, 64)
+MLP4_DOWN_COLS = (16, 32)
+MLP4_DOWN_SPAN = 512
+MLP4_PDL = True
 
 _lib = None
 _int4_lib = None
@@ -121,7 +133,8 @@ def int4_kernels():
         lib.ln_qkv_int4_launch.argtypes = [P, I, P, P, P, P, P, P, P, I, I, I, I, F, P]
         lib.ln_qkv_int4_launch.restype = I
         lib.attnout_ln_mlp_int4_launch.argtypes = [
-            P, P, I, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, F, P]
+            P, P, I, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, F,
+            I, I, I, I, I, P]
         lib.attnout_ln_mlp_int4_launch.restype = I
         _int4_lib = lib
     return _int4_lib
@@ -299,27 +312,35 @@ def ln_qkv_int4_plain(x, g, b, wp_t, slo_t, shi_t, bias, eps: float):
     return out
 
 
-def int4_block_sum(xb, lo, hi, s_lo, s_hi, k0: int, k1: int, start):
+def int4_block_sum(xb, lo, hi, s_lo, s_hi, k0: int, k1: int, start, colsplit: bool = False):
     """start + the row-split int4 product over packed rows [k0, k1), summed
-    as a block of B8 / B9's tensor-core kernel sums it: its WARPS warps take
-    contiguous runs of TC_CHUNK-row chunks; a warp adds, for each 256-row
-    group its run meets, (x_lo @ lo) * s_lo + (x_hi @ hi) * s_hi over the
-    rows of that group onto its running sum; the warps' sums are added onto
-    `start` in warp order. xb (B, K) f32, lo / hi (K/2, N) nibble values,
-    s_lo / s_hi (K/2/256, N)."""
-    K2 = lo.shape[0]
+    as a block of B8 / B9 / B10's tensor-core kernel sums it: its WARPS
+    warps take contiguous runs of TC_CHUNK-row chunks; a warp adds, for each
+    256-row group its run meets, (x_lo @ lo) * s_lo + (x_hi @ hi) * s_hi over
+    the rows of that group onto its running sum; the warps' sums are added
+    onto `start` in warp order. xb (B, K) f32, lo / hi (K/2, N) nibble
+    values, s_lo / s_hi (K/2/256, N). With `colsplit` (B10's fc_in) both
+    nibbles meet the same rows of xb (B, K), lo / hi (K, N) and s_lo / s_hi
+    (K/256, N), and the low and high products sum apart: start is the pair
+    (low, high) and so is the result."""
+    K2 = 0 if colsplit else lo.shape[0]
     span = k1 - k0
     per_warp = -(-(span // TC_CHUNK) // WARPS) * TC_CHUNK
     total = start
     for w in range(WARPS):
         a, b = k0 + min(w * per_warp, span), k0 + min((w + 1) * per_warp, span)
-        run = torch.zeros_like(total)
+        run_lo = run_hi = torch.zeros_like(total[0] if colsplit else total)
         while a < b:
             g = a // GROUP
             e = min(b, (g + 1) * GROUP)
-            run = run + (xb[:, a:e] @ lo[a:e] * s_lo[g] + xb[:, K2 + a:K2 + e] @ hi[a:e] * s_hi[g])
+            lo_g = xb[:, a:e] @ lo[a:e] * s_lo[g]
+            hi_g = xb[:, K2 + a:K2 + e] @ hi[a:e] * s_hi[g]
+            if colsplit:
+                run_lo, run_hi = run_lo + lo_g, run_hi + hi_g
+            else:                          # the two halves' sum, then onto the run
+                run_lo = run_lo + (lo_g + hi_g)
             a = e
-        total = total + run
+        total = (total[0] + run_lo, total[1] + run_hi) if colsplit else total + run_lo
     return total
 
 
@@ -359,6 +380,39 @@ def attnout_ln_mlp_int4_plain(a, xres, wo_t, so_lo, so_hi, bo, g2, be2, w1c_t,
         out = out + lo2[k]
         out = out + hi2[k]
     return out
+
+
+def attnout_ln_mlp_int4_split_plain(a, xres, wo_t, so_lo, so_hi, bo, g2, be2, w1c_t,
+                                    s1_lo, s1_hi, b1, w2_t, s2_lo, s2_hi, b2, eps: float,
+                                    down_splits: int):
+    """attnout_ln_mlp_int4 summed in the CUDA kernel's order (int4_block_sum
+    for each phase): attn-out one block's sum over its warps, then r = (xres
+    + sum) + bo; each packed column of fc_in one block's two sums (low and
+    high nibbles) over its warps onto their units' biases; fc_out's packed
+    rows cut over `down_splits` blocks, their sums added in order onto
+    r + b2 (one block: its warps' sums onto r + b2). The columns a block
+    owns change no sum."""
+    B = a.shape[0]
+    IH = w1c_t.shape[0]
+    lo, hi = unpack_int4(wo_t.T)
+    zeros = torch.zeros((B, wo_t.shape[0]))
+    acc = int4_block_sum(a.to(torch.bfloat16).float(), lo, hi, so_lo.T, so_hi.T, 0,
+                         wo_t.shape[1], zeros)
+    r = (xres.float() + acc) + bo
+    lo1, hi1 = unpack_int4(w1c_t.T)
+    u = int4_block_sum(_ln_bf16(r, g2, be2, eps), lo1, hi1, s1_lo.T, s1_hi.T, 0,
+                       w1c_t.shape[1], (b1[:IH].float().expand(B, -1),
+                                        b1[IH:].float().expand(B, -1)), colsplit=True)
+    h = _gelu_new_f32(torch.cat(u, dim=-1)).to(torch.bfloat16).float()
+    lo2, hi2 = unpack_int4(w2_t.T)
+    start = r + b2
+    if down_splits == 1:
+        return int4_block_sum(h, lo2, hi2, s2_lo.T, s2_hi.T, 0, IH, start)
+    span = IH // down_splits
+    for s in range(down_splits):
+        start = start + int4_block_sum(h, lo2, hi2, s2_lo.T, s2_hi.T, s * span,
+                                       (s + 1) * span, torch.zeros_like(start))
+    return start
 
 
 # ---------------------------------------------------------------------------
@@ -485,14 +539,18 @@ def tc_phases_limits(what, B, D, I, tiles, attn_splits, norm_cols, down_splits):
         raise ValueError(f"{what}: a block's shared memory exceeds {SMEM_LIMIT} bytes")
 
 
-def int4_smem(cols: int, splits: int, K2: int, B: int = 8, ln: bool = False) -> int:
-    """Shared memory bytes of one B8 (or, ln, B9) block at B rows (csrc/
-    int4.cu, int4_tc_smem): cols output columns, K2 packed rows split over
-    `splits` blocks."""
+def int4_smem(cols: int, splits: int, K2: int, B: int = 8, ln: bool = False,
+              colsplit: bool = False) -> int:
+    """Shared memory bytes of one block of the int4 tensor-core kernel at B
+    rows (csrc/int4.cu, int4_tc_smem): B8 or B10's row-split phases, with ln
+    B9, with ln and colsplit B10's LN2 + fc_in; cols (packed) columns, K2
+    packed rows split over `splits` blocks."""
     NB = 8 if B <= 8 else 16
     span = K2 // splits
-    return (16 + (4 * K2 * 4 if ln else 0) + 2 * cols * (K2 // GROUP) * 4 + cols * span
-            + NB * (2 * span + 8) * 2 + (WARPS + splits) * NB * cols * 4)
+    row = K2 if colsplit else 2 * K2
+    return (16 + (2 * row * 4 if ln else 0) + 2 * cols * (K2 // GROUP) * 4 + cols * span
+            + NB * ((1 if colsplit else 2) * span + 8) * 2
+            + (WARPS + splits) * NB * (2 if colsplit else 1) * cols * 4)
 
 
 def ln_qkv_int4_tiling(B: int, D: int, N: int):
@@ -500,6 +558,52 @@ def ln_qkv_int4_tiling(B: int, D: int, N: int):
     divides N and fits shared memory; None if none does."""
     return next((c for c in QKV4_COLS if N % c == 0
                  and int4_smem(c, 1, D // 2, B, ln=True) <= SMEM_LIMIT), None)
+
+
+def _mlp4_smem(B, D, IH, attn_cols, fc_in_cols, down_cols, down_splits):
+    """Shared memory bytes of a block of each of B10's three phases."""
+    return (int4_smem(attn_cols, 1, D // 2, B), int4_smem(fc_in_cols, 1, D, B, True, True),
+            int4_smem(down_cols, down_splits, IH, B))
+
+
+def int4_mlp_tiling(B: int, D: int, I: int):
+    """(attn_cols, fc_in_cols, down_cols, down_splits, pdl) of B10 at B rows:
+    the first of MLP4_ATTN_COLS, MLP4_FC_IN_COLS_FEW (B <= MLP4_FEW_ROWS)
+    or MLP4_FC_IN_COLS, and MLP4_DOWN_COLS that divide their phase's width
+    (D, I / 2 packed columns, D) and fit shared memory, fc_out's packed rows
+    (I / 2) over the fewest blocks (1, 2 or TC_MAX_SPLITS) that leave each
+    at most MLP4_DOWN_SPAN rows in whole TC_CHUNK-row chunks and fit (the
+    most that do, where none leaves so few), and MLP4_PDL. None where no
+    tiling fits."""
+    IH = I // 2
+    fits = lambda cols, width, **kw: next(  # noqa: E731
+        (c for c in cols if width % c == 0 and int4_smem(c, B=B, **kw) <= SMEM_LIMIT), None)
+    attn = fits(MLP4_ATTN_COLS, D, splits=1, K2=D // 2)
+    fc_in = fits(MLP4_FC_IN_COLS_FEW if B <= MLP4_FEW_ROWS else MLP4_FC_IN_COLS, IH, splits=1,
+                 K2=D, ln=True, colsplit=True)
+    down = next((c for c in MLP4_DOWN_COLS if D % c == 0), None)
+    if None in (attn, fc_in, down):
+        return None
+    ok = [s for s in (1, 2, TC_MAX_SPLITS)
+          if IH % (s * TC_CHUNK) == 0 and int4_smem(down, s, IH, B) <= SMEM_LIMIT]
+    if not ok:
+        return None
+    return attn, fc_in, down, next((s for s in ok if IH // s <= MLP4_DOWN_SPAN), ok[-1]), MLP4_PDL
+
+
+def int4_mlp_limits(what, B, D, I, attn_cols, fc_in_cols, down_cols, down_splits):
+    """Raise ValueError unless B10's kernel takes this tiling at B rows:
+    each phase's (packed) columns one of its instances dividing its width,
+    fc_out split 1, 2 or TC_MAX_SPLITS ways into whole TC_CHUNK-row chunks,
+    and every block within shared memory."""
+    IH = I // 2
+    if (attn_cols not in MLP4_ATTN_COLS or D % attn_cols or fc_in_cols not in MLP4_FC_IN_COLS
+            or IH % fc_in_cols or down_cols not in MLP4_DOWN_COLS or D % down_cols
+            or down_splits not in (1, 2, TC_MAX_SPLITS) or IH % (down_splits * TC_CHUNK)):
+        raise ValueError(f"{what}: tiling ({attn_cols}, {fc_in_cols}, {down_cols}, "
+                         f"{down_splits}) does not fit D {D}, I {I}")
+    if max(_mlp4_smem(B, D, IH, attn_cols, fc_in_cols, down_cols, down_splits)) > SMEM_LIMIT:
+        raise ValueError(f"{what}: a block's shared memory exceeds {SMEM_LIMIT} bytes")
 
 
 def ln_qkv_int8(x, g, b, w_t, s, bias, eps: float):
@@ -734,15 +838,25 @@ def attnout_ln_mlp_int4(a, xres, wo_t, so_lo, so_hi, bo, g2, be2, w1c_t, s1_lo,
         return attnout_ln_mlp_int4_plain(a, xres, wo_t, so_lo, so_hi, bo, g2, be2,
                                          w1c_t, s1_lo, s1_hi, b1, w2_t, s2_lo,
                                          s2_hi, b2, eps)
+    tiling = int4_mlp_tiling(a.shape[0], a.shape[1], 2 * w1c_t.shape[0])
+    if tiling is None:
+        raise ValueError("attnout_ln_mlp_int4: no tiling of the kernel fits these shapes")
+    return attnout_ln_mlp_int4_tiled(a, xres, wo_t, so_lo, so_hi, bo, g2, be2, w1c_t, s1_lo,
+                                     s1_hi, b1, w2_t, s2_lo, s2_hi, b2, eps, *tiling)
+
+
+def attnout_ln_mlp_int4_tiled(a, xres, wo_t, so_lo, so_hi, bo, g2, be2, w1c_t, s1_lo,
+                              s1_hi, b1, w2_t, s2_lo, s2_hi, b2, eps: float, attn_cols: int,
+                              fc_in_cols: int, down_cols: int, down_splits: int, pdl: bool):
+    """B10's kernel at a given tiling (int4_mlp_tiling's five numbers;
+    chip_smoke.py sweeps them). A CUDA a only."""
     B, D = a.shape
     IH = w1c_t.shape[0]
     I = 2 * IH
     _int4_limits(B, D // 2, "attnout_ln_mlp_int4")
     _int4_limits(B, IH, "attnout_ln_mlp_int4")
-    if D % GROUP:
-        raise ValueError(f"attnout_ln_mlp_int4: width {D} is not a multiple of {GROUP}")
-    if (B * D + WARPS) * 4 > SMEM_LIMIT or B * I * 2 > SMEM_LIMIT:
-        raise ValueError("attnout_ln_mlp_int4: rows exceed shared memory")
+    int4_mlp_limits("attnout_ln_mlp_int4", B, D, I, attn_cols, fc_in_cols, down_cols,
+                    down_splits)
     dev = a.device
     _check("a", a, (B, D), _ACT, dev)
     _check("xres", xres, (B, D), (a.dtype,), dev)
@@ -767,7 +881,8 @@ def attnout_ln_mlp_int4(a, xres, wo_t, so_lo, so_hi, bo, g2, be2, w1c_t, s1_lo,
         g2.data_ptr(), be2.data_ptr(), w1c_t.data_ptr(), s1_lo.data_ptr(),
         s1_hi.data_ptr(), b1.data_ptr(), w2_t.data_ptr(), s2_lo.data_ptr(),
         s2_hi.data_ptr(), b2.data_ptr(), r_buf.data_ptr(), h_buf.data_ptr(),
-        out.data_ptr(), B, D, I, eps, torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), B, D, I, eps, attn_cols, fc_in_cols, down_cols, down_splits, int(pdl),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"attnout_ln_mlp_int4 launch failed: CUDA error {err}")
     launches["attnout_ln_mlp_int4"] += 1

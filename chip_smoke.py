@@ -5,8 +5,8 @@
     python3 chip_smoke.py --ab <other checkout>
 
 The second form runs phases 1 and 2, then times the fused decode-layer
-kernels (B1, B2, B5, B6, and B9 on the Turbo int4_fused weights) and B11
-of this checkout against those of the other at 1, 2, 8 and 16 rows, B8 on
+kernels (B1, B2, B5, B6, and B9, B10 on the Turbo int4_fused weights) and
+B11 of this checkout against those of the other at 1, 2, 8 and 16 rows, B8 on
 the 520M int4 weights at 1, 2 and 8 rows (f32 result), and the
 decode-attention kernels (B3, B4, B7) at phase 3's attention shapes, in
 turns on the same operands, and stops.
@@ -50,15 +50,13 @@ Phases, in order; any failure exits non-zero without the final "ok" line:
      distinct left pads (one past a whole tile), B7 at T=657, and a long
      window (B=1, T=1536, position 1400) (library:
      scaled_dot_product_attention on the valid window, on a dequantized
-     bf16 copy for B4), each shape with the split count B3 / B7 take
-     there; first, a sweep of B3's kernel at 1, 2, 4, 8 and 16 blocks a
-     window at the Turbo, 520M, batched and long-window shapes, and of the
-     tilings of B8 (columns a block, split of the packed rows; at each 520M
-     linear shape, 2 and 8 rows), B6 (attn-out and down splits, hidden
-     units a gate/up block, programmatic dependent launch; 2 and 8 rows),
-     B9 (columns a block; 1 and 8 rows), B2 and B11 (attn-out and down
-     splits, hidden units a norm + fc_in block, dependent launch; 1 and 8
-     rows);
+     bf16 copy for B4), each shape with the split count B3 / B4 / B7 take
+     there; first, a sweep of B3's and B4's kernel at 1, 2, 4, 8 and 16
+     blocks a window at the Turbo, 520M, batched and long-window shapes,
+     and of the tilings of B8 (columns a block, split of the packed rows;
+     at each 520M linear shape, 2 and 8 rows) and B10 (columns a block for
+     each phase, fc_out's split, dependent launch; 1 and 8 rows), and B6's,
+     B2's and B11's chosen tilings with dependent launch on and off;
   4. reference: the CUDA path against the CPU path (plain kernel versions)
      on small models, same weights and noise: Turbo T3 teacher-forced
      logits on the bf16 and the int8 cache and meanflow S3Gen waveform;
@@ -543,11 +541,15 @@ def _load_other_kernels(root: str):
 def _ab(sp, L, other, label) -> None:
     """One kernel of this checkout against the other's on the same
     operands: each checked against this checkout's plain version, then
-    timed by CUDA-graph replay in turns (other, this, this, other)."""
+    timed by CUDA-graph replay in turns (other, this, this, other) after an
+    untimed one."""
     fns = {"this": sp.kernel, "other": getattr(other, sp.name)}
     for who, f in fns.items():
         check_specs([KernelSpec(sp.name, sp.replaces, sp.call, None, 0, 0, sp.tol, f,
                                 sp.plain, relative=sp.relative)], L, f"{who}, {label}")
+    # an untimed replay first: without it the first timed sample of a group
+    # read up to 7 % slow, whichever checkout it timed (PERF.md)
+    device_time_ms(lambda: [sp.call(i, fns["other"]) for i in range(L)], 5)
     us = {"this": [], "other": []}
     for who in ("other", "this", "this", "other"):
         f = fns[who]
@@ -559,9 +561,9 @@ def _ab(sp, L, other, label) -> None:
 
 
 def ab_kernels(turbo, cfg520, turbo4, cfg4, K, A, M, FM, bb, root: str) -> None:
-    """B1, B2 (Turbo weights), B5, B6 (520M weights), B9 (Turbo int4_fused
-    weights) and B11 (Turbo int8 MLP weights, f32 x) at 1, 2, 8 and 16
-    rows, B8 (520M int4 weights, f32 result: the type both checkouts
+    """B1, B2 (Turbo weights), B5, B6 (520M weights), B9, B10 (Turbo
+    int4_fused weights) and B11 (Turbo int8 MLP weights, f32 x) at 1, 2, 8
+    and 16 rows, B8 (520M int4 weights, f32 result: the type both checkouts
     write) at 1, 2 and 8 rows, and B3 / B4 / B7 at phase 3's attention
     shapes, of this checkout against those of the checkout at `root`."""
     other_k, other_a, other_m, other_fm = _load_other_kernels(root)
@@ -570,7 +572,8 @@ def ab_kernels(turbo, cfg520, turbo4, cfg4, K, A, M, FM, bb, root: str) -> None:
         for L, specs in ((L1, gpt2_specs(turbo, K, B=B)), (L2, llama_specs(cfg520, K, B=B))):
             for sp in specs:
                 _ab(sp, L, other_k, f"B={B}")
-        _ab(int4_gpt2_specs(turbo4, K, B=B)[0], L1, other_k, f"B={B}")
+        for sp in int4_gpt2_specs(turbo4, K, B=B):
+            _ab(sp, L1, other_k, f"B={B}")
         _ab(b11_specs(turbo, FM, B=B)[0], L1, other_fm, f"B={B}")
     for B in (1, 2, 8):
         (sp,), n = b8_specs(cfg4, M, B=B, out_bf16=False)
@@ -582,11 +585,12 @@ def ab_kernels(turbo, cfg520, turbo4, cfg4, K, A, M, FM, bb, root: str) -> None:
 
 
 INT4_TILINGS = ((16, 1), (16, 2), (16, 4), (32, 1), (32, 2), (32, 4))
-# B2's (attn-out split, hidden units a norm + fc_in block, down split,
-# dependent launch): every split and unit count with dependent launch, and
-# gelu_tiling's choice at one row without it; B11 takes the last three
-GELU_SWEEP = tuple((a, u, d, True) for a in (1, 2) for u in (16, 32, 64) for d in (1, 2, 4)) \
-    + ((1, 64, 4, False),)
+# B10's (attn-out columns, fc_in packed columns, fc_out columns, fc_out
+# split, dependent launch): every fc_in and fc_out setting with and without
+# dependent launch at 16 attn-out columns, then 32 attn-out columns at
+# int4_mlp_tiling's other choices (the attn-out phase is the smallest)
+MLP4_SWEEP = tuple((16, f, c, s, p) for f in (16, 32, 64) for c in (16, 32) for s in (1, 2, 4)
+                   for p in (True, False))
 
 
 def _sweep_time(sp, L, f, label) -> str:
@@ -601,16 +605,17 @@ def _sweep_time(sp, L, f, label) -> str:
 
 
 def sweep_tilings(turbo, cfg520, turbo4, cfg4, K, M, FM) -> None:
-    """The knobs of B8, B6, B9, B2 and B11, each setting checked against the
-    plain version and timed by CUDA-graph replay (the evidence for
-    int4_tiling, glu_tiling, ln_qkv_int4_tiling and gelu_tiling): B8's
-    columns a block and split of the packed rows at each 520M linear shape,
-    over that shape's linears of every layer, at 2 and 8 rows; B6's
-    attn-out and down splits, hidden units a norm + gate/up block and
-    programmatic dependent launch on and off, over the 520M layers at 2 and
-    8 rows; B9's columns a block over the Turbo int4_fused layers, and B2's
-    and B11's splits, hidden units a norm + fc_in block and dependent launch
-    over the Turbo int8 layers, at 1 and 8 rows."""
+    """The knobs of B8, B6, B2, B11 and B10, each setting checked against
+    the plain version and timed by CUDA-graph replay (the evidence for
+    int4_tiling, glu_tiling, gelu_tiling and int4_mlp_tiling): B8's columns
+    a block and split of the packed rows at each 520M linear shape, over
+    that shape's linears of every layer, at 2 and 8 rows; B6's chosen tiling
+    with programmatic dependent launch on and off over the 520M layers at 2
+    and 8 rows, and B2's and B11's over the Turbo int8 layers at 1 and 8
+    rows (their grids were swept in earlier runs, PERF.md); B10's columns a
+    block for each phase, fc_out's split and dependent launch over the
+    Turbo int4_fused layers at 1 and 8 rows (B9's columns, settled, are not
+    swept)."""
     import functools
     ps = b8_linears(cfg4)
     shape = lambda p: (2 * p["w_q4"].shape[0], p["w_q4"].shape[1])
@@ -627,46 +632,48 @@ def sweep_tilings(turbo, cfg520, turbo4, cfg4, K, M, FM) -> None:
     cfg = cfg520.hp.backbone
     D, I, tw = cfg.hidden_size, cfg.intermediate_size, K.llama_mlp_tile(cfg)
     for B in (2, 8):
-        sp = llama_specs(cfg520, K, B=B)[1]
-        L = cfg.num_layers
+        sp, L = llama_specs(cfg520, K, B=B)[1], cfg.num_layers
+        attn, units, down, _ = K.glu_tiling(B, D, I, tw)
         rows = []
-        for attn in (1, 2, 4):
-            for units in (16, 32):
-                for down in (1, 2, 4):
-                    for pdl in (False, True):
-                        f = functools.partial(K.attnout_rms_glu_int8_tiled, attn_splits=attn,
-                                              glu_units=units, down_splits=down, pdl=pdl)
-                        t = _sweep_time(sp, L, f, f"B6 B={B}, ({attn}, {units}, {down}, {pdl})")
-                        rows.append(f"({attn},{units},{down},{int(pdl)}) {t}")
+        for pdl in (True, False):
+            f = functools.partial(K.attnout_rms_glu_int8_tiled, attn_splits=attn,
+                                  glu_units=units, down_splits=down, pdl=pdl)
+            t = _sweep_time(sp, L, f, f"B6 B={B}, ({attn}, {units}, {down}, {pdl})")
+            rows.append(f"({attn},{units},{down},{int(pdl)}) {t}")
         log(f"tiling sweep B6 (B={B}, D={D}, I={I}, tw={tw}; attn splits, units, down "
-            f"splits, pdl): " + ", ".join(rows)
-            + f" (glu_tiling: {K.glu_tiling(B, D, I, tw)})")
+            f"splits, pdl): " + ", ".join(rows))
     cfg = turbo.hp.backbone
     D, I, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
     for B in (1, 8):
-        sp = int4_gpt2_specs(turbo4, K, B=B)[0]
-        times = [_sweep_time(sp, L, functools.partial(K.ln_qkv_int4_tiled, cols=c),
-                             f"B9 B={B}, {c} columns") for c in K.QKV4_COLS]
-        log(f"tiling sweep B9 (B={B}, D={D}, N={3 * D}; columns a block): "
-            + ", ".join(f"{c} {t}" for c, t in zip(K.QKV4_COLS, times))
-            + f" (ln_qkv_int4_tiling: {K.ln_qkv_int4_tiling(B, D, 3 * D)})")
         sp, rows = gpt2_specs(turbo, K, B=B)[1], []
-        for attn, units, down, pdl in GELU_SWEEP:
+        attn, units, down, _ = K.gelu_tiling(B, D, I, 1024)
+        for pdl in (True, False):
             f = functools.partial(K.attnout_ln_mlp_int8_tiled, tw=1024, attn_splits=attn,
                                   gelu_units=units, down_splits=down, pdl=pdl)
             t = _sweep_time(sp, L, f, f"B2 B={B}, ({attn}, {units}, {down}, {pdl})")
             rows.append(f"({attn},{units},{down},{int(pdl)}) {t}")
         log(f"tiling sweep B2 (B={B}, D={D}, I={I}, tw=1024; attn splits, units, down "
-            f"splits, pdl): " + ", ".join(rows)
-            + f" (gelu_tiling: {K.gelu_tiling(B, D, I, 1024)})")
+            f"splits, pdl): " + ", ".join(rows))
         sp, rows = b11_specs(turbo, FM, B=B)[0], []
-        for _, units, down, pdl in {(1, u, d, p) for _, u, d, p in GELU_SWEEP}:
+        _, units, down, _ = K.gelu_tiling(B, D, I, None)
+        for pdl in (True, False):
             f = functools.partial(FM.fused_mlp_int8_tiled, gelu_units=units, down_splits=down,
                                   pdl=pdl)
             t = _sweep_time(sp, L, f, f"B11 B={B}, ({units}, {down}, {pdl})")
             rows.append(f"({units},{down},{int(pdl)}) {t}")
         log(f"tiling sweep B11 (B={B}, D={D}, I={I}; units, down splits, pdl): "
-            + ", ".join(sorted(rows)) + f" (gelu_tiling: {K.gelu_tiling(B, D, I, None)})")
+            + ", ".join(rows))
+        sp, rows = int4_gpt2_specs(turbo4, K, B=B)[1], []
+        choice = K.int4_mlp_tiling(B, D, I)
+        for tiling in MLP4_SWEEP + ((32,) + choice[1:],):
+            f = functools.partial(K.attnout_ln_mlp_int4_tiled, attn_cols=tiling[0],
+                                  fc_in_cols=tiling[1], down_cols=tiling[2],
+                                  down_splits=tiling[3], pdl=tiling[4])
+            t = _sweep_time(sp, L, f, f"B10 B={B}, {tiling}")
+            rows.append(f"({','.join(str(int(v)) for v in tiling)}) {t}")
+        log(f"tiling sweep B10 (B={B}, D={D}, I={I}; attn-out columns, fc_in packed "
+            f"columns, fc_out columns, fc_out splits, pdl): " + ", ".join(rows)
+            + f" (int4_mlp_tiling: {choice})")
 
 
 # Attention tolerance: the outputs are bf16, compared in f32; the kernel and
@@ -733,11 +740,14 @@ def attention_shapes(turbo, cfg520) -> list:
     stream (B3 / B4 at T=768, B7 at an unaligned 657, position 530), the
     520M CFG pair (prefix 66 + 250 tokens in 512), the batched engine's
     eight left-padded rows (one pad past a whole tile; B7 at T=657 with
-    per-row positions and no pads), and a long window (Turbo, 1400 keys)."""
+    per-row positions and no pads), the windows of phase 5's batched Turbo
+    decode (~430 keys, the pads of its 12-30 text tokens), and a long
+    window (Turbo, 1400 keys)."""
     L1, L2 = turbo.hp.backbone.num_layers, cfg520.hp.backbone.num_layers
     H, D = turbo.hp.backbone.num_heads, turbo.hp.backbone.head_dim
     H2, D2 = cfg520.hp.backbone.num_heads, cfg520.hp.backbone.head_dim
     lo8 = [0, 3, 9, 17, 40, 100, 257, 300]
+    pads = [0, 3, 5, 8, 10, 13, 15, 18]          # BatchDecoder's 12-30 text tokens
     return [
         ("Turbo B=1, T=768, cur 530", L1, 1, H, 768, D, [530], None, 1, ("B3", "B4")),
         ("B=1, T=657, cur 530", L1, 1, H, 657, D, [530], None, 2, ("B7",)),
@@ -745,8 +755,11 @@ def attention_shapes(turbo, cfg520) -> list:
          ("B3", "B4", "B7")),
         (f"batched B=8, T=768, cur 540, lo {lo8}", L1, 8, H, 768, D, [540] * 8, lo8, 4,
          ("B3", "B4")),
+        (f"batched decode B=8, T=768, cur 430, lo {pads}", L1, 8, H, 768, D, [430] * 8, pads,
+         7, ("B3", "B4")),
         ("B=8, T=657", L1, 8, H, 657, D, [300 + 40 * i for i in range(8)], None, 5, ("B7",)),
-        ("Turbo B=1, T=1536, cur 1400", L1, 1, H, 1536, D, [1400], None, 6, ("B3", "B7")),
+        ("Turbo B=1, T=1536, cur 1400", L1, 1, H, 1536, D, [1400], None, 6,
+         ("B3", "B4", "B7")),
     ]
 
 
@@ -757,8 +770,8 @@ def _specs_at(A, bb, shape):
 
 def check_attention(turbo, cfg520, A, bb) -> list:
     """B3, B4 and B7 against their plain versions over every layer at the
-    paths' shapes (attention_shapes), each timed with the split count B3 /
-    B7 take there; the rows of the kernels line at Turbo's single stream."""
+    paths' shapes (attention_shapes), each timed with the split count it
+    takes there; the rows of the kernels line at Turbo's single stream."""
     L1 = turbo.hp.backbone.num_layers
     H, D = turbo.hp.backbone.num_heads, turbo.hp.backbone.head_dim
     for cur in (200, 400, 700):                     # cache tiles 1, 2 and 3
@@ -769,7 +782,8 @@ def check_attention(turbo, cfg520, A, bb) -> list:
         label, _, B, H_, T = shape[:5]
         specs, L = _specs_at(A, bb, shape)
         r = time_specs(specs, L, check_specs(specs, L, label),
-                       f"{label}; B3 / B7 split over {A.split_count(B, H_, T)} blocks")
+                       f"{label}; B3 / B7 split over {A.split_count(B, H_, T)} blocks, B4 "
+                       f"over {A.split_count_int8(B, H_, T)}")
         rows += r if n < 2 else []
     return rows
 
@@ -778,30 +792,33 @@ SWEEP_SPLITS = (1, 2, 4, 8, 16)
 
 
 def sweep_splits(turbo, cfg520, A, bb) -> None:
-    """B3's kernel at S = 1, 2, 4, 8 and 16 blocks a window at Turbo's
-    single stream, the 520M pair, the batched rows and the long window:
-    each checked against the plain version and timed by CUDA-graph replay
-    (the evidence for split_count)."""
+    """B3's and B4's kernel at S = 1, 2, 4, 8 and 16 blocks a window at
+    Turbo's single stream, the 520M pair, the batched rows and the long
+    window: each checked against the plain version and timed by CUDA-graph
+    replay (the evidence for split_count and split_count_int8)."""
     import functools
+    split = {"B3": A.decode_attention_streamed_split, "B4": A.decode_attention_streamed_int8_split}
+    count = {"B3": A.split_count, "B4": A.split_count_int8}
     for shape in attention_shapes(turbo, cfg520):
-        if "B3" not in shape[-1]:
-            continue
-        label, L, B, H, T = shape[:5]
-        (sp,), _ = _specs_at(A, bb, shape[:-1] + (("B3",),))
-        times = []
-        for S in SWEEP_SPLITS:
-            f = functools.partial(A.decode_attention_streamed_split, splits=S)
-            try:
-                check_specs([KernelSpec(sp.name, sp.replaces, sp.call, None, 0, 0, sp.tol, f,
-                                        sp.plain, relative=True)], L, f"S={S}")
-            except RuntimeError as e:   # a cluster the card will not schedule
-                times.append(f"refused ({e})")
+        for kern in ("B3", "B4"):
+            if kern not in shape[-1]:
                 continue
-            us = device_time_ms(lambda: [sp.call(i, f) for i in range(L)], 50) / L * 1e3
-            times.append(f"{us:.2f} us")
-        log(f"split sweep B3 ({label}): "
-            + ", ".join(f"S={S} {t}" for S, t in zip(SWEEP_SPLITS, times))
-            + f" (split_count: S={A.split_count(B, H, T)})")
+            label, L, B, H, T = shape[:5]
+            (sp,), _ = _specs_at(A, bb, shape[:-1] + ((kern,),))
+            times = []
+            for S in SWEEP_SPLITS:
+                f = functools.partial(split[kern], splits=S)
+                try:
+                    check_specs([KernelSpec(sp.name, sp.replaces, sp.call, None, 0, 0, sp.tol, f,
+                                            sp.plain, relative=True)], L, f"{kern} S={S}")
+                except RuntimeError as e:   # a cluster the card will not schedule
+                    times.append(f"refused ({e})")
+                    continue
+                us = device_time_ms(lambda: [sp.call(i, f) for i in range(L)], 50) / L * 1e3
+                times.append(f"{us:.2f} us")
+            log(f"split sweep {kern} ({label}): "
+                + ", ".join(f"S={S} {t}" for S, t in zip(SWEEP_SPLITS, times))
+                + f" ({count[kern].__name__}: S={count[kern](B, H, T)})")
 
 
 # ---------------------------------------------------------------------------

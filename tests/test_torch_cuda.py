@@ -949,3 +949,263 @@ def test_b9_b2_b11_refuse_what_the_kernels_do_not_take(dev):
     ops[0] = torch.empty(2 * 1024 + 8, dtype=torch.bfloat16, device=dev)[4:-4].view(2, 1024)
     with pytest.raises(ValueError):          # x not 16-byte aligned
         FM.fused_mlp_int8(*ops)
+
+
+# ---------------------------------------------------------------------------
+# B4 on the split kernel (the int8 cache)
+# ---------------------------------------------------------------------------
+
+def _int8_close(out, q, k_q, k_s, v_q, v_s, cur, lo, S):
+    """B4 against its plain version (the Pallas order) and its split-plain
+    version (the kernel's chunks and merge) at S splits: _attn_close's
+    tolerance against each."""
+    _attn_close(out, A.decode_attention_streamed_int8_plain(q, k_q, k_s, v_q, v_s, cur, lo))
+    _attn_close(out, A.split_window_plain(q, k_q, v_q, cur, lo, S, k_s, v_s))
+
+
+# The shapes of chip_smoke.py's phase 3 (Turbo's single stream at three
+# positions, the 520M pair, the batched rows with their left pads, and the
+# batched decode's own windows) at every split count the sweep times and 3.
+B4_SHAPES = [(1, 768, [530], None), (1, 768, [200], None), (1, 768, [700], None),
+             (2, 512, [190, 190], None),
+             (8, 768, [540] * 8, [0, 3, 9, 17, 40, 100, 257, 300]),
+             (8, 768, [430] * 8, [0, 3, 5, 8, 10, 13, 15, 18])]
+
+
+@pytest.mark.parametrize("qdtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,T,cur,lo", B4_SHAPES)
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 8, 16])
+def test_int8_split_kernel_matches_plain_at_the_paths_shapes(dev, S, B, T, cur, lo, qdtype):
+    q, _, _, k_q, k_s, v_q, v_s = _attn_operands(dev, B, 16, T, 64, qdtype, seed=S + B)
+    cur = torch.tensor(cur, device=dev, dtype=torch.int32)
+    lo = None if lo is None else torch.tensor(lo, device=dev, dtype=torch.int32)
+    before = A.launches["decode_attention_streamed_int8"]
+    out = A.decode_attention_streamed_int8_split(q, k_q, k_s, v_q, v_s, cur, lo, S)
+    torch.cuda.synchronize()
+    assert A.launches["decode_attention_streamed_int8"] == before + 1
+    _int8_close(out, q, k_q, k_s, v_q, v_s, cur, lo, S)
+
+
+# Windows of one key, fewer keys than S, S whole chunks and up to the end of
+# the cache, from lower bounds on, and off, multiples of 8 keys.
+@pytest.mark.parametrize("qdtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("lo", SPLIT_LOS)
+@pytest.mark.parametrize("window", ["one", "fewer", "boundary", "whole"])
+@pytest.mark.parametrize("S", [1, 3, 8, 16])
+def test_int8_split_kernel_matches_plain(dev, S, window, lo, qdtype):
+    T = 768
+    q, _, _, k_q, k_s, v_q, v_s = _attn_operands(dev, 2, 4, T, 64, qdtype, seed=S + lo)
+    cur = torch.tensor([lo + _split_window(window, S, lo, T) - 1, T + 5], device=dev,
+                       dtype=torch.int32)
+    los = torch.tensor([lo, lo], device=dev, dtype=torch.int32)
+    out = A.decode_attention_streamed_int8_split(q, k_q, k_s, v_q, v_s, cur, los, S)
+    torch.cuda.synchronize()
+    _int8_close(out, q, k_q, k_s, v_q, v_s, cur, los, S)
+
+
+# The wrapper (split_count_int8's S) at head widths 32-128, caches up to 2048
+# keys and 1-16 rows, and an empty window (lo past cur), which gives 0.
+@pytest.mark.parametrize("B,H,T,D,cur,lo,qdtype", [
+    (1, 16, 1536, 64, [1400], None, torch.bfloat16),
+    (1, 16, 2048, 128, [2047], [301], torch.float32),
+    (2, 8, 2048, 32, [5, 2000], [0, 1999], torch.bfloat16),
+    (16, 16, 1024, 128, [900 - 50 * i for i in range(16)], [7 * i for i in range(16)],
+     torch.bfloat16),
+    (16, 4, 256, 32, list(range(0, 256, 16)), None, torch.float32),
+    (2, 16, 512, 64, [40, 300], [41, 13], torch.bfloat16),
+])
+def test_b4_kernel_matches_plain_across_shapes(dev, B, H, T, D, cur, lo, qdtype):
+    q, _, _, k_q, k_s, v_q, v_s = _attn_operands(dev, B, H, T, D, qdtype)
+    cur = torch.tensor(cur, device=dev, dtype=torch.int32)
+    lo = None if lo is None else torch.tensor(lo, device=dev, dtype=torch.int32)
+    out = A.decode_attention_streamed_int8(q, k_q, k_s, v_q, v_s, cur, lo)
+    torch.cuda.synchronize()
+    _int8_close(out, q, k_q, k_s, v_q, v_s, cur, lo, A.split_count_int8(B, H, T))
+    if lo is not None and int(lo[0]) > int(cur[0]):
+        assert not out[0].float().abs().max()
+
+
+@pytest.mark.parametrize("S", [None, 1, 16])
+def test_int8_split_kernel_replays_in_a_cuda_graph_with_new_windows(dev, S):
+    """One B4 launch captured in a CUDA graph; cur_len and lo changed on the
+    device between replays (lower bounds on and off multiples of 8), each
+    replay compared with the plain versions at the new values."""
+    q, _, _, k_q, k_s, v_q, v_s = _attn_operands(dev, 2, 16, 768, 64, torch.bfloat16)
+    cur = torch.tensor([530, 700], device=dev, dtype=torch.int32)
+    lo = torch.tensor([0, 257], device=dev, dtype=torch.int32)
+    S = S or A.split_count_int8(2, 16, 768)
+    call = lambda: A.decode_attention_streamed_int8_split(  # noqa: E731
+        q, k_q, k_s, v_q, v_s, cur, lo, S)
+    call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    for c, l in (([530, 700], [0, 257]), ([3, 767], [3, 40]), ([100, 1000], [99, 0]),
+                 ([400, 20], [37, 21])):
+        cur.copy_(torch.tensor(c, dtype=torch.int32))
+        lo.copy_(torch.tensor(l, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        _int8_close(out, q, k_q, k_s, v_q, v_s, cur, lo, S)
+
+
+def test_int8_split_wrappers_refuse_what_the_kernel_does_not_take(dev):
+    q, _, _, k_q, k_s, v_q, v_s = _attn_operands(dev, 1, 4, 512, 64, torch.bfloat16)
+    cur = torch.tensor([100], device=dev)
+    base = torch.empty(k_s.numel() + 1, dtype=torch.bfloat16, device=dev)
+    ks_off = base[1:].view(k_s.shape)            # contiguous, 2 bytes off alignment
+    ks_off.copy_(k_s)
+    with pytest.raises(ValueError, match="aligned"):
+        A.decode_attention_streamed_int8(q, k_q, ks_off, v_q, v_s, cur)
+    wide = torch.empty((1, 4, 1024), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):      # every other key's scale
+        A.decode_attention_streamed_int8(q, k_q, wide[..., ::2], v_q, v_s, cur)
+    with pytest.raises(TypeError):               # f32 scales
+        A.decode_attention_streamed_int8(q, k_q, k_s.float(), v_q, v_s, cur)
+    with pytest.raises(ValueError):              # head width the template lacks
+        A.decode_attention_streamed_int8(q[..., :16].contiguous(), k_q[..., :16].contiguous(),
+                                         k_s, v_q[..., :16].contiguous(), v_s, cur)
+    with pytest.raises(ValueError):              # cache length not a multiple of 256
+        A.decode_attention_streamed_int8(q, k_q[:, :, :300].contiguous(),
+                                         k_s[:, :, :300].contiguous(),
+                                         v_q[:, :, :300].contiguous(),
+                                         v_s[:, :, :300].contiguous(), cur)
+    for S in (0, A.MAX_SPLITS + 1):
+        with pytest.raises(ValueError, match="splits"):
+            A.decode_attention_streamed_int8_split(q, k_q, k_s, v_q, v_s, cur, None, S)
+    with pytest.raises(ValueError, match="CUDA"):
+        A.decode_attention_streamed_int8_split(q.cpu(), k_q.cpu(), k_s.cpu(), v_q.cpu(),
+                                               v_s.cpu(), cur.cpu(), None, 8)
+
+
+# ---------------------------------------------------------------------------
+# B10 on the tensor cores
+# ---------------------------------------------------------------------------
+
+def _deq_rows(w, s_lo, s_hi):
+    """Out-major row-split packed w (N, K2) and its group scales (N, K2 /
+    256) -> the f32 weight (N, 2 K2) they stand for."""
+    lo, hi = K.unpack_int4(w)
+    return torch.cat([lo * s_lo.repeat_interleave(256, 1), hi * s_hi.repeat_interleave(256, 1)],
+                     dim=1)
+
+
+def _deq_cols(w, s_lo, s_hi):
+    """Out-major column-split packed w (IH, D) and its group scales (IH, D /
+    256) -> the f32 weight (2 IH, D): units c, then c + IH."""
+    lo, hi = K.unpack_int4(w)
+    return torch.cat([lo * s_lo.repeat_interleave(256, 1), hi * s_hi.repeat_interleave(256, 1)],
+                     dim=0)
+
+
+def _b10_phases(ops, tiling):
+    """B10's three launches at (attn_cols, fc_in_cols, down_cols,
+    down_splits, pdl) with r and h kept: (r, h, out)."""
+    a = ops[0]
+    B, D = a.shape
+    I = 2 * ops[8].shape[0]
+    r = torch.empty((B, D), device=a.device)
+    h = torch.empty((B, I), dtype=torch.bfloat16, device=a.device)
+    out = torch.empty((B, D), device=a.device)
+    err = K.int4_kernels().attnout_ln_mlp_int4_launch(
+        *(t.data_ptr() for t in ops[:2]), int(a.dtype == torch.bfloat16),
+        *(t.data_ptr() for t in ops[2:]), r.data_ptr(), h.data_ptr(), out.data_ptr(),
+        B, D, I, EPS, *(int(t) for t in tiling), torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    return r, h, out
+
+
+def _check_b10_phases(ops, tiling):
+    """Each phase against its plain step on the kernel's own input to it, as
+    _check_b2_phases: r to f32 summation order (1e-4), h by _h_close (the
+    bf16 units of LN2's output and of h that another order of f32 sums
+    rounds apart), out given r and h to f32 summation order (1e-4)."""
+    a, xres, wo, so_lo, so_hi, bo, g2, be2, w1c, s1_lo, s1_hi, b1, w2, s2_lo, s2_hi, b2 = ops
+    r, h, out = _b10_phases(ops, tiling)
+    torch.cuda.synchronize()
+    r_ref = xres.float() + a.to(torch.bfloat16).float() @ _deq_rows(wo, so_lo, so_hi).T + bo
+    assert (r - r_ref).abs().max().item() <= 1e-4
+    y = K._ln_bf16(r, g2, be2, EPS)
+    h_ref = K._gelu_new_f32(b1 + y @ _deq_cols(w1c, s1_lo, s1_hi).T).to(torch.bfloat16).float()
+    assert _h_close(h, h_ref)
+    o_ref = (r + b2) + h.float() @ _deq_rows(w2, s2_lo, s2_hi).T
+    assert torch.isfinite(out).all() and (out - o_ref).abs().max().item() <= 1e-4
+    return out
+
+
+# B10 at 1-16 rows, D 512-2048, bf16 and f32 input, phase by phase, at the
+# tiling the wrapper picks (the end-to-end tests at the Turbo shape are above).
+@pytest.mark.parametrize("D,I", [(512, 2048), (1024, 4096), (2048, 4096)])
+@pytest.mark.parametrize("B", [1, 2, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attnout_ln_mlp_int4_tc_phases_match_plain(dev, D, I, B, dtype):
+    ops = _b10_operands(dev, B, D, I, dtype, seed=D + B)
+    out = _check_b10_phases(ops, K.int4_mlp_tiling(B, D, I))
+    before = K.launches["attnout_ln_mlp_int4"]
+    assert torch.equal(K.attnout_ln_mlp_int4(*ops, EPS), out)
+    assert K.launches["attnout_ln_mlp_int4"] == before + 1
+
+
+# Each tiling at the Turbo shape, 2 and 16 rows, with and without
+# programmatic dependent launch (attn-out at the columns of fc_out).
+@pytest.mark.parametrize("down_cols,down_splits", [(16, 1), (16, 2), (16, 4), (32, 1),
+                                                   (32, 2), (32, 4)])
+@pytest.mark.parametrize("fc_in_cols", K.MLP4_FC_IN_COLS)
+@pytest.mark.parametrize("pdl", [False, True])
+def test_attnout_ln_mlp_int4_every_tiling_matches_plain(dev, down_cols, down_splits,
+                                                        fc_in_cols, pdl):
+    tiling = (down_cols, fc_in_cols, down_cols, down_splits, pdl)
+    for B in (2, 16):
+        ops = _b10_operands(dev, B, 1024, 4096, torch.bfloat16, seed=down_splits + fc_in_cols)
+        out = _check_b10_phases(ops, tiling)
+        assert torch.equal(out, K.attnout_ln_mlp_int4_tiled(*ops, EPS, *tiling))
+
+
+def test_b4_and_b10_replay_in_a_cuda_graph_with_new_inputs(dev):
+    """B10 (with its dependent launches) and B4 captured in one CUDA graph
+    and replayed after new inputs, cur_len and lo are copied in."""
+    b10 = list(_b10_operands(dev, 8, 1024, 4096, torch.bfloat16))
+    q, _, _, k_q, k_s, v_q, v_s = _attn_operands(dev, 8, 16, 768, 64, torch.bfloat16)
+    cur = torch.full((8,), 540, device=dev, dtype=torch.int32)
+    lo = torch.tensor([0, 3, 9, 17, 40, 100, 257, 300], device=dev, dtype=torch.int32)
+    K.attnout_ln_mlp_int4(*b10, EPS)
+    A.decode_attention_streamed_int8(q, k_q, k_s, v_q, v_s, cur, lo)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out10 = K.attnout_ln_mlp_int4(*b10, EPS)
+        out4 = A.decode_attention_streamed_int8(q, k_q, k_s, v_q, v_s, cur, lo)
+    for seed in (31, 32):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        for t in (b10[0], b10[1], q):
+            t.copy_(torch.randn(t.shape, generator=g, device=dev))
+        cur.add_(seed - 30)
+        lo.add_(1)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert (out10 - K.attnout_ln_mlp_int4_plain(*b10, EPS)).abs().max() <= 1e-2
+        _attn_close(out4, A.decode_attention_streamed_int8_plain(q, k_q, k_s, v_q, v_s, cur,
+                                                                 lo))
+
+
+def test_b10_refuses_what_the_kernel_does_not_take(dev):
+    ops = list(_b10_operands(dev, 17, 1024, 4096, torch.bfloat16))
+    with pytest.raises(ValueError):          # 17 rows
+        K.attnout_ln_mlp_int4(*ops, EPS)
+    ops = _b10_operands(dev, 2, 1024, 4096, torch.bfloat16)
+    for tiling in ((24, 32, 16, 2, True), (16, 48, 16, 2, True), (16, 32, 16, 3, True),
+                   (16, 32, 64, 2, True)):   # tilings the kernel has no instance of
+        with pytest.raises(ValueError):
+            K.attnout_ln_mlp_int4_tiled(*ops, EPS, *tiling)
+    ops = list(_b10_operands(dev, 2, 1024, 4096, torch.bfloat16))
+    ops[8] = ops[8].T.contiguous().T         # fc_in stored in-major
+    with pytest.raises(ValueError):
+        K.attnout_ln_mlp_int4(*ops, EPS)
+    ops = list(_b10_operands(dev, 2, 1024, 4096, torch.bfloat16))
+    ops[0] = torch.empty(2 * 1024 + 8, dtype=torch.bfloat16, device=dev)[4:-4].view(2, 1024)
+    with pytest.raises(ValueError):          # a not 16-byte aligned
+        K.attnout_ln_mlp_int4(*ops, EPS)
+    ops = list(_b10_operands(dev, 2, 768, 3072, torch.bfloat16))
+    with pytest.raises(ValueError):          # width 768: a packed half of 384 rows
+        K.attnout_ln_mlp_int4(*ops, EPS)

@@ -2,8 +2,10 @@
 `decode_attention_streamed`, B4 `decode_attention_streamed_int8`, B7
 `decode_attention`) held against the Pallas kernels of
 chatterbox_tpu/ops/pallas_attention.py in interpret mode, at the shapes of
-tests/test_pallas_kernels.py; and the int8 cache quantizer against the JAX
-one. The port's functions run as their plain versions (CPU tensors).
+tests/test_pallas_kernels.py; the split kernel's arithmetic
+(`split_window_plain`, bf16 and int8 caches) against them too; and the int8
+cache quantizer against the JAX one. The port's functions run as their
+plain versions (CPU tensors).
 
 Tolerances: with f32 inputs both sides compute the same f32 arithmetic in
 another summation order (errors of ~1e-7 on outputs below 1): 1e-5. With
@@ -174,12 +176,132 @@ def test_split_window_of_an_empty_window_is_zero():
     assert out.shape == (1, 2, 1, 64) and not out.float().abs().max()
 
 
+# The split kernel over the int8 cache (B4 on the card): chunks start on
+# multiples of 8 keys, the keys below lo masked; the scales fold into the
+# scores (K) and the weights (V). Per-row windows whose lo and cur are not
+# multiples of 8 (the batched engine's left pads among them), at the row
+# counts of the paths (Turbo 1, the 520M pair 2, eight batched rows).
+INT8_ROWS = {1: ([5], [530]), 2: ([3, 0], [190, 301]),
+             8: ([0, 3, 9, 17, 40, 100, 257, 300], [540, 539, 531, 700, 541, 766, 767, 301])}
+
+
+def _int8_cache(seed, B, H, T, D, dtype):
+    """(q, k_q, k_s, v_q, v_s) as JAX arrays and torch tensors, the scales
+    in bf16 as the int8 cache holds them."""
+    (jq, tq), (jk, _), (jv, _) = _inputs(seed, B, H, T, D, "f32", scale=0.3)
+    if dtype == "bf16":
+        jq, tq = jq.astype(jnp.bfloat16), tq.bfloat16()
+    k_q, k_s = jquantize_kv(jk)
+    v_q, v_s = jquantize_kv(jv)
+    k_s, v_s = k_s[..., 0].astype(jnp.bfloat16), v_s[..., 0].astype(jnp.bfloat16)
+    t = lambda a: torch.from_numpy(np.array(jnp.asarray(a, jnp.float32)))
+    return ((jq, k_q, k_s, v_q, v_s),
+            (tq, torch.from_numpy(np.array(k_q)), t(k_s).bfloat16(),
+             torch.from_numpy(np.array(v_q)), t(v_s).bfloat16()))
+
+
+def _int8_pallas(key, jops, cur, lo):
+    if key not in _PALLAS:
+        jq, k_q, k_s, v_q, v_s = jops
+        _PALLAS[key] = J.decode_attention_streamed_int8(
+            jq, k_q, k_s, v_q, v_s, jnp.asarray(cur, jnp.int32), interpret=True,
+            lo=jnp.asarray(lo, jnp.int32))
+    return _PALLAS[key]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("B", sorted(INT8_ROWS))
+@pytest.mark.parametrize("S", SPLITS)
+def test_split_window_int8_matches_pallas(S, B, dtype):
+    """Each split's (m, l, acc) over its 8-key-aligned chunk and their merge
+    give the Pallas int8 kernel's result: 1e-5 for f32 q (summation order),
+    one bf16 ulp of the output for bf16 q."""
+    lo, cur = INT8_ROWS[B]
+    jops, ops = _int8_cache(20 + B, B, 2, SPLIT_T, 64, dtype)
+    ref = _int8_pallas(("int8", B, dtype), jops, cur, lo)
+    q, k_q, k_s, v_q, v_s = ops
+    out = A.split_window_plain(q, k_q, v_q, torch.tensor(cur), torch.tensor(lo), S, k_s, v_s)
+    assert out.dtype == q.dtype
+    _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("lo", [3, 37, TT + 1])
+@pytest.mark.parametrize("window", ["one key", "fewer than S", "chunk boundary", "whole T"])
+@pytest.mark.parametrize("S", SPLITS)
+def test_split_window_int8_at_unaligned_lower_bounds(S, window, lo):
+    """The windows of test_split_window_matches_pallas from lower bounds
+    that are not multiples of 8 (chunk 0 starts below lo): bf16 q, row 1
+    with cur_len past the cache."""
+    n = _window(window, S, lo)
+    cur, los = [lo + n - 1, SPLIT_T + 5], [lo, lo]
+    jops, ops = _int8_cache(30, 2, 2, SPLIT_T, 64, "bf16")
+    ref = _int8_pallas(("int8", n, lo), jops, cur, los)
+    q, k_q, k_s, v_q, v_s = ops
+    _close(A.split_window_plain(q, k_q, v_q, torch.tensor(cur), torch.tensor(los), S, k_s,
+                                v_s), ref, "bf16")
+
+
+def test_split_window_int8_of_an_empty_window_is_zero():
+    _, (q, k_q, k_s, v_q, v_s) = _int8_cache(31, 1, 2, TT, 64, "bf16")
+    for lo, cur in ((41, 40), (8, 7)):            # lo unaligned and aligned
+        out = A.split_window_plain(q, k_q, v_q, torch.tensor([cur]), torch.tensor([lo]), 8,
+                                   k_s, v_s)
+        assert out.shape == (1, 2, 1, 64) and not out.float().abs().max()
+
+
+class _SplitLib:
+    """Stands in for the attention library: records the split count and
+    whether scales were passed to each launch."""
+
+    def __init__(self):
+        self.calls = []
+
+    def split_decode_launch(self, *args):
+        self.calls.append((args[13], args[4] is not None))
+        return 0
+
+
+def test_int8_launch_takes_its_split_count_from_the_cache_shape_only(monkeypatch):
+    """B4's wrapper launches the split kernel with its scales at
+    split_count_int8(B, H, T) whatever cur_len and lo hold, and counts the
+    launch; the plain version is never called for a device tensor."""
+    import types
+    lib = _SplitLib()
+    monkeypatch.setattr(A, "_kernel", lambda: lib)
+    monkeypatch.setattr(A, "_check_device", lambda x: True)
+    monkeypatch.setattr(A, "decode_attention_streamed_int8_plain",
+                        lambda *a, **k: pytest.fail("plain version"))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    for B, T in ((1, 768), (2, 512), (8, 768), (1, 1536)):
+        _, (q, k_q, k_s, v_q, v_s) = _int8_cache(32, B, 16, T, 64, "bf16")
+        before = A.launches["decode_attention_streamed_int8"]
+        for cur, lo in ((5, 0), (T - 1, 3), (T + 9, T // 2 + 1)):
+            A.decode_attention_streamed_int8(q, k_q, k_s, v_q, v_s, torch.full((B,), cur),
+                                             torch.full((B,), lo))
+        assert lib.calls[-3:] == [(A.split_count_int8(B, 16, T), True)] * 3
+        assert A.launches["decode_attention_streamed_int8"] == before + 3
+
+
 @pytest.mark.parametrize("B,H,T,S", [(1, 16, 768, 8), (1, 16, 657, 8), (2, 16, 512, 4),
                                      (8, 16, 768, 2), (16, 16, 768, 1), (1, 16, 1536, 8),
                                      (1, 16, 64, 1), (1, 4, 256, 2)])
 def test_split_count_depends_on_the_cache_shape_only(B, H, T, S):
     assert A.split_count(B, H, T) == S
     assert 1 <= S <= A.SPLIT_CAP <= A.MAX_SPLITS
+
+
+# B4's count: half the bf16 cache's splits where a full cache would leave
+# fewer than SPLIT_KEYS_INT8 keys a split (Turbo T=768, the 520M pair), at
+# most SPLIT_CAP_INT8 (Turbo T=1536), and none past SPLIT_BLOCKS_INT8 blocks
+# (eight rows).
+@pytest.mark.parametrize("B,H,T,S", [(1, 16, 768, 4), (2, 16, 512, 2), (8, 16, 768, 1),
+                                     (16, 16, 768, 1), (1, 16, 1536, 4), (1, 16, 2048, 4),
+                                     (1, 16, 256, 1), (1, 4, 512, 2)])
+def test_int8_split_count_depends_on_the_cache_shape_only(B, H, T, S):
+    assert A.split_count_int8(B, H, T) == S
+    assert S <= A.split_count(B, H, T) <= A.SPLIT_CAP
+    assert S <= A.SPLIT_CAP_INT8
 
 
 def test_streamed_refuses_an_unaligned_cache_on_the_kernel_route():

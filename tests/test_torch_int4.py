@@ -349,6 +349,77 @@ def test_attnout_ln_mlp_int4_plain_matches_pallas(B, dtype):
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-3)
 
 
+_B10_PALLAS = {}
+
+
+def _b10_case(B, D, dtype):
+    """B10's torch operands (the port's layout) and the Pallas kernel's
+    output at B rows of width D (I = 2048), computed once per case."""
+    rng = np.random.default_rng(40 + B + D)
+    (wo, so_lo, so_hi, w1c, s1_lo, s1_hi, w2p, s2_lo, s2_hi), v = _b10_operands(rng, D, 2048)
+    a, xres = _act(rng, (B, D), dtype, 0.5), _act(rng, (B, D), dtype)
+    key = (B, D, dtype)
+    if key not in _B10_PALLAS:
+        _B10_PALLAS[key] = np.asarray(JF.attnout_ln_mlp_int4(
+            a, xres, wo, so_lo, so_hi, _b8(v["bo"]), _b8(v["g2"]), _b8(v["be2"]), w1c, s1_lo,
+            s1_hi, _b8(v["b1"]), w2p, s2_lo, s2_hi, _b8(v["b2"]), eps=EPS, interpret=True))
+    return (_t(a), _t(xres), _tt(wo), _tt(so_lo), _tt(so_hi), _t(v["bo"]), _t(v["g2"]),
+            _t(v["be2"]), _tt(w1c), _tt(s1_lo), _tt(s1_hi), _t(v["b1"]), _tt(w2p),
+            _tt(s2_lo), _tt(s2_hi), _t(v["b2"]), EPS), _B10_PALLAS[key]
+
+
+# B10's kernel order (attnout_ln_mlp_int4_split_plain: int4_block_sum for
+# each phase, fc_out's packed rows over 1, 2 or 4 blocks of a cluster: every
+# split int4_mlp_tiling can pick; the columns a block owns change no sum) at
+# the kernel's row tiles and both input types, against the Pallas kernel.
+# With no bf16 rounding crossed the orders agree to ~1e-6 on outputs of
+# order 1-5. But LN2's output and the hidden units are rounded to bf16, and
+# a value of y that two orders of f32 sums put on either side of a rounding
+# boundary moves every hidden unit of its row, and so its outputs: the
+# plain version, in the Pallas order but with torch's LayerNorm sums, is
+# 1.21e-3 off the Pallas kernel at 8 rows, D = 1024, and the kernel's order
+# 1.23e-3 there and 4.3e-4 at 2 rows (f32 input), where the plain version
+# crosses nothing. Tolerance 2e-3 (4e-4 of the outputs' magnitude); a
+# half taken the wrong way round, or a scale on the wrong group, moves
+# outputs by 1e-1 and more.
+@pytest.mark.parametrize("down_splits", [1, 2, 4])
+@pytest.mark.parametrize("B", [1, 2, 8, 16])
+@pytest.mark.parametrize("dtype", [jnp.bfloat16, jnp.float32])
+@pytest.mark.parametrize("D", [512, 1024])
+def test_attnout_ln_mlp_int4_split_order_matches_pallas(down_splits, B, dtype, D):
+    args, ref = _b10_case(B, D, dtype)
+    out = K.attnout_ln_mlp_int4_split_plain(*args, down_splits)
+    assert out.dtype == torch.float32 and out.shape == (B, D)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=2e-3)
+
+
+@pytest.mark.parametrize("B", [1, 2, 8, 9, 16])
+def test_int4_mlp_tiling_fits_every_shape_the_kernel_takes(B):
+    """B10's tiling within shared memory at D 512-2048 and I up to 8192:
+    each phase's columns from its list dividing its width, fc_out's packed
+    rows in whole 64-row chunks of each block; the Turbo shape takes the
+    first choices (fc_in's from the short list at up to MLP4_FEW_ROWS
+    rows) and fc_out split TC_MAX_SPLITS ways (blocks of 512 packed rows);
+    none fits a width whose norm rows alone overflow shared memory."""
+    for D, I in ((512, 2048), (1024, 4096), (2048, 4096), (2048, 8192)):
+        attn, fc_in, down, splits, pdl = K.int4_mlp_tiling(B, D, I)
+        K.int4_mlp_limits("B10", B, D, I, attn, fc_in, down, splits)
+        assert pdl == K.MLP4_PDL and (I // 2) % (splits * K.TC_CHUNK) == 0
+        if (D, I) == (1024, 4096):
+            few = B <= K.MLP4_FEW_ROWS
+            assert (attn, fc_in, down) == (
+                K.MLP4_ATTN_COLS[0], (K.MLP4_FC_IN_COLS_FEW if few else K.MLP4_FC_IN_COLS)[0],
+                K.MLP4_DOWN_COLS[0])
+            assert splits == K.TC_MAX_SPLITS
+    assert K.int4_mlp_tiling(B, 8192, 4096) is None
+    with pytest.raises(ValueError):          # 3 fc_out blocks
+        K.int4_mlp_limits("B10", B, 1024, 4096, 16, 32, 16, 3)
+    with pytest.raises(ValueError):          # 24 packed columns an fc_in block
+        K.int4_mlp_limits("B10", B, 1024, 4096, 16, 24, 16, 2)
+    with pytest.raises(ValueError):          # fc_out blocks of 32 packed rows
+        K.int4_mlp_limits("B10", B, 1024, 256, 16, 32, 16, 4)
+
+
 def test_cpu_dispatch_is_the_plain_version_and_counts_nothing():
     rng = np.random.default_rng(30)
     wq, slo, shi = (_om(a) for a in _packed(rng, 1024, 512))
