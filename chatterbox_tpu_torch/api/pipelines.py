@@ -7,27 +7,36 @@ chatterbox_tpu/api/pipelines.py).
     emotion input and learned positions, batch-2 CFG decode, 10-step CFG
     S3Gen.
 
-The voice comes from a `Conditionals` bundle: built in code, or loaded from
-the reference's `conds.pt` (or this package's .npz). Building it from a
-reference wav (`audio_prompt_path`) needs the conditioning frontend (S3
-tokenizer, CAMPPlus, voice encoder, mels), which is not ported yet.
+`from_local(ckpt_dir)` loads the reference's checkpoint directory
+(convert/weights.py); `random_init` draws random weights at given widths.
+The voice is a `Conditionals` bundle: built from a reference wav by
+`prepare_conditionals` (or `generate(audio_prompt_path=...)`) through the
+conditioning frontend (resampler, mels, S3 tokenizer, CAMPPlus, voice
+encoder), loaded from conds.pt or .npz, or built in code.
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..audio.resample import resample
 from ..models.s3gen.flow import FlowDims
-from ..models.s3gen.model import S3GEN_SR, RefDict, S3GenEngine, s3gen_init
+from ..models.s3gen.model import S3_SR, S3GEN_SR, RefDict, S3GenEngine, s3gen_init
+from ..models.s3tok.model import S3TokenizerConfig
 from ..models.t3 import model as t3m
 from ..models.t3.config import T3Config
+from ..models.ve import model as ve
+from ..nn import core as nn
 from ..ops.sampling import SamplerParams
 from ..sampling.decode import t3_generate
-from ..text.normalize import punc_norm
+from ..text.tokenizer import punc_norm
+from ..utils.audio_io import load_audio
+from ..utils.loudness import norm_loudness
 from ..utils.quantize import best_serving_mode, cast_params, quantize_t3_backbone
 from ..utils.watermark import Watermarker
 
@@ -110,14 +119,19 @@ class Conditionals:
 
 class _TTSBase:
     """What the pipelines share: parameters, tokenizer, voice, RNG,
-    watermarker."""
+    watermarker, the conditioning frontend."""
+
+    ENC_COND_SEC = 6          # seconds of prompt the T3 prompt tokens come from
+    DEC_COND_SEC = 10         # seconds of prompt S3Gen's reference comes from
 
     def __init__(self, t3_params: dict, hp: T3Config, s3gen: S3GenEngine,
-                 tokenizer, conds: Optional[Conditionals] = None, seed: int = 0):
+                 ve_params: Optional[dict], tokenizer, conds: Optional[Conditionals] = None,
+                 seed: int = 0):
         self.sr = S3GEN_SR
         self.t3_params = t3_params
         self.hp = hp
         self.s3gen = s3gen
+        self.ve_params = ve_params
         self.tokenizer = tokenizer
         self.conds = conds
         self.device = t3_params["speech_emb"]["w"].device
@@ -136,18 +150,37 @@ class _TTSBase:
                                 torch.bfloat16)
         return quantize_t3_backbone(t3_params, mode=best_serving_mode(hp.backbone))
 
-    def prepare_conditionals(self, wav_fpath, exaggeration=0.5, norm_loudness=True):
-        raise NotImplementedError(
-            "conditionals from a reference wav need the conditioning frontend "
-            "(S3 tokenizer, CAMPPlus, voice encoder, mels), which is not "
-            "ported yet; load a Conditionals bundle (conds.pt) instead")
+    def prepare_conditionals(self, wav_fpath, exaggeration: float = 0.5):
+        """Build `self.conds` from a reference WAV file."""
+        self._prepare_from_wav(load_audio(wav_fpath, S3GEN_SR), exaggeration)
 
-    def _conds_for(self, audio_prompt_path, exaggeration, norm_loudness=True):
+    def _prepare_from_wav(self, ref_24k: np.ndarray, exaggeration: float):
+        """S3Gen's reference from the first DEC_COND_SEC seconds; T3's
+        prompt tokens (zero-padded to the prompt length) from the first
+        ENC_COND_SEC; the voice-encoder embedding of the whole prompt."""
+        with nn.no_tf32_convs():
+            ref_16k = resample(torch.from_numpy(np.asarray(ref_24k, np.float32))
+                               .to(self.s3gen.device), S3GEN_SR, S3_SR).cpu().numpy()
+        gen_ref = self.s3gen.embed_ref(ref_24k[: self.DEC_COND_SEC * S3GEN_SR], S3GEN_SR)
+        t3_tokens = None
+        if self.hp.speech_cond_prompt_len:
+            plen = self.hp.speech_cond_prompt_len
+            tokens, _ = self.s3gen.tokenize(ref_16k[: self.ENC_COND_SEC * S3_SR],
+                                            max_len=plen)
+            t3_tokens = np.zeros((1, plen), np.int32)
+            n = min(tokens.shape[1], plen)
+            t3_tokens[0, :n] = tokens[0, :n]
+        ve_embed = ve.embeds_from_wavs(self.ve_params, [ref_16k], sample_rate=S3_SR)
+        self.conds = Conditionals(
+            T3CondHost(ve_embed.mean(axis=0, keepdims=True), t3_tokens, exaggeration),
+            gen_ref)
+
+    def _conds_for(self, audio_prompt_path, **prepare_kw):
         if audio_prompt_path:
-            self.prepare_conditionals(audio_prompt_path, exaggeration=exaggeration,
-                                      norm_loudness=norm_loudness)
+            self.prepare_conditionals(audio_prompt_path, **prepare_kw)
         if self.conds is None:
-            raise ValueError("set `conds` (a Conditionals bundle) first")
+            raise ValueError("call `prepare_conditionals` or pass `audio_prompt_path` "
+                             "(or set `conds`) first")
         return self.conds
 
     def _vocode(self, res, **tail) -> np.ndarray:
@@ -159,23 +192,46 @@ class _TTSBase:
 class ChatterboxTurboTTS(_TTSBase):
     """Turbo/Nano GPT-2 pipeline."""
 
+    ENC_COND_SEC = 15
+
     def __init__(self, t3_params: dict, hp: T3Config, s3gen: S3GenEngine,
-                 tokenizer, conds: Optional[Conditionals] = None, seed: int = 0,
-                 model_label: str = "Turbo"):
-        super().__init__(t3_params, hp, s3gen, tokenizer, conds, seed)
+                 ve_params: Optional[dict], tokenizer, conds: Optional[Conditionals] = None,
+                 seed: int = 0, model_label: str = "Turbo"):
+        super().__init__(t3_params, hp, s3gen, ve_params, tokenizer, conds, seed)
         self.model_label = model_label
 
     @classmethod
     def random_init(cls, nano: bool = False, hp: Optional[T3Config] = None,
-                    flow_dims: FlowDims = FlowDims(), hift_base: int = 512,
-                    tokenizer=None, seed: int = 0, device="cuda"):
+                    flow_dims: FlowDims = FlowDims(),
+                    tok_cfg: S3TokenizerConfig = S3TokenizerConfig(),
+                    hift_base: int = 512, tokenizer=None, seed: int = 0, device="cuda"):
         """Random weights at the given widths: T3 as `_random_t3`; meanflow
-        S3Gen in float32."""
+        S3Gen with its frontend and the voice encoder in float32."""
         hp = hp or (T3Config.nano() if nano else T3Config.turbo())
-        s3 = S3GenEngine(s3gen_init(seed + 1, device, dims=flow_dims,
-                                    hift_base=hift_base), dims=flow_dims)
-        return cls(cls._random_t3(hp, seed, device), hp, s3, tokenizer, seed=seed,
+        s3 = S3GenEngine(s3gen_init(seed + 1, device, dims=flow_dims, hift_base=hift_base,
+                                    tok_cfg=tok_cfg), dims=flow_dims, tok_cfg=tok_cfg)
+        return cls(cls._random_t3(hp, seed, device), hp, s3,
+                   ve.ve_init(nn.Init(seed + 2, device)), tokenizer, seed=seed,
                    model_label="Nano" if nano else "Turbo")
+
+    @classmethod
+    def from_local(cls, ckpt_dir, device="cuda", nano=False) -> "ChatterboxTurboTTS":
+        """Load a reference checkpoint directory (convert/weights.py
+        `load_turbo_tts`); T3 stays float32."""
+        from ..convert.weights import load_turbo_tts
+        return load_turbo_tts(cls, Path(ckpt_dir), nano=nano, device=device)
+
+    def norm_loudness(self, wav, sr, target_lufs=-27):
+        return norm_loudness(wav, sr, target_lufs)
+
+    def prepare_conditionals(self, wav_fpath, exaggeration=0.5, norm_loudness=True):
+        """As the base, for a prompt longer than 5 s, brought to -27 LUFS
+        unless norm_loudness is False."""
+        ref_24k = load_audio(wav_fpath, S3GEN_SR)
+        assert len(ref_24k) / S3GEN_SR > 5.0, "Audio prompt must be longer than 5 seconds!"
+        if norm_loudness:
+            ref_24k = self.norm_loudness(ref_24k, S3GEN_SR)
+        self._prepare_from_wav(ref_24k, exaggeration)
 
     def generate(self, text, repetition_penalty=1.2, min_p=0.00, top_p=0.95,
                  audio_prompt_path=None, exaggeration=0.0, cfg_weight=0.0,
@@ -184,7 +240,8 @@ class ChatterboxTurboTTS(_TTSBase):
         """Synthesize `text` in the voice of `self.conds`; returns a (1, T)
         float32 waveform at 24 kHz. kv_int8 keeps the KV cache in int8,
         read by the int8 decode-attention kernel."""
-        conds = self._conds_for(audio_prompt_path, exaggeration, norm_loudness)
+        conds = self._conds_for(audio_prompt_path, exaggeration=exaggeration,
+                                norm_loudness=norm_loudness)
         if cfg_weight > 0.0 or exaggeration > 0.0 or min_p > 0.0:
             logger.warning(f"CFG, min_p and exaggeration are not supported by the "
                            f"{self.model_label} version and will be ignored.")
@@ -209,16 +266,25 @@ class ChatterboxTTS(_TTSBase):
 
     @classmethod
     def random_init(cls, hp: Optional[T3Config] = None,
-                    flow_dims: FlowDims = FlowDims(), hift_base: int = 512,
-                    tokenizer=None, seed: int = 0, device="cuda"):
+                    flow_dims: FlowDims = FlowDims(),
+                    tok_cfg: S3TokenizerConfig = S3TokenizerConfig(),
+                    hift_base: int = 512, tokenizer=None, seed: int = 0, device="cuda"):
         """Random weights at the given widths (default
         `T3Config.english_only()`): T3 as `_random_t3`; non-meanflow S3Gen
-        in float32."""
+        with its frontend and the voice encoder in float32."""
         hp = hp or T3Config.english_only()
         s3 = S3GenEngine(s3gen_init(seed + 1, device, meanflow=False, dims=flow_dims,
-                                    hift_base=hift_base),
-                         dims=flow_dims, meanflow=False)
-        return cls(cls._random_t3(hp, seed, device), hp, s3, tokenizer, seed=seed)
+                                    hift_base=hift_base, tok_cfg=tok_cfg),
+                         dims=flow_dims, meanflow=False, tok_cfg=tok_cfg)
+        return cls(cls._random_t3(hp, seed, device), hp, s3,
+                   ve.ve_init(nn.Init(seed + 2, device)), tokenizer, seed=seed)
+
+    @classmethod
+    def from_local(cls, ckpt_dir, device="cuda") -> "ChatterboxTTS":
+        """Load a reference checkpoint directory (convert/weights.py
+        `load_english_tts`); T3 stays float32."""
+        from ..convert.weights import load_english_tts
+        return load_english_tts(cls, Path(ckpt_dir), device=device)
 
     def frame_text(self, text: str) -> np.ndarray:
         """punc_norm, tokenize, then SOT/EOT framing: (1, Lt) ids."""
@@ -233,7 +299,7 @@ class ChatterboxTTS(_TTSBase):
         float32 waveform at 24 kHz. cfg_weight == 0 decodes batch 1 (the
         guidance is then the identity). kv_int8 keeps the KV cache in int8,
         read by the int8 decode-attention kernel."""
-        conds = self._conds_for(audio_prompt_path, exaggeration)
+        conds = self._conds_for(audio_prompt_path, exaggeration=exaggeration)
         if exaggeration != conds.t3.emotion_adv:
             conds.t3.emotion_adv = exaggeration
         sp = SamplerParams(temperature=temperature, top_p=top_p,

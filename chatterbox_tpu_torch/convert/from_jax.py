@@ -2,7 +2,8 @@
 into this package's trees of torch tensors.
 
 Layouts that change on the way:
-  * conv weights (K, Cin, Cout) -> torch's (Cout, Cin, K);
+  * conv weights (K, Cin, Cout) -> torch's (Cout, Cin, K), and 2-D conv
+    weights (KH, KW, Cin, Cout) -> (Cout, Cin, KH, KW);
   * transposed-conv weights, stored pre-flipped as an input-dilated conv
     (K, Cin, Cout) -> torch ConvTranspose1d's (Cin, Cout, K), un-flipped;
   * int4 leaves (`w_q4`, `w_q4c` and their `w_scale4*` scales) keep their
@@ -30,9 +31,12 @@ import torch
 from ..kernels.fused_layer import INT4_FUSED_LAYOUT
 from ..models.s3gen.flow import FlowDims
 from ..models.s3gen.model import s3gen_init
+from ..models.s3tok.model import S3TokenizerConfig
 from ..models.t3 import backbone as bb
 from ..models.t3 import model as t3m
 from ..models.t3.config import T3Config
+from ..models.ve.model import ve_init
+from ..nn import core as nn
 
 _GPT2_FUSED_MAP = {  # JAX fused operand -> (port key, transform)
     "g1_8": ("g1", "row"), "b1_8": ("b1", "row"),
@@ -88,7 +92,9 @@ def _leaf(path: tuple, a, device) -> torch.Tensor:
     a = np.asarray(a)
     if path[-1] in _INT4_LEAVES or path[-1] in _INT4_SCALES:
         return _tensor(a.T, device).T        # out-major storage
-    if path[-1] == "w" and a.ndim == 3:
+    if path[-1] == "w" and a.ndim == 4:      # 2-D conv
+        a = a.transpose(3, 2, 0, 1)
+    elif path[-1] == "w" and a.ndim == 3:
         if "ups" in path:                    # transposed conv, un-flip
             a = a[::-1].transpose(1, 2, 0)
         else:                                # conv
@@ -220,13 +226,23 @@ def t3_from_jax(tree: dict, hp: T3Config, device="cuda") -> dict:
 
 
 def s3gen_from_jax(tree: dict, dims: FlowDims = FlowDims(), hift_base: int = 512,
-                   meanflow: bool = True, device="cuda") -> dict:
-    """The S3Gen {"flow", "mel2wav"} subtrees -> the port's S3Gen tree. Other
-    subtrees (tokenizer, speaker encoder) belong to the frontend and are not
-    taken."""
-    out = _convert({"flow": tree["flow"], "mel2wav": tree["mel2wav"]}, device)
-    _check_schema(out, s3gen_init(device="meta", meanflow=meanflow, dims=dims,
-                                  hift_base=hift_base))
+                   meanflow: bool = True, tok_cfg: S3TokenizerConfig = S3TokenizerConfig(),
+                   device="cuda") -> dict:
+    """An S3Gen tree -> the port's S3Gen tree. The frontend subtrees
+    (`tokenizer`, `speaker_encoder`) are carried when the tree has them (a
+    tree of `flow` and `mel2wav` alone serves vocoding only)."""
+    out = _convert(tree, device)
+    template = s3gen_init(device="meta", meanflow=meanflow, dims=dims,
+                          hift_base=hift_base, tok_cfg=tok_cfg)
+    frontend = tuple(k for k in ("tokenizer", "speaker_encoder") if k in tree)
+    _check_schema(out, {k: template[k] for k in ("flow", "mel2wav") + frontend})
+    return out
+
+
+def ve_from_jax(tree: dict, device="cuda") -> dict:
+    """A voice-encoder tree -> the port's (the same layouts)."""
+    out = _convert(tree, device)
+    _check_schema(out, ve_init(nn.Init(0, "meta")))
     return out
 
 

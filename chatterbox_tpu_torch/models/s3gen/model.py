@@ -10,16 +10,25 @@ length, so there are no buckets; the one host read is the count of valid
 tokens (with the largest of them, checked against the flow's vocabulary).
 The output stays float32. Convolutions run with cuDNN's TF32 off, so the
 float32 S3Gen is float32 on the card too.
+
+The engine also embeds a reference voice (`embed_ref`: resample, 24 kHz
+prompt mels, the CAMPPlus x-vector and the S3 tokens of the prompt) and
+tokenizes 16 kHz audio (`tokenize`). These run at the exact length: the
+JAX package pads CAMPPlus's input to 0.5 s buckets with a mask that makes
+the result the unpadded one.
 """
 from __future__ import annotations
 
-import contextlib
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ...audio.mels import mel_spectrogram_24k
+from ...audio.resample import resample
 from ...nn import core as nn
+from ..s3tok.model import S3_SR, S3TokenizerConfig, s3tokenizer_init, s3tokenizer_tokenize
+from .campplus import campplus_embed_wav, campplus_init
 from .flow import FlowDims, TOKEN_MEL_RATIO, flow_init, flow_inference
 from .hift import SourceNoise, hift_inference, hift_init
 
@@ -30,11 +39,15 @@ SOS, EOS = 6561, 6562                # T3's start / stop speech tokens
 
 
 def s3gen_init(seed: int = 0, device="cuda", meanflow: bool = True,
-               dims: FlowDims = FlowDims(), hift_base: int = 512) -> dict:
-    """Random float32 `flow` and `mel2wav` parameters."""
+               dims: FlowDims = FlowDims(), hift_base: int = 512,
+               tok_cfg: S3TokenizerConfig = S3TokenizerConfig()) -> dict:
+    """Random float32 parameters: `flow` and `mel2wav`, then the frontend's
+    `tokenizer` (S3 tokenizer) and `speaker_encoder` (CAMPPlus)."""
     init = nn.Init(seed, device)
     return {"flow": flow_init(init, meanflow=meanflow, dims=dims),
-            "mel2wav": hift_init(init, base_channels=hift_base)}
+            "mel2wav": hift_init(init, base_channels=hift_base),
+            "tokenizer": s3tokenizer_init(init, tok_cfg),
+            "speaker_encoder": campplus_init(init)}
 
 
 class RefDict(NamedTuple):
@@ -57,16 +70,6 @@ def trim_fade(sr: int = S3GEN_SR) -> np.ndarray:
     fade = np.zeros(2 * n, np.float32)
     fade[n:] = (np.cos(np.linspace(np.pi, 0, n)) + 1) / 2
     return fade
-
-
-@contextlib.contextmanager
-def no_tf32_convs():
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
 
 
 def pack_tokens(gen_tokens: torch.Tensor, n_raw, prompt_token: torch.Tensor,
@@ -106,13 +109,16 @@ def pack_tokens(gen_tokens: torch.Tensor, n_raw, prompt_token: torch.Tensor,
 
 
 class S3GenEngine:
-    """Owns the `flow` and `mel2wav` parameters of an S3Gen: meanflow
-    (Turbo, 2 steps by default) or CFM with CFG (520M, 10 steps)."""
+    """Owns the parameters of an S3Gen: meanflow (Turbo, 2 steps by default)
+    or CFM with CFG (520M, 10 steps), and the frontend (`tokenizer`,
+    `speaker_encoder`) that embed_ref and tokenize need."""
 
-    def __init__(self, params: dict, dims: FlowDims = FlowDims(), meanflow: bool = True):
+    def __init__(self, params: dict, dims: FlowDims = FlowDims(), meanflow: bool = True,
+                 tok_cfg: S3TokenizerConfig = S3TokenizerConfig()):
         self.params = params
         self.dims = dims
         self.meanflow = meanflow
+        self.tok_cfg = tok_cfg
         self.n_timesteps = 2 if meanflow else 10
         self.device = params["flow"]["input_embedding"]["w"].device
         self._fade = torch.from_numpy(trim_fade()).to(self.device)
@@ -148,7 +154,7 @@ class S3GenEngine:
             noise = self.draw_noise(n_mel, n_gen * TOKEN_MEL_RATIO, generator)
         feat = torch.as_tensor(np.asarray(ref.prompt_feat, np.float32), device=self.device)
         emb = torch.as_tensor(np.asarray(ref.embedding, np.float32), device=self.device)
-        with no_tf32_convs():
+        with nn.no_tf32_convs():
             mels = flow_inference(self.params["flow"], token, P, feat, emb, noise.z,
                                   n_timesteps=n_timesteps or self.n_timesteps,
                                   dims=self.dims, meanflow=self.meanflow)
@@ -157,3 +163,50 @@ class S3GenEngine:
         n_fade = min(self._fade.shape[0], wav.shape[1])
         wav = torch.cat([wav[:, :n_fade] * self._fade[:n_fade], wav[:, n_fade:]], dim=1)
         return wav.float().cpu().numpy(), n_gen
+
+    @torch.no_grad()
+    def embed_ref(self, ref_wav: np.ndarray, ref_sr: int) -> RefDict:
+        """A reference voice -> RefDict: its S3 tokens, 24 kHz prompt mels
+        (two frames a token) and CAMPPlus x-vector."""
+        ref_wav = np.asarray(ref_wav, np.float32).reshape(-1)
+        if len(ref_wav) > 10 * ref_sr:
+            print("WARNING: s3gen received ref longer than 10s")
+        wav = torch.from_numpy(ref_wav).to(self.device)
+        with nn.no_tf32_convs():
+            wav24 = resample(wav, ref_sr, S3GEN_SR)
+            wav16 = resample(wav, ref_sr, S3_SR)
+            embedding = campplus_embed_wav(self.params["speaker_encoder"], wav16[None])
+            # a whole number of 40 ms tokens; the zero tail of under 40 ms
+            # stands in for the reference's mel == 2 * token repair
+            n_tok = int(np.ceil(wav16.shape[0] / (S3_SR / 25)))
+            wav16p = torch.nn.functional.pad(wav16, (0, int(n_tok * S3_SR / 25) - wav16.shape[0]))
+            n24 = n_tok * (S3GEN_SR // 25)
+            wav24p = torch.nn.functional.pad(wav24, (0, max(0, n24 - wav24.shape[0])))[:n24]
+            ref_mels = mel_spectrogram_24k(wav24p[None]).transpose(1, 2)
+            tokens, token_len = s3tokenizer_tokenize(
+                self.params["tokenizer"], self.tok_cfg, wav16p[None],
+                torch.tensor([wav16p.shape[0]], device=self.device))
+        tokens = tokens.cpu().numpy().astype(np.int32)
+        token_len = token_len.cpu().numpy().astype(np.int32)
+        ref_mels = ref_mels.cpu().numpy()
+        # mel_len == 2 * token_len
+        if ref_mels.shape[1] != 2 * tokens.shape[1]:
+            n_keep = ref_mels.shape[1] // 2
+            tokens = tokens[:, :n_keep]
+            token_len = np.minimum(token_len, n_keep)
+        return RefDict(prompt_token=tokens, prompt_token_len=token_len,
+                       prompt_feat=ref_mels, embedding=embedding.cpu().numpy())
+
+    @torch.no_grad()
+    def tokenize(self, wav_16k: np.ndarray, max_len: Optional[int] = None):
+        """16 kHz audio -> (tokens (1, n) int32, token_len (1,) int32 numpy),
+        at most max_len tokens."""
+        wav = torch.from_numpy(np.asarray(wav_16k, np.float32).reshape(-1)).to(self.device)
+        n_tok = int(np.ceil(wav.shape[0] / (S3_SR / 25)))
+        wav = torch.nn.functional.pad(wav, (0, int(n_tok * S3_SR / 25) - wav.shape[0]))
+        with nn.no_tf32_convs():
+            tokens, token_len = s3tokenizer_tokenize(
+                self.params["tokenizer"], self.tok_cfg, wav[None],
+                torch.tensor([wav.shape[0]], device=self.device), max_len)
+        token_len = token_len.cpu().numpy().astype(np.int32)
+        return tokens.cpu().numpy().astype(np.int32)[:, :int(token_len[0])], token_len

@@ -11,13 +11,16 @@ compared like with like:
     {"w_q4c" (in, out/2), "w_scale4c_lo", "w_scale4c_hi"} split by columns
     (kernels/int4_matmul.py), stored out-major underneath.
 Convolution weights are the one exception: they are carried in torch's own
-layout, (Cout, Cin, K) for a conv and (Cin, Cout, K) for a transposed conv
-(convert/from_jax.py transposes them once).
+layout, (Cout, Cin, K) for a conv, (Cin, Cout, K) for a transposed conv and
+(Cout, Cin, KH, KW) for a 2-D conv (convert/from_jax.py transposes them
+once). LSTM weights keep the JAX layout, (in, 4H), gates in torch's order
+(i, f, g, o).
 
 Parameters are nested dicts of tensors, as in the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -92,6 +95,18 @@ def rms_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (y * p["g"].float()).to(x.dtype)
 
 
+def batch_norm(p: dict, x: torch.Tensor, eps: float = 1e-5, affine: bool = True,
+               dim: int = -1) -> torch.Tensor:
+    """Inference-mode BatchNorm over the channel axis `dim` (the running
+    statistics `mean` / `var`, then `g` / `b` unless affine is False)."""
+    shape = [1] * x.dim()
+    shape[dim] = -1
+    y = (x - p["mean"].reshape(shape)) * torch.rsqrt(p["var"].reshape(shape) + eps)
+    if affine:
+        y = y * p["g"].reshape(shape) + p["b"].reshape(shape)
+    return y
+
+
 def silu(x):
     return x * torch.sigmoid(x)
 
@@ -122,6 +137,18 @@ def elu(x):
 # convolutions
 # ---------------------------------------------------------------------------
 
+@contextlib.contextmanager
+def no_tf32_convs():
+    """cuDNN (convolutions, the LSTM) without TF32 inside the block, so
+    float32 stays float32 on the card."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
 def _pads(padding):
     if isinstance(padding, int):
         return padding, padding
@@ -149,11 +176,33 @@ def causal_conv1d(p: dict, x: torch.Tensor, k: int, dilation: int = 1):
     return conv1d(p, x, padding=((k - 1) * dilation, 0), dilation=dilation)
 
 
+def conv2d_cf(p: dict, x: torch.Tensor, stride=(1, 1), padding=(0, 0)) -> torch.Tensor:
+    """Channels-first 2-D conv: x (B, C, H, W), weight (Cout, Cin, KH, KW)."""
+    return F.conv2d(x, p["w"], p.get("b"), stride=stride, padding=padding)
+
+
 def conv_transpose1d_cf(p: dict, x: torch.Tensor, stride: int,
                         padding: int = 0) -> torch.Tensor:
     """torch.nn.ConvTranspose1d: x (B, Cin, T), weight (Cin, Cout, K)."""
     return F.conv_transpose1d(x, p["w"], p.get("b"), stride=stride,
                               padding=padding)
+
+
+# ---------------------------------------------------------------------------
+# LSTM
+# ---------------------------------------------------------------------------
+
+def lstm(p: dict, x: torch.Tensor):
+    """Multi-layer LSTM over x (B, T, C) (torch.lstm: cuDNN on the card).
+    Returns (outputs (B, T, H), (h_n, c_n) each (layers, B, H))."""
+    layers = p["layers"]
+    H = layers[0]["w_hh"].shape[0]
+    weights = [w.contiguous() for lp in layers
+               for w in (lp["w_ih"].t(), lp["w_hh"].t(), lp["b_ih"], lp["b_hh"])]
+    h0 = x.new_zeros((len(layers), x.shape[0], H))
+    out, h_n, c_n = torch.lstm(x, (h0, h0), weights, True, len(layers), 0.0,
+                               False, False, True)
+    return out, (h_n, c_n)
 
 
 # ---------------------------------------------------------------------------
@@ -235,6 +284,26 @@ class Init:
         if bias:
             p["b"] = self.uniform((out_ch,), bound)
         return p
+
+    def conv2d(self, in_ch: int, out_ch: int, k: int, bias: bool = True) -> dict:
+        bound = 1.0 / math.sqrt(in_ch * k * k)
+        p = {"w": self.uniform((out_ch, in_ch, k, k), bound)}
+        if bias:
+            p["b"] = self.uniform((out_ch,), bound)
+        return p
+
+    def batch_norm(self, ch: int) -> dict:
+        return {"g": self.const((ch,), 1.0), "b": self.const((ch,), 0.0),
+                "mean": self.const((ch,), 0.0), "var": self.const((ch,), 1.0)}
+
+    def lstm(self, input_size: int, hidden: int, num_layers: int) -> dict:
+        bound = 1.0 / math.sqrt(hidden)
+        return {"layers": [{
+            "w_ih": self.uniform((input_size if i == 0 else hidden, 4 * hidden), bound),
+            "w_hh": self.uniform((hidden, 4 * hidden), bound),
+            "b_ih": self.uniform((4 * hidden,), bound),
+            "b_hh": self.uniform((4 * hidden,), bound),
+        } for i in range(num_layers)]}
 
     def conv_transpose1d(self, in_ch: int, out_ch: int, k: int,
                          bias: bool = True) -> dict:

@@ -27,13 +27,17 @@ weights quantized to int4:
     with each row's left pad as its lower bound;
   * Turbo on an int4_fused T3: B9, B10 (one pair per layer and step);
   * 520M CFG on an int4 T3: B8 (the seven linears of every layer, 2 rows).
+  * Turbo from a checkpoint directory and a prompt file: from_local, then
+    generate(text, audio_prompt_path=wav) with the frontend (resampler,
+    mels, S3 tokenizer, CAMPPlus, voice encoder) on the card; B1, B2.
 B11 (fused_mlp_int8) is on no path: nothing in the JAX package calls it
 outside its own test. Phase 3 holds it against its plain version.
 
 Phases, in order; any failure exits non-zero without the final "ok" line:
   1. device: the card's name and power limit (nvidia-smi), torch / CUDA /
-     nvcc versions; build every CUDA kernel from csrc/ (one nvcc each,
-     started together);
+     nvcc versions, whether safetensors, tokenizers and transformers
+     import; build every CUDA kernel from csrc/ (one nvcc each, started
+     together);
   2. models: both pipelines;
   3. kernels: each kernel against its plain PyTorch version on the card,
      timed (kernel, plain, library; the share of its bound) over all the
@@ -82,12 +86,25 @@ Phases, in order; any failure exits non-zero without the final "ok" line:
      profile of its decode step, a teacher-forced Turbo decode over an
      unaligned cache, and each BatchDecoder serving its batch once and
      then timed for 250 tokens with EOS ignored, with a profile of its
-     decode step.
+     decode step;
+  6. frontend: a Turbo checkpoint directory in the reference's layout
+     (t3_turbo_v1, s3gen_meanflow and ve .safetensors from random
+     full-width weights, a BPE tokenizer trained here) written to a
+     temporary directory; from_local on the card, the loaded trees equal
+     to the written ones; prepare_conditionals on a 6 s synthetic voice
+     against the same call on the cpu (embeddings and prompt mels to 1e-3,
+     at least 99 % of the S3 tokens equal), timed with its split; T3
+     quantized int8_fused; generate(text, audio_prompt_path=wav) to warm
+     up, then three requests timed as phase 5 times them with
+     prepare_conditionals inside the timed window (B1 and B2 launched
+     layers x steps times), x-realtime with and without the frontend, and
+     the device's share of one profiled request.
 The line before the last is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import importlib
 import json
 import subprocess
 import sys
@@ -111,6 +128,13 @@ def smi() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def _imports(module: str) -> str:
+    try:
+        return f"{importlib.import_module(module).__version__} imports"
+    except ImportError:
+        return "does not import"
 
 
 def nvcc_version(build) -> str:
@@ -953,9 +977,11 @@ def _s3gen_reference(meanflow, seed, label, **tail):
     from chatterbox_tpu_torch.models.s3gen.hift import SourceNoise
     from chatterbox_tpu_torch.models.s3gen.model import (RefDict, S3GenEngine, S3GenNoise,
                                                          pack_tokens, s3gen_init)
+    from chatterbox_tpu_torch.models.s3tok.model import S3TokenizerConfig
     rng = np.random.default_rng(seed)
     dims = FlowDims.tiny_test()
-    s3 = s3gen_init(seed=seed, device="cpu", meanflow=meanflow, dims=dims, hift_base=32)
+    s3 = s3gen_init(seed=seed, device="cpu", meanflow=meanflow, dims=dims, hift_base=32,
+                    tok_cfg=S3TokenizerConfig.tiny_test())
     ref_d = RefDict(rng.integers(0, 6561, (1, 20)), np.array([20]),
                     (rng.standard_normal((1, 40, 80)) * 0.5).astype(np.float32),
                     rng.standard_normal((1, 192)).astype(np.float32))
@@ -1184,7 +1210,7 @@ PHASE3_ONLY = {"fused_mlp_int8": "phase 3 only: a library kernel that nothing in
 def turbo_ids(turbo, text):
     """Turbo's text ids as its generate makes them: punc_norm, then raw
     GPT-2 ids with no SOT/EOT framing."""
-    from chatterbox_tpu_torch.text.normalize import punc_norm
+    from chatterbox_tpu_torch.text.tokenizer import punc_norm
     return turbo.tokenizer.text_to_tokens(punc_norm(text, variant="turbo"))
 
 
@@ -1364,6 +1390,514 @@ def batched_paths(turbo, cfg520) -> dict:
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the frontend, from a checkpoint directory in the reference's layout
+# ---------------------------------------------------------------------------
+# The writer is the inverse of the converters (chatterbox_tpu_torch/convert/
+# weights.py): a port parameter tree -> {reference key: float32 numpy}. The
+# tests hold it against both packages' converters, bit for bit.
+
+def _np(t):
+    return t.detach().float().cpu().numpy()
+
+
+def _lin(out, k, p):
+    out[f"{k}.weight"] = _np(p["w"]).T
+    if "b" in p:
+        out[f"{k}.bias"] = _np(p["b"])
+
+
+def _wb(out, k, p, w="w", b="b"):
+    """A leaf written as it is (GPT-2 Conv1D, conv weights, embeddings)."""
+    out[f"{k}.weight"] = _np(p[w])
+    if b in p:
+        out[f"{k}.bias"] = _np(p[b])
+
+
+def _ln(out, k, p):
+    _wb(out, k, p, w="g")
+
+
+def _bn(out, k, p):
+    out.update({f"{k}.running_mean": _np(p["mean"]), f"{k}.running_var": _np(p["var"]),
+                f"{k}.weight": _np(p["g"]), f"{k}.bias": _np(p["b"])})
+
+
+def t3_state_dict(p, hp) -> dict:
+    """A float T3 tree -> the reference's T3 state dict."""
+    out = {}
+    bbp = p["backbone"]
+    if hp.backbone.is_gpt:
+        for i, lp in enumerate(bbp["layers"]):
+            b = f"tfmr.h.{i}"
+            _ln(out, f"{b}.ln_1", lp["ln1"])
+            _wb(out, f"{b}.attn.c_attn", lp["qkv"])
+            _wb(out, f"{b}.attn.c_proj", lp["attn_out"])
+            _ln(out, f"{b}.ln_2", lp["ln2"])
+            _wb(out, f"{b}.mlp.c_fc", lp["fc_in"])
+            _wb(out, f"{b}.mlp.c_proj", lp["fc_out"])
+        _wb(out, "tfmr.wpe", bbp["wpe"])
+        _ln(out, "tfmr.ln_f", bbp["ln_f"])
+    else:
+        names = {"q": "self_attn.q_proj", "k": "self_attn.k_proj", "v": "self_attn.v_proj",
+                 "o": "self_attn.o_proj", "gate": "mlp.gate_proj", "up": "mlp.up_proj",
+                 "down": "mlp.down_proj"}
+        for i, lp in enumerate(bbp["layers"]):
+            b = f"tfmr.layers.{i}"
+            _wb(out, f"{b}.input_layernorm", lp["input_ln"], w="g")
+            _wb(out, f"{b}.post_attention_layernorm", lp["post_ln"], w="g")
+            for name, key in names.items():
+                _lin(out, f"{b}.{key}", lp[name])
+        _wb(out, "tfmr.norm", bbp["norm"], w="g")
+    for name in ("text_emb", "speech_emb"):
+        _wb(out, name, p[name])
+    for name in ("text_head", "speech_head"):
+        _lin(out, name, p[name])
+    ce = p["cond_enc"]
+    _lin(out, "cond_enc.spkr_enc", ce["spkr_enc"])
+    if "emotion_adv_fc" in ce:
+        _lin(out, "cond_enc.emotion_adv_fc", ce["emotion_adv_fc"])
+    if "perceiver" in ce:
+        pv = ce["perceiver"]
+        out["cond_enc.perceiver.pre_attention_query"] = _np(pv["query"])
+        _ln(out, "cond_enc.perceiver.attn.norm", pv["norm"])
+        for name in ("to_q", "to_k", "to_v", "proj_out"):
+            _lin(out, f"cond_enc.perceiver.attn.{name}", pv[name])
+    for name in ("text_pos_emb", "speech_pos_emb"):
+        if name in p:
+            _wb(out, f"{name}.emb", p[name])
+    return out
+
+
+def ve_state_dict(p) -> dict:
+    out = {}
+    for i, lp in enumerate(p["lstm"]["layers"]):
+        out.update({f"lstm.weight_ih_l{i}": _np(lp["w_ih"]).T,
+                    f"lstm.weight_hh_l{i}": _np(lp["w_hh"]).T,
+                    f"lstm.bias_ih_l{i}": _np(lp["b_ih"]), f"lstm.bias_hh_l{i}": _np(lp["b_hh"])})
+    _lin(out, "proj", p["proj"])
+    out["similarity_weight"] = _np(p["similarity_weight"])
+    out["similarity_bias"] = _np(p["similarity_bias"])
+    return out
+
+
+def _s3tok_state_dict(out, p, k="tokenizer"):
+    _wb(out, f"{k}.encoder.conv1", p["conv1"])
+    _wb(out, f"{k}.encoder.conv2", p["conv2"])
+    for i, blk in enumerate(p["blocks"]):
+        b = f"{k}.encoder.blocks.{i}"
+        _ln(out, f"{b}.attn_ln", blk["ln1"])
+        for name, key in (("q", "query"), ("k", "key"), ("v", "value"), ("out", "out")):
+            _lin(out, f"{b}.attn.{key}", blk[name])
+        _ln(out, f"{b}.mlp_ln", blk["ln2"])
+        _lin(out, f"{b}.mlp.0", blk["fc1"])
+        _lin(out, f"{b}.mlp.2", blk["fc2"])
+    _ln(out, f"{k}.encoder.ln_post", p["ln_post"])
+    _lin(out, f"{k}.quantizer._codebook.project_down", p["fsq_proj"])
+
+
+def _campplus_state_dict(out, p, k="speaker_encoder"):
+    from chatterbox_tpu_torch.models.s3gen.campplus import BLOCK_SPECS
+    f = p["fcm"]
+    _wb(out, f"{k}.head.conv1", f["conv1"])
+    _bn(out, f"{k}.head.bn1", f["bn1"])
+    for layer in ("layer1", "layer2"):
+        for i, r in enumerate(f[layer]):
+            b = f"{k}.head.{layer}.{i}"
+            for n in ("conv1", "conv2"):
+                _wb(out, f"{b}.{n}", r[n])
+            for n in ("bn1", "bn2"):
+                _bn(out, f"{b}.{n}", r[n])
+            if "shortcut_conv" in r:
+                _wb(out, f"{b}.shortcut.0", r["shortcut_conv"])
+                _bn(out, f"{b}.shortcut.1", r["shortcut_bn"])
+    _wb(out, f"{k}.head.conv2", f["conv2"])
+    _bn(out, f"{k}.head.bn2", f["bn2"])
+    x = f"{k}.xvector"
+    _wb(out, f"{x}.tdnn.linear", p["tdnn"]["conv"])
+    _bn(out, f"{x}.tdnn.nonlinear.batchnorm", p["tdnn"]["bn"])
+    for bi, (layers, transit) in enumerate(zip(p["blocks"], p["transits"])):
+        assert len(layers) == BLOCK_SPECS[bi][0]
+        for i, lp in enumerate(layers):
+            b = f"{x}.block{bi + 1}.tdnnd{i + 1}"
+            _bn(out, f"{b}.nonlinear1.batchnorm", lp["bn1"])
+            _wb(out, f"{b}.linear1", lp["lin1"])
+            _bn(out, f"{b}.nonlinear2.batchnorm", lp["bn2"])
+            for n, key in (("local", "linear_local"), ("lin1", "linear1"), ("lin2", "linear2")):
+                _wb(out, f"{b}.cam_layer.{key}", lp["cam"][n])
+        _bn(out, f"{x}.transit{bi + 1}.nonlinear.batchnorm", transit["bn"])
+        _wb(out, f"{x}.transit{bi + 1}.linear", transit["conv"])
+    _bn(out, f"{x}.out_nonlinear.batchnorm", p["out_bn"])
+    _wb(out, f"{x}.dense.linear", p["dense"]["conv"])
+    _bn(out, f"{x}.dense.nonlinear.batchnorm", p["dense"]["bn"])
+
+
+def _conformer_state_dict(out, b, p):
+    _ln(out, f"{b}.norm_mha", p["norm_mha"])
+    a = p["attn"]
+    for n in ("q", "k", "v", "out", "pos"):
+        _lin(out, f"{b}.self_attn.linear_{n}", a[n])
+    out[f"{b}.self_attn.pos_bias_u"] = _np(a["pos_bias_u"])
+    out[f"{b}.self_attn.pos_bias_v"] = _np(a["pos_bias_v"])
+    _ln(out, f"{b}.norm_ff", p["norm_ff"])
+    _lin(out, f"{b}.feed_forward.w_1", p["ff_in"])
+    _lin(out, f"{b}.feed_forward.w_2", p["ff_out"])
+
+
+def _flow_state_dict(out, p):
+    _wb(out, "flow.input_embedding", p["input_embedding"])
+    _lin(out, "flow.spk_embed_affine_layer", p["spk_embed_affine"])
+    _lin(out, "flow.encoder_proj", p["encoder_proj"])
+    e, k = p["encoder"], "flow.encoder"
+    for emb_name, key in (("embed", "embed"), ("up_embed", "up_embed")):
+        _lin(out, f"{k}.{key}.out.0", e[emb_name]["linear"])
+        _ln(out, f"{k}.{key}.out.1", e[emb_name]["norm"])
+    for n in ("conv1", "conv2"):
+        _wb(out, f"{k}.pre_lookahead_layer.{n}", e["pre_lookahead"][n])
+    for i, blk in enumerate(e["blocks"]):
+        _conformer_state_dict(out, f"{k}.encoders.{i}", blk)
+    _wb(out, f"{k}.up_layer.conv", e["up_conv"])
+    for i, blk in enumerate(e["up_blocks"]):
+        _conformer_state_dict(out, f"{k}.up_encoders.{i}", blk)
+    _ln(out, f"{k}.after_norm", e["after_norm"])
+    u, k = p["decoder"], "flow.decoder.estimator"
+    _lin(out, f"{k}.time_mlp.linear_1", u["time_mlp"]["lin1"])
+    _lin(out, f"{k}.time_mlp.linear_2", u["time_mlp"]["lin2"])
+    if "time_mixer" in u:
+        _lin(out, f"{k}.time_embed_mixer", u["time_mixer"])
+
+    def causal(b, c):
+        _wb(out, f"{b}.block.0", c["conv"])
+        _ln(out, f"{b}.block.2", c["norm"])
+
+    stages = ([("down_blocks.0", u["down"][0])]
+              + [(f"mid_blocks.{i}", st) for i, st in enumerate(u["mid"])]
+              + [("up_blocks.0", u["up"][0])])
+    for name, st in stages:
+        b = f"{k}.{name}"
+        r = st["resnet"]
+        _lin(out, f"{b}.0.mlp.1", r["mlp"])
+        causal(f"{b}.0.block1", r["block1"])
+        causal(f"{b}.0.block2", r["block2"])
+        _wb(out, f"{b}.0.res_conv", r["res_conv"])
+        for j, t in enumerate(st["tfmr"]):
+            tb = f"{b}.1.{j}"
+            _ln(out, f"{tb}.norm1", t["norm1"])
+            for n in ("to_q", "to_k", "to_v"):
+                _lin(out, f"{tb}.attn1.{n}", t[n])
+            _lin(out, f"{tb}.attn1.to_out.0", t["to_out"])
+            _ln(out, f"{tb}.norm3", t["norm3"])
+            _lin(out, f"{tb}.ff.net.0.proj", t["ff_in"])
+            _lin(out, f"{tb}.ff.net.2", t["ff_out"])
+        if "updown" in st:
+            _wb(out, f"{b}.2", st["updown"])
+    causal(f"{k}.final_block", u["final_block"])
+    _wb(out, f"{k}.final_proj", u["final_proj"])
+
+
+def _hift_state_dict(out, p, k="mel2wav"):
+    f0 = p["f0_predictor"]
+    for i, c in zip((0, 2, 4, 6, 8), f0["convs"]):
+        _wb(out, f"{k}.f0_predictor.condnet.{i}", c)
+    _lin(out, f"{k}.f0_predictor.classifier", f0["classifier"])
+    _lin(out, f"{k}.m_source.l_linear", p["m_source_linear"])
+    _wb(out, f"{k}.conv_pre", p["conv_pre"])
+    _wb(out, f"{k}.conv_post", p["conv_post"])
+    for name in ("ups", "source_downs"):
+        for i, c in enumerate(p[name]):
+            _wb(out, f"{k}.{name}.{i}", c)
+    for name in ("source_resblocks", "resblocks"):
+        for i, r in enumerate(p[name]):
+            b = f"{k}.{name}.{i}"
+            for j in range(len(r["convs1"])):
+                _wb(out, f"{b}.convs1.{j}", r["convs1"][j])
+                _wb(out, f"{b}.convs2.{j}", r["convs2"][j])
+                out[f"{b}.activations1.{j}.alpha"] = _np(r["alpha1"][j])
+                out[f"{b}.activations2.{j}.alpha"] = _np(r["alpha2"][j])
+
+
+def s3gen_state_dict(p) -> dict:
+    """An S3Gen tree with its frontend -> the reference's s3gen state dict."""
+    out = {}
+    _s3tok_state_dict(out, p["tokenizer"])
+    _campplus_state_dict(out, p["speaker_encoder"])
+    _flow_state_dict(out, p["flow"])
+    _hift_state_dict(out, p["mel2wav"])
+    return out
+
+
+def write_turbo_tokenizer(d, vocab_size: int, corpus):
+    """A BPE `tokenizer.json` trained on `corpus` (the `tokenizers`
+    package), with the tokenizer_config.json transformers' AutoTokenizer
+    reads it by: the GPT-2 tokenizer files of a Turbo checkpoint."""
+    from tokenizers import Tokenizer, models, pre_tokenizers, trainers
+    t = Tokenizer(models.BPE(unk_token="[UNK]"))
+    t.pre_tokenizer = pre_tokenizers.Whitespace()
+    t.train_from_iterator(corpus, trainers.BpeTrainer(
+        vocab_size=vocab_size, special_tokens=["<|endoftext|>", "[UNK]"]))
+    t.save(str(d / "tokenizer.json"))
+    (d / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "PreTrainedTokenizerFast", "eos_token": "<|endoftext|>",
+        "unk_token": "[UNK]"}))
+
+
+def write_checkpoint(d, t3_file: str, s3gen_file: str, t3_params, hp, s3gen_params,
+                     ve_params):
+    """t3_file, s3gen_file and ve.safetensors in the reference's layout,
+    written by the port's own .safetensors writer."""
+    from chatterbox_tpu_torch.convert.native_ckpt import save_safetensors
+    save_safetensors(t3_state_dict(t3_params, hp), d / t3_file)
+    save_safetensors(s3gen_state_dict(s3gen_params), d / s3gen_file)
+    save_safetensors(ve_state_dict(ve_params), d / "ve.safetensors")
+
+
+def synthetic_voice(seconds: float, sr: int, seed: int = 0, f0: float = 140.0):
+    """A voice-like test signal from a seed: eight harmonics of a wavering
+    f0 under a slow envelope, plus noise."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    phase = 2 * np.pi * np.cumsum(f0 * (1 + 0.05 * np.sin(2 * np.pi * 3 * t))) / sr
+    wav = sum(0.3 / h * np.sin(h * phase + rng.uniform(0, 2 * np.pi)) for h in range(1, 9))
+    wav = wav * (0.6 + 0.4 * np.sin(2 * np.pi * 0.7 * t) ** 2)
+    return (wav + 0.01 * rng.standard_normal(len(t))).astype(np.float32)
+
+
+def seeded_batch_stats(tree, seed: int):
+    """The tree with every batch norm ({g, b, mean, var}) given seeded
+    statistics (numpy leaves stay numpy, tensors stay on their device), so
+    CAMPPlus's x-vector is of order 1 rather than its init's 1e-4."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+
+    def like(a, leaf):
+        a = a.astype(np.float32)
+        return torch.from_numpy(a).to(leaf.device) if torch.is_tensor(leaf) else a
+
+    def f(node):
+        if isinstance(node, dict):
+            if set(node) == {"g", "b", "mean", "var"}:
+                n = tuple(node["g"].shape)
+                return {"g": like(rng.uniform(0.5, 1.5, n), node["g"]),
+                        "b": like(0.1 * rng.standard_normal(n), node["b"]),
+                        "mean": like(0.1 * rng.standard_normal(n), node["mean"]),
+                        "var": like(rng.uniform(0.5, 1.5, n), node["var"])}
+            return {k: f(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [f(v) for v in node]
+        return node
+    return f(tree)
+
+
+def _equal_trees(a, b, where: str) -> int:
+    """Assert two trees equal leaf for leaf (type, shape, bits); the count
+    of leaves."""
+    import torch
+    if isinstance(b, dict):
+        if set(a) != set(b):
+            raise AssertionError(f"{where}: keys {sorted(a)} against {sorted(b)}")
+        return sum(_equal_trees(a[k], b[k], f"{where}/{k}") for k in b)
+    if isinstance(b, list):
+        if len(a) != len(b):
+            raise AssertionError(f"{where}: {len(a)} entries against {len(b)}")
+        return sum(_equal_trees(x, y, f"{where}/{i}") for i, (x, y) in enumerate(zip(a, b)))
+    if not (a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)):
+        raise AssertionError(f"{where}: the loaded leaf differs from the written one")
+    return 1
+
+
+def _best_ms(fn, reps: int = 3) -> float:
+    """Best wall ms of fn() over reps calls, synced (after one warm-up)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best * 1e3
+
+
+def _compare_conds(out, ref) -> None:
+    """The card's Conditionals against the CPU path's: embeddings and
+    prompt mels to 1e-3, at least 99 % of the S3 tokens equal."""
+    import numpy as np
+    for label, a, b in (("voice-encoder embedding", out.t3.speaker_emb, ref.t3.speaker_emb),
+                        ("CAMPPlus x-vector", out.gen.embedding, ref.gen.embedding),
+                        ("prompt mels", out.gen.prompt_feat, ref.gen.prompt_feat)):
+        err = float(np.abs(a - b).max()) if a.shape == b.shape else float("inf")
+        log(f"frontend {label}: card vs cpu max abs err {err:.3e} (scale "
+            f"{np.abs(b).max():.3f}, tolerance 1e-3)")
+        if not (np.isfinite(a).all() and err <= 1e-3):
+            raise AssertionError(f"frontend {label} on the card disagrees with the CPU path")
+    for label, a, b in (("S3Gen prompt", out.gen.prompt_token, ref.gen.prompt_token),
+                        ("T3 prompt", out.t3.cond_prompt_speech_tokens,
+                         ref.t3.cond_prompt_speech_tokens)):
+        same = int((a == b).sum()) if a.shape == b.shape else 0
+        log(f"frontend {label} S3 tokens: {same} of {b.size} equal on the card and the cpu")
+        if same < 0.99 * b.size:
+            raise AssertionError(f"frontend {label} tokens: only {same} of {b.size} equal")
+
+
+def frontend_path() -> dict:
+    """Phase 6: a Turbo checkpoint directory in the reference's layout,
+    written from random full-width weights (GPT-2-medium T3, the full S3
+    tokenizer, CAMPPlus with seeded batch statistics, flow, HiFT base 512,
+    the voice encoder) with a BPE trained here, loaded by from_local on the
+    card (and on the cpu), the loaded trees held against the written ones;
+    prepare_conditionals on a 6 s synthetic voice held against the cpu
+    path and timed, with its split; T3 quantized int8_fused; a warm-up
+    generate(text, audio_prompt_path=wav), then three requests timed as
+    phase 5 times them with prepare_conditionals inside the timed window.
+    Returns the launch counts of the timed requests."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    from chatterbox_tpu_torch import ChatterboxTurboTTS
+    from chatterbox_tpu_torch.audio.mels import mel_spectrogram_24k
+    from chatterbox_tpu_torch.audio.resample import resample
+    from chatterbox_tpu_torch.models.s3gen.campplus import campplus_embed_wav
+    from chatterbox_tpu_torch.models.s3gen.model import s3gen_init
+    from chatterbox_tpu_torch.models.s3tok.model import s3tokenizer_tokenize
+    from chatterbox_tpu_torch.models.t3 import model as t3m
+    from chatterbox_tpu_torch.models.t3.config import T3Config
+    from chatterbox_tpu_torch.models.ve import model as ve
+    from chatterbox_tpu_torch.nn import core as nn
+    from chatterbox_tpu_torch.ops.sampling import SamplerParams
+    from chatterbox_tpu_torch.sampling.decode import t3_generate
+    from chatterbox_tpu_torch.utils.audio_io import load_audio, save_wav
+    from chatterbox_tpu_torch.utils.loudness import norm_loudness
+    from chatterbox_tpu_torch.utils.quantize import (best_serving_mode, cast_params,
+                                                     quantize_t3_backbone)
+    hp = T3Config.turbo()
+    t3 = t3m.t3_init(hp, seed=20, device="cuda")
+    s3 = s3gen_init(21, "cuda", meanflow=True)
+    s3["speaker_encoder"] = seeded_batch_stats(s3["speaker_encoder"], 22)
+    vep = ve.ve_init(nn.Init(23, "cuda"))
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        t0 = time.perf_counter()
+        write_checkpoint(d, "t3_turbo_v1.safetensors", "s3gen_meanflow.safetensors", t3, hp, s3,
+                         vep)
+        write_turbo_tokenizer(d, 500, [PHASE5_TEXT * 4, "the river bank is near"])
+        wav_path = d / "prompt.wav"
+        save_wav(wav_path, 0.5 * synthetic_voice(6.0, 24000, seed=24), 24000)
+        files = sorted(f.name for f in d.iterdir())
+        mib = sum(f.stat().st_size for f in d.iterdir()) / 2**20
+        log(f"frontend: wrote {files} ({mib:.1f} MiB) in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        tts = ChatterboxTurboTTS.from_local(d)
+        torch.cuda.synchronize()
+        log(f"frontend: from_local on {tts.device} in {time.perf_counter() - t0:.1f} s "
+            f"(tokenizer {type(tts.tokenizer).__name__})")
+        n = (_equal_trees(tts.t3_params, t3, "t3") + _equal_trees(tts.s3gen.params, s3, "s3gen")
+             + _equal_trees(tts.ve_params, vep, "ve"))
+        log(f"frontend: the {n} loaded leaves equal the written ones")
+        del t3, s3, vep
+        t0 = time.perf_counter()
+        cpu = ChatterboxTurboTTS.from_local(d, device="cpu")
+        cpu.prepare_conditionals(str(wav_path))
+        log(f"frontend: from_local and prepare_conditionals on the cpu in "
+            f"{time.perf_counter() - t0:.1f} s")
+        ms = _best_ms(lambda: tts.prepare_conditionals(str(wav_path)))
+        _compare_conds(tts.conds, cpu.conds)
+        del cpu
+
+        # the split of prepare_conditionals, each part on the card as it calls it
+        ref_24k = np.asarray(norm_loudness(load_audio(wav_path, 24000), 24000), np.float32)
+        dev = tts.s3gen.device
+        params, cfg = tts.s3gen.params, tts.s3gen.tok_cfg
+        w24 = torch.from_numpy(ref_24k).to(dev)
+        w16 = resample(w24, 24000, 16000)
+        n16 = 640 * -(-w16.shape[0] // 640)
+        w16p = torch.nn.functional.pad(w16, (0, n16 - w16.shape[0]))
+        w24p = torch.nn.functional.pad(w24, (0, max(0, n16 * 3 // 2 - w24.shape[0])))
+        n_len = torch.tensor([n16], device=dev)
+        ref_16k = w16.cpu().numpy()
+        with torch.no_grad(), nn.no_tf32_convs():
+            split = {
+                "load + loudness (host)": _best_ms(
+                    lambda: norm_loudness(load_audio(wav_path, 24000), 24000)),
+                "resample x2": _best_ms(
+                    lambda: (resample(w24, 24000, 16000), resample(w24, 24000, 16000))),
+                "mel 24k": _best_ms(lambda: mel_spectrogram_24k(w24p[None])),
+                "CAMPPlus": _best_ms(lambda: campplus_embed_wav(params["speaker_encoder"],
+                                                                w16[None])),
+                "S3 tokenizer x2": _best_ms(lambda: (
+                    s3tokenizer_tokenize(params["tokenizer"], cfg, w16p[None], n_len),
+                    s3tokenizer_tokenize(params["tokenizer"], cfg, w16p[None], n_len,
+                                         hp.speech_cond_prompt_len))),
+                "voice encoder": _best_ms(lambda: ve.embeds_from_wavs(
+                    tts.ve_params, [ref_16k], sample_rate=16000)),
+            }
+        log(f"frontend: prepare_conditionals of a 6 s prompt on the card {ms:.2f} ms (best of "
+            f"3); parts (best of 3 each, synced): "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
+            + f"; sum {sum(split.values()):.2f} ms")
+
+        # T3 served as bench.py serves it, then requests from the prompt file
+        t0 = time.perf_counter()
+        tts.t3_params = quantize_t3_backbone(cast_params(tts.t3_params, torch.bfloat16),
+                                             mode=best_serving_mode(hp.backbone))
+        gen_kw = dict(top_k=1000, temperature=0.8, top_p=0.95, repetition_penalty=1.2)
+        wav = tts.generate(PHASE5_TEXT, audio_prompt_path=str(wav_path),
+                           max_new_tokens=WARMUP_TOKENS, **gen_kw)
+        if not (wav.ndim == 2 and np.isfinite(wav).all()):
+            raise AssertionError(f"frontend: generate from the prompt gave {wav.shape}")
+        ids = torch.as_tensor(turbo_ids(tts, PHASE5_TEXT), device="cuda").long()
+        sp = SamplerParams(0.8, 0.95, 1.2)
+
+        def request():
+            t0 = time.perf_counter()
+            tts.prepare_conditionals(str(wav_path))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            res = t3_generate(tts.t3_params, hp, tts.conds.t3.as_tensors("cuda"), ids, sp,
+                              max_new_tokens=N_TOKENS, top_k=1000, ignore_eos=True,
+                              generator=tts.generator)
+            wav, n_voc = tts.s3gen.inference_from_decode(
+                res.tokens, res.n_tokens, tts.conds.gen, generator=tts.generator, append_sil=3)
+            t2 = time.perf_counter()
+            if (n_voc != vocoded_tokens(res, False) or wav.shape != (1, n_voc * 960)
+                    or not np.isfinite(wav).all()):
+                raise AssertionError(f"frontend request: waveform {wav.shape}, {n_voc} tokens")
+            return t2 - t0, t2 - t1, n_voc, res.n_forward
+
+        log(f"frontend: T3 quantized and a warm-up generate from the prompt file in "
+            f"{time.perf_counter() - t0:.1f} s")
+        reset_counts()
+        runs = [request() for _ in range(3)]
+        counts = read_counts()
+        L, forwards = hp.backbone.num_layers, sum(r[3] for r in runs)
+        check_counts(counts, f"Turbo from a prompt file, {L} layers x {forwards} decode steps",
+                     {k: L * forwards for k in GPT2})
+        full, bare = min(r[0] for r in runs), min(r[1] for r in runs)
+        audio_s = runs[0][2] / 25.0
+        log(f"Turbo request from a prompt file (prepare_conditionals + t3_generate + "
+            f"inference_from_decode): {[round(r[0], 4) for r in runs]} s for {audio_s:.2f} s of "
+            f"audio -> x-realtime {audio_s / full:.3f} with the frontend, {audio_s / bare:.3f} "
+            f"without it (best of 3)")
+
+        from torch.profiler import ProfilerActivity, profile
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            request()
+            torch.cuda.synchronize()
+        dev_us = sum(e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+        log(f"frontend: profiled request and its analysis {time.perf_counter() - t0:.1f} s")
+        log(f"Turbo request from a prompt file: {dev_us / 1e3:.1f} ms of device time "
+            f"(profiled run) against {full * 1e3:.1f} ms of wall (best unprofiled) -> device "
+            f"busy {100 * dev_us / 1e3 / (full * 1e3):.1f} % of a whole request")
+    return counts
+
+
 def int4_pipeline(tts, mode: str, seed: int):
     """The pipeline `tts` with its T3 weights drawn again from `seed` (as
     random_init draws them), cast to bf16 and quantized in `mode`; the S3Gen
@@ -1373,7 +1907,8 @@ def int4_pipeline(tts, mode: str, seed: int):
     from chatterbox_tpu_torch.utils.quantize import cast_params, quantize_t3_backbone
     params = quantize_t3_backbone(
         cast_params(t3m.t3_init(tts.hp, seed=seed, device="cuda"), torch.bfloat16), mode=mode)
-    return type(tts)(params, tts.hp, tts.s3gen, tts.tokenizer, tts.conds, seed=seed)
+    return type(tts)(params, tts.hp, tts.s3gen, tts.ve_params, tts.tokenizer, tts.conds,
+                     seed=seed)
 
 
 def main(argv) -> int:
@@ -1412,6 +1947,8 @@ def main(argv) -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {nvcc_version(build)}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    log("packages: " + ", ".join(f"{m} {_imports(m)}"
+                                 for m in ("safetensors", "tokenizers", "transformers")))
     t0 = time.perf_counter()
     built = build.build_all(force=True)
     log(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
@@ -1453,6 +1990,12 @@ def main(argv) -> int:
         for k, v in part.items():
             launches[k] = launches.get(k, 0) + v
     log(f"phase 5 (main paths) {time.perf_counter() - t0:.1f} s")
+    del turbo4, cfg4
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for k, v in frontend_path().items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"phase 6 (frontend) {time.perf_counter() - t0:.1f} s")
     for r in rows:
         r["launches"] = launches[r["name"]]
         if r["name"] in PHASE3_ONLY:

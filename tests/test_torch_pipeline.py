@@ -3,7 +3,7 @@ ChatterboxTurboTTS (a 2-layer GPT2_FUSED_TEST T3 quantized int8_fused, a
 tiny meanflow S3Gen) and ChatterboxTTS (a 2-layer Llama_fused_test T3 with
 perceiver, emotion input and learned positions, quantized int8_fused, a tiny
 10-step CFG S3Gen), synthetic Conditionals, greedy decode. Also the conds.pt
-interchange, the frontend guard, and the rule that the port never imports
+interchange, the prompt checks, and the rule that the port never imports
 JAX or the JAX package."""
 import ast
 import inspect
@@ -81,7 +81,7 @@ def _pipelines(mode="int8_fused", head_spread=0.0):
         T3Config(**HP_KW),
         S3GenEngine(s3gen_from_jax(jax.tree.map(np.asarray, sp), dims=dims,
                                    hift_base=32, device="cpu"), dims=dims),
-        _Tok(), tconds, seed=7)
+        None, _Tok(), tconds, seed=7)
     return jtts, tts
 
 
@@ -139,7 +139,7 @@ def _cfg_pipelines():
         S3GenEngine(s3gen_from_jax(jax.tree.map(np.asarray, sp), dims=dims, hift_base=32,
                                    meanflow=False, device="cpu"),
                     dims=dims, meanflow=False),
-        _Tok(), port.Conditionals(port.T3CondHost(*t3, 0.5), port.RefDict(*gen)), seed=7)
+        None, _Tok(), port.Conditionals(port.T3CondHost(*t3, 0.5), port.RefDict(*gen)), seed=7)
     return jtts, tts
 
 
@@ -174,8 +174,9 @@ def test_cfg_weight_zero_decodes_batch_1():
     kw = dict(min_p=1.0, max_new_tokens=4)
     tts.generate("hi", cfg_weight=0.0, **kw)
     assert tts.last_decode.n_forward == 3
-    with pytest.raises(NotImplementedError, match="frontend"):
-        tts.generate("hi", audio_prompt_path="ref.wav", **kw)
+    # a prompt path is read now (the frontend is ported): a missing file raises
+    with pytest.raises(FileNotFoundError):
+        tts.generate("hi", audio_prompt_path="no-such-ref.wav", **kw)
 
 
 def test_conds_pt_from_jax_loads_in_port(tmp_path):
@@ -206,10 +207,16 @@ def test_generate_takes_only_the_jax_pipelines_knobs(port_cls, jax_cls):
         port_cls.generate(None, "hi", ignore_eos=True)
 
 
-def test_audio_prompt_path_raises_until_frontend_is_ported():
+def test_audio_prompt_path_raises_until_frontend_is_ported(tmp_path):
+    """The frontend is ported: a prompt path reaches Turbo's
+    prepare_conditionals, which refuses a prompt of 5 s or less as the JAX
+    pipeline does (tests/test_torch_load.py runs whole prompts)."""
+    from chatterbox_tpu_torch.utils.audio_io import save_wav
     _, tts = _pipelines()
-    with pytest.raises(NotImplementedError, match="frontend"):
-        tts.generate("hi", audio_prompt_path="ref.wav", max_new_tokens=2)
+    wav = tmp_path / "short.wav"
+    save_wav(wav, np.zeros(3 * 24000, np.float32), 24000)
+    with pytest.raises(AssertionError, match="longer than 5 seconds"):
+        tts.generate("hi", audio_prompt_path=str(wav), max_new_tokens=2)
 
 
 def _imports(path: pathlib.Path):
@@ -225,6 +232,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "chatterbox_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
+    # the checkpoint loaders and the conditioning frontend are walked too
+    walked = {f.relative_to(REPO).as_posix() for f in files}
+    assert {f"chatterbox_tpu_torch/{m}.py" for m in (
+        "audio/filters", "audio/mels", "audio/resample", "audio/stft",
+        "convert/native_ckpt", "convert/weights", "models/s3gen/campplus",
+        "models/s3tok/model", "models/ve/model", "text/tokenizer", "utils/audio_io",
+        "utils/loudness")} <= walked
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
