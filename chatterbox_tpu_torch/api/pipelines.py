@@ -5,7 +5,13 @@ chatterbox_tpu/api/pipelines.py).
   * ChatterboxTurboTTS: GPT-2 T3, batch-1 decode, 2-step meanflow S3Gen;
   * ChatterboxTTS: the original 520M model, llama T3 with perceiver,
     emotion input and learned positions, batch-2 CFG decode, 10-step CFG
-    S3Gen.
+    S3Gen;
+  * ChatterboxVC: voice conversion, source wav -> S3 tokens -> the 520M
+    family's 10-step CFG S3Gen in a target voice.
+
+Both TTS pipelines also stream (`generate_stream`): the T3 decodes in
+chunks (sampling/chunked.py) and each chunk is vocoded as it lands
+(serve/streaming.py), so the first audio comes after one chunk.
 
 `from_local(ckpt_dir)` loads the reference's checkpoint directory
 (convert/weights.py); `random_init` draws random weights at given widths.
@@ -26,14 +32,17 @@ import torch
 
 from ..audio.resample import resample
 from ..models.s3gen.flow import FlowDims
-from ..models.s3gen.model import S3_SR, S3GEN_SR, RefDict, S3GenEngine, s3gen_init
+from ..models.s3gen.model import (S3_SR, S3GEN_SR, SIL_TOKEN, SPEECH_VOCAB_SIZE, RefDict,
+                                  S3GenEngine, s3gen_init)
 from ..models.s3tok.model import S3TokenizerConfig
 from ..models.t3 import model as t3m
 from ..models.t3.config import T3Config
 from ..models.ve import model as ve
 from ..nn import core as nn
 from ..ops.sampling import SamplerParams
+from ..sampling.chunked import t3_decode_chunk, t3_prefill_decode
 from ..sampling.decode import t3_generate
+from ..serve.streaming import StreamingVocoder
 from ..text.tokenizer import punc_norm
 from ..utils.audio_io import load_audio
 from ..utils.loudness import norm_loudness
@@ -188,6 +197,63 @@ class _TTSBase:
             res.tokens, res.n_tokens, self.conds.gen, generator=self.generator, **tail)
         return self.watermarker.apply_watermark(wav[0], sample_rate=self.sr)[None]
 
+    def _stream(self, ids: np.ndarray, sp: SamplerParams, *, cfg_mode: bool,
+                max_new_tokens: int, chunk_tokens: int, top_k: int = 0,
+                trim_tail_samples: int = 0):
+        """The streaming loop of both families (the JAX package's
+        `_stream_cfg`, and its Turbo loop at cfg_mode=False): prefill and
+        the first chunk in one call, then chunks of chunk_tokens fed to the
+        streaming vocoder straight from the device, one read of a chunk's
+        tokens, count and `done` a chunk. A chunk stops at the token budget.
+
+        The stream ends at the first EOS. Ids >= 6561 are dropped; a stray
+        start token mid-stream cannot take back audio already streamed, so
+        the CFG family's SOS..EOS slice is the first-EOS cut. At the end the
+        Turbo tail appends 3 silence tokens; the CFG tail appends none, and
+        an empty stream vocodes one silence token, as `generate` does.
+        trim_tail_samples: samples held back and dropped from the stream's
+        end (0 streams everything). Yields watermarked float32 chunks, the
+        watermark continued across chunks (offset=)."""
+        state, toks, n_new = t3_prefill_decode(
+            self.t3_params, self.hp, self.conds.t3.as_tensors(self.device),
+            torch.as_tensor(ids, dtype=torch.long, device=self.device), sp,
+            generator=self.generator, max_new_tokens=max_new_tokens,
+            n_steps=min(chunk_tokens, max_new_tokens), top_k=top_k, cfg_mode=cfg_mode)
+        self.last_decode = state
+        voc = StreamingVocoder(self.s3gen, self.conds.gen, self.generator)
+        total = n_valid = emitted = 0
+        held = np.zeros((0,), np.float32)      # the tail trim's delay
+        while True:
+            chunk, nv, (n, st_done) = voc.feed_from_decode(
+                toks, n_new, vocab=SPEECH_VOCAB_SIZE, extra_fetch=(n_new, state.done))
+            n_valid += nv
+            total += n
+            done = bool(st_done) or total >= max_new_tokens or n == 0
+            if done:
+                if cfg_mode:
+                    tail = voc.feed(np.zeros(0, np.int32) if n_valid
+                                    else np.full(1, SIL_TOKEN, np.int32), final=True)
+                else:
+                    tail, _, _ = voc.feed_from_decode(
+                        toks[:1], 0, vocab=SPEECH_VOCAB_SIZE, final=True, append_sil=3)
+                chunk = np.concatenate([chunk, tail])
+            held = np.concatenate([held, chunk])
+            # a stream of at most one valid token is not trimmed (the
+            # non-streamed multilingual tail keeps max(1, n - 1) tokens)
+            trim = trim_tail_samples if (not done or n_valid >= 2) else 0
+            if len(held) > trim:
+                out, held = held[:len(held) - trim], held[len(held) - trim:]
+                yield self.watermarker.apply_watermark(out, sample_rate=self.sr,
+                                                       offset=emitted)
+                emitted += len(out)
+            if done:
+                return
+            state, toks, n_new = t3_decode_chunk(
+                self.t3_params, self.hp, state, sp,
+                n_steps=min(chunk_tokens, max_new_tokens - total), top_k=top_k,
+                cfg_mode=cfg_mode)
+            self.last_decode = state
+
 
 class ChatterboxTurboTTS(_TTSBase):
     """Turbo/Nano GPT-2 pipeline."""
@@ -258,6 +324,22 @@ class ChatterboxTurboTTS(_TTSBase):
         # drop >= vocab, then three silence tokens (the reference Turbo tail)
         return self._vocode(res, append_sil=3)
 
+    def generate_stream(self, text, audio_prompt_path=None, temperature=0.8,
+                        top_k=1000, top_p=0.95, repetition_penalty=1.2,
+                        norm_loudness=True, max_new_tokens=1000, chunk_tokens=25):
+        """Stream `text` in the voice of `self.conds`: yields (T,) float32
+        chunks at 24 kHz as tokens decode, chunk_tokens at a time (the
+        first audio after prefill, one chunk and its vocode). Each feed
+        reruns the flow over the whole stream so far; for narration use
+        serve.streaming.synthesize_long_form."""
+        self._conds_for(audio_prompt_path, norm_loudness=norm_loudness)
+        text = punc_norm(text, variant="turbo")
+        ids = np.asarray(self.tokenizer.text_to_tokens(text)).reshape(1, -1)
+        sp = SamplerParams(temperature=temperature, top_p=top_p,
+                           repetition_penalty=repetition_penalty)
+        yield from self._stream(ids, sp, cfg_mode=False, max_new_tokens=max_new_tokens,
+                                chunk_tokens=chunk_tokens, top_k=top_k)
+
 
 class ChatterboxTTS(_TTSBase):
     """The original English 520M pipeline: llama T3 with classifier-free
@@ -313,3 +395,73 @@ class ChatterboxTTS(_TTSBase):
             fused_attn=kv_int8)
         # slice SOS..EOS, drop >= vocab, empty -> one silence token
         return self._vocode(res, cfg_slice=True)
+
+    def generate_stream(self, text, audio_prompt_path=None, exaggeration=0.5,
+                        cfg_weight=0.5, temperature=0.8, repetition_penalty=1.2,
+                        min_p=0.05, top_p=1.0, max_new_tokens=1000, chunk_tokens=25):
+        """Stream `text` in the voice of `self.conds`: yields (T,) float32
+        chunks at 24 kHz as tokens decode (the batch-2 CFG decode at every
+        cfg_weight), the stream cut at its first EOS (see `_stream`)."""
+        conds = self._conds_for(audio_prompt_path, exaggeration=exaggeration)
+        if exaggeration != conds.t3.emotion_adv:
+            conds.t3.emotion_adv = exaggeration
+        sp = SamplerParams(temperature=temperature, top_p=top_p,
+                           repetition_penalty=repetition_penalty, min_p=min_p,
+                           cfg_weight=cfg_weight)
+        yield from self._stream(self.frame_text(text), sp, cfg_mode=True,
+                                max_new_tokens=max_new_tokens, chunk_tokens=chunk_tokens)
+
+
+class ChatterboxVC:
+    """Voice conversion: the S3 tokens of a source wav vocoded in a target
+    voice by the 520M family's S3Gen (10-step CFM with CFG)."""
+
+    def __init__(self, s3gen: S3GenEngine, ref_dict: Optional[RefDict] = None,
+                 seed: int = 0):
+        self.sr = S3GEN_SR
+        self.s3gen = s3gen
+        self.ref_dict = ref_dict
+        self.device = s3gen.device
+        self.watermarker = Watermarker()
+        self.set_seed(seed)
+
+    def set_seed(self, seed: int):
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+    @classmethod
+    def random_init(cls, flow_dims: FlowDims = FlowDims(),
+                    tok_cfg: S3TokenizerConfig = S3TokenizerConfig(),
+                    hift_base: int = 512, seed: int = 0, device="cuda") -> "ChatterboxVC":
+        """Random float32 weights at the given widths: a CFM S3Gen with its
+        frontend."""
+        s3 = S3GenEngine(s3gen_init(seed, device, meanflow=False, dims=flow_dims,
+                                    hift_base=hift_base, tok_cfg=tok_cfg),
+                         dims=flow_dims, meanflow=False, tok_cfg=tok_cfg)
+        return cls(s3, seed=seed)
+
+    @classmethod
+    def from_local(cls, ckpt_dir, device="cuda") -> "ChatterboxVC":
+        """Load s3gen.safetensors and, when present, conds.pt's voice
+        (convert/weights.py `load_vc`)."""
+        from ..convert.weights import load_vc
+        return load_vc(cls, Path(ckpt_dir), device=device)
+
+    def set_target_voice(self, wav_fpath):
+        """The target voice from the first 10 s of a WAV file."""
+        ref = load_audio(wav_fpath, S3GEN_SR)
+        self.ref_dict = self.s3gen.embed_ref(ref[: 10 * S3GEN_SR], S3GEN_SR)
+
+    def generate(self, audio, target_voice_path=None) -> np.ndarray:
+        """Convert `audio` (a path, or 16 kHz samples) to the target voice;
+        returns a (1, T) float32 waveform at 24 kHz."""
+        if target_voice_path:
+            self.set_target_voice(target_voice_path)
+        elif self.ref_dict is None:
+            raise ValueError("call `set_target_voice` or pass `target_voice_path` first")
+        if isinstance(audio, (str, Path)):
+            audio_16 = load_audio(audio, S3_SR)
+        else:
+            audio_16 = np.asarray(audio, np.float32).reshape(-1)
+        tokens, _ = self.s3gen.tokenize(audio_16)
+        wav = self.s3gen.inference(tokens, self.ref_dict, generator=self.generator)[0]
+        return self.watermarker.apply_watermark(wav, sample_rate=self.sr)[None]

@@ -593,3 +593,15 @@ def load_turbo_tts(cls, ckpt_dir: Path, nano: bool = False, device="cuda"):
         conds = Conditionals.load(ckpt_dir / "conds.pt")
     return cls(t3_params, hp, engine, ve_params, HFTokenizer(ckpt_dir), conds,
                model_label="Nano" if nano else "Turbo")
+
+
+def load_vc(cls, ckpt_dir: Path, device="cuda"):
+    """Voice conversion from s3gen.safetensors (the 520M family's: 10-step
+    CFM with CFG) and, when present, conds.pt's S3Gen voice."""
+    from ..api.pipelines import Conditionals
+    engine = s3m.S3GenEngine(convert_s3gen(load_safetensors(ckpt_dir / "s3gen.safetensors"),
+                                           device=device), meanflow=False)
+    ref_dict = None
+    if (ckpt_dir / "conds.pt").exists():
+        ref_dict = Conditionals.load(ckpt_dir / "conds.pt").gen
+    return cls(engine, ref_dict=ref_dict)

@@ -105,14 +105,21 @@ def f0_predictor_apply(p: dict, mel: torch.Tensor) -> torch.Tensor:
     return torch.abs(nn.linear(p["classifier"], x.transpose(1, 2)))[..., 0]
 
 
-def hift_source(params: dict, f0: torch.Tensor, noise: SourceNoise) -> torch.Tensor:
+def hift_source(params: dict, f0: torch.Tensor, noise: SourceNoise,
+                phase_carry: Optional[torch.Tensor] = None) -> torch.Tensor:
     """f0 (B, T_mel) -> source signal (B, T_mel*480, 1). The harmonic phase
-    is summed in float64 (exact enough at any length), the rest in f32."""
+    is summed in float64 (exact enough at any length), the rest in f32.
+
+    phase_carry (B, NB_HARMONICS+1): the sum of f/sr over every sample
+    before this window, added to the float64 sum, so that a streaming
+    caller continues the harmonic phase across windows."""
     f0_up = torch.repeat_interleave(f0, TOTAL_UPSAMPLE, dim=1)        # (B, T)
     harmonics = torch.arange(1, NB_HARMONICS + 2, dtype=torch.float32,
                              device=f0.device)
     f_mat = f0_up[..., None] * harmonics / SAMPLE_RATE
     cum = torch.cumsum(f_mat.double(), dim=1)
+    if phase_carry is not None:
+        cum = cum + torch.as_tensor(phase_carry, device=f0.device).double()[:, None, :]
     theta = 2.0 * torch.pi * torch.remainder(cum, 1.0).float()
     phase = noise.phase.clone()
     phase[:, :, 0] = 0.0
@@ -168,10 +175,24 @@ def hift_decode(params: dict, mel: torch.Tensor, s: torch.Tensor) -> torch.Tenso
 
 
 def hift_inference(params: dict, mel: torch.Tensor,
-                   noise: Optional[SourceNoise] = None, generator=None):
-    """mel (B, T, 80) -> (wav (B, T*480), source (B, T*480, 1), f0 (B, T))."""
+                   noise: Optional[SourceNoise] = None, generator=None,
+                   cache_source: Optional[torch.Tensor] = None,
+                   cache_len: Optional[int] = None,
+                   phase_carry: Optional[torch.Tensor] = None):
+    """mel (B, T, 80) -> (wav (B, T*480), source (B, T*480, 1), f0 (B, T)).
+
+    cache_source replaces the start of the source, so that streamed
+    windows join without a glitch:
+      * cache_len None: cache_source is the exact prefix, (B, n, 1);
+      * cache_len given: cache_source is a buffer at least as long as the
+        source, and its first cache_len samples are taken.
+    phase_carry goes to hift_source."""
     f0 = f0_predictor_apply(params["f0_predictor"], mel)
     if noise is None:
         noise = SourceNoise.draw(mel.shape[0], mel.shape[1], generator, mel.device)
-    s = hift_source(params, f0, noise)
+    s = hift_source(params, f0, noise, phase_carry)
+    if cache_source is not None:
+        n = min(cache_source.shape[1] if cache_len is None else int(cache_len), s.shape[1])
+        if n > 0:
+            s = torch.cat([cache_source[:, :n].to(s.dtype), s[:, n:]], dim=1)
     return hift_decode(params, mel, s), s, f0

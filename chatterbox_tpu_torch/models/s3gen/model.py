@@ -16,6 +16,19 @@ prompt mels, the CAMPPlus x-vector and the S3 tokens of the prompt) and
 tokenizes 16 kHz audio (`tokenize`). These run at the exact length: the
 JAX package pads CAMPPlus's input to 0.5 s buckets with a mask that makes
 the result the unpadded one.
+
+Host-token calls (`inference` for voice conversion, `flow_to_mel`,
+`mel_to_wav`, `mel_to_wav_stream`) and the streaming feeds
+(`fused_stream_step`, `fused_stream_append`; serve/streaming.py drives
+them) run at exact lengths too. A streaming feed runs the flow over
+[prompt | every token so far] with the caller's fixed noise buffer,
+vocodes the generated region up to the stream's tip with the held-back
+lookahead frames set to MEL_FLOOR, and takes the start of the harmonic
+source from the previous feed's (the source cache), so emitted audio never
+changes. The JAX package vocodes a feed at a mel bucket instead, with every
+frame past the vocoded length at MEL_FLOOR; where that bucket is the tip
+(exact buckets, all tokens valid) the two agree. A voice's tensors are
+uploaded once per RefDict object (`device_ref`).
 """
 from __future__ import annotations
 
@@ -30,12 +43,13 @@ from ...nn import core as nn
 from ..s3tok.model import S3_SR, S3TokenizerConfig, s3tokenizer_init, s3tokenizer_tokenize
 from .campplus import campplus_embed_wav, campplus_init
 from .flow import FlowDims, TOKEN_MEL_RATIO, flow_init, flow_inference
-from .hift import SourceNoise, hift_inference, hift_init
+from .hift import TOTAL_UPSAMPLE, SourceNoise, hift_inference, hift_init
 
 S3GEN_SR = 24_000
 SIL_TOKEN = 4299                     # silence speech token
 SPEECH_VOCAB_SIZE = 6561
 SOS, EOS = 6561, 6562                # T3's start / stop speech tokens
+MEL_FLOOR = float(np.log(1e-5))      # the mel log-clamp floor: a silent frame
 
 
 def s3gen_init(seed: int = 0, device="cuda", meanflow: bool = True,
@@ -113,6 +127,10 @@ class S3GenEngine:
     or CFM with CFG (520M, 10 steps), and the frontend (`tokenizer`,
     `speaker_encoder`) that embed_ref and tokenize need."""
 
+    STREAM_CACHE_FRAMES = 3072    # the streaming source cache's capacity, mel frames
+    STREAM_ROW_CAP = 1536         # the streaming token row's capacity, tokens
+    _REF_CACHE_CAP = 16
+
     def __init__(self, params: dict, dims: FlowDims = FlowDims(), meanflow: bool = True,
                  tok_cfg: S3TokenizerConfig = S3TokenizerConfig()):
         self.params = params
@@ -122,12 +140,67 @@ class S3GenEngine:
         self.n_timesteps = 2 if meanflow else 10
         self.device = params["flow"]["input_embedding"]["w"].device
         self._fade = torch.from_numpy(trim_fade()).to(self.device)
+        self._ref_cache: dict = {}
 
     def draw_noise(self, n_mel: int, n_gen_mel: int, generator) -> S3GenNoise:
         """Random numbers for n_mel flow frames ([prompt | gen]) of which the
         last n_gen_mel are vocoded."""
         z = torch.randn((1, n_mel, 80), generator=generator, device=self.device)
         return S3GenNoise(z, SourceNoise.draw(1, n_gen_mel, generator, self.device))
+
+    def source_noise(self, phase: torch.Tensor, n_frames: int, generator) -> SourceNoise:
+        """HiFT's random numbers for n_frames with the given harmonic phases
+        (a stream keeps one set of phases; its source noise is drawn anew
+        at every feed, through draw_noise)."""
+        return SourceNoise(phase, self.draw_noise(0, n_frames, generator).source.noise_u)
+
+    def device_ref(self, ref: RefDict):
+        """Device copies of a RefDict's arrays, uploaded once per object:
+        (prompt tokens (1, P) long, prompt_feat (1, T, 80), embedding
+        (1, 192), P). The cache holds the RefDict itself, so an id() is
+        not reused while its entry lives (first in, first out, 16)."""
+        entry = self._ref_cache.get(id(ref))
+        if entry is None or entry[0] is not ref:
+            P = int(np.asarray(ref.prompt_token_len).reshape(-1)[0])
+            dev = (torch.as_tensor(np.asarray(ref.prompt_token)[:, :P], dtype=torch.long,
+                                   device=self.device),
+                   torch.as_tensor(np.asarray(ref.prompt_feat, np.float32), device=self.device),
+                   torch.as_tensor(np.asarray(ref.embedding, np.float32), device=self.device),
+                   P)
+            if len(self._ref_cache) >= self._REF_CACHE_CAP:
+                self._ref_cache.pop(next(iter(self._ref_cache)))
+            self._ref_cache[id(ref)] = entry = (ref, dev)
+        return entry[1]
+
+    def _flow(self, token: torch.Tensor, P: int, ref: RefDict, z: torch.Tensor,
+              n_timesteps: Optional[int] = None) -> torch.Tensor:
+        """[prompt | gen] tokens (1, P + G) -> mels (1, 2(P + G), 80), z the
+        starting noise over at least that many frames."""
+        _, feat, emb, _ = self.device_ref(ref)
+        return flow_inference(self.params["flow"], token, P, feat, emb,
+                              z[:, :token.shape[1] * TOKEN_MEL_RATIO],
+                              n_timesteps=n_timesteps or self.n_timesteps, dims=self.dims,
+                              meanflow=self.meanflow)
+
+    def _vocode(self, token: torch.Tensor, P: int, ref: RefDict,
+                noise: Optional[S3GenNoise], generator,
+                n_timesteps: Optional[int]) -> torch.Tensor:
+        """[prompt | gen] tokens (1, P + G) -> flow -> generated region ->
+        HiFT -> trim-fade: (1, G*960) f32, on `noise` or draws from
+        `generator`."""
+        if noise is None:
+            noise = self.draw_noise(token.shape[1] * TOKEN_MEL_RATIO,
+                                    (token.shape[1] - P) * TOKEN_MEL_RATIO, generator)
+        with nn.no_tf32_convs():
+            mels = self._flow(token, P, ref, noise.z, n_timesteps)
+            wav, _, _ = hift_inference(self.params["mel2wav"],
+                                       mels[:, P * TOKEN_MEL_RATIO:], noise.source)
+        n_fade = min(self._fade.shape[0], wav.shape[1])
+        return torch.cat([wav[:, :n_fade] * self._fade[:n_fade], wav[:, n_fade:]], dim=1)
+
+    def _host_tokens(self, speech_tokens) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(speech_tokens).reshape(-1), dtype=torch.long,
+                               device=self.device)
 
     @torch.no_grad()
     def inference_from_decode(self, gen_tokens: torch.Tensor, n_tokens,
@@ -142,27 +215,186 @@ class S3GenEngine:
         and vocab pick the token tail (pack_tokens, which raises ValueError
         for a kept id the flow cannot embed). Returns (wav (1, T) float32
         numpy, n_gen vocoded tokens)."""
-        P = int(np.asarray(ref.prompt_token_len).reshape(-1)[0])
-        prompt = torch.as_tensor(np.asarray(ref.prompt_token)[:, :P], device=self.device)
+        prompt, _, _, P = self.device_ref(ref)
         token = pack_tokens(gen_tokens.to(self.device), n_tokens, prompt, append_sil,
                             cfg_slice, sos, eos, vocab)
         n_gen = token.shape[1] - P
         if n_gen == 0:
             return np.zeros((1, 0), np.float32), 0
-        n_mel = token.shape[1] * TOKEN_MEL_RATIO
-        if noise is None:
-            noise = self.draw_noise(n_mel, n_gen * TOKEN_MEL_RATIO, generator)
-        feat = torch.as_tensor(np.asarray(ref.prompt_feat, np.float32), device=self.device)
-        emb = torch.as_tensor(np.asarray(ref.embedding, np.float32), device=self.device)
-        with nn.no_tf32_convs():
-            mels = flow_inference(self.params["flow"], token, P, feat, emb, noise.z,
-                                  n_timesteps=n_timesteps or self.n_timesteps,
-                                  dims=self.dims, meanflow=self.meanflow)
-            wav, _, _ = hift_inference(self.params["mel2wav"],
-                                       mels[:, P * TOKEN_MEL_RATIO:], noise.source)
-        n_fade = min(self._fade.shape[0], wav.shape[1])
-        wav = torch.cat([wav[:, :n_fade] * self._fade[:n_fade], wav[:, n_fade:]], dim=1)
+        wav = self._vocode(token, P, ref, noise, generator, n_timesteps)
         return wav.float().cpu().numpy(), n_gen
+
+    @torch.no_grad()
+    def inference(self, speech_tokens, ref: RefDict, generator=None,
+                  n_timesteps: Optional[int] = None,
+                  noise: Optional[S3GenNoise] = None) -> np.ndarray:
+        """Host speech tokens (G,) of the flow's vocabulary -> (1, G*960)
+        float32 numpy: flow, HiFT and the trim-fade (voice conversion)."""
+        prompt, _, _, P = self.device_ref(ref)
+        gen = self._host_tokens(speech_tokens)
+        if gen.numel() == 0:
+            return np.zeros((1, 0), np.float32)
+        token = torch.cat([prompt[0], gen])[None]
+        return self._vocode(token, P, ref, noise, generator, n_timesteps).float().cpu().numpy()
+
+    @torch.no_grad()
+    def flow_to_mel(self, speech_tokens, ref: RefDict, generator=None,
+                    n_timesteps: Optional[int] = None, noise=None):
+        """Host speech tokens (G,) -> (gen mels (1, 2G, 80) float32 numpy,
+        2G). noise: the flow's starting noise aligned to the packed
+        [prompt | gen] mel buffer, at least 2(P + G) frames (a stream
+        slices one fixed buffer, so every feed denoises the emitted region
+        from the same numbers); else drawn from `generator`."""
+        mels = self.flow_mels(speech_tokens, ref, generator, n_timesteps, noise)
+        return mels.cpu().numpy(), mels.shape[1]
+
+    @torch.no_grad()
+    def flow_mels(self, speech_tokens, ref: RefDict, generator=None,
+                  n_timesteps: Optional[int] = None, noise=None) -> torch.Tensor:
+        """flow_to_mel's generated mels, left on the device."""
+        prompt, _, _, P = self.device_ref(ref)
+        token = torch.cat([prompt[0], self._host_tokens(speech_tokens)])[None]
+        n_mel = token.shape[1] * TOKEN_MEL_RATIO
+        z = self.draw_noise(n_mel, 0, generator).z if noise is None else self._f32(noise)
+        if z.shape[1] < n_mel:
+            raise ValueError(f"aligned noise of {z.shape[1]} frames is shorter than the "
+                             f"{n_mel} frames of [prompt | gen]")
+        with nn.no_tf32_convs():
+            return self._flow(token, P, ref, z, n_timesteps)[:, P * TOKEN_MEL_RATIO:]
+
+    def _f32(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+
+    @torch.no_grad()
+    def mel_to_wav(self, gen_mels, generator=None,
+                   noise: Optional[SourceNoise] = None) -> np.ndarray:
+        """Mels (1, T, 80) -> (1, T*480) float32 numpy (HiFT alone)."""
+        mel = self._f32(gen_mels)
+        with nn.no_tf32_convs():
+            wav, _, _ = hift_inference(self.params["mel2wav"], mel, noise, generator)
+        return wav.float().cpu().numpy()
+
+    @torch.no_grad()
+    def mel_to_wav_stream(self, gen_mels, generator=None, cache_source=None,
+                          cache_len: int = 0, phase_carry=None,
+                          noise: Optional[SourceNoise] = None):
+        """A streaming vocoder step. cache_source: the previous step's source,
+        whose first cache_len samples replace this step's (glitch-free
+        joins); phase_carry (1, 9): the sum of f/sr before this window
+        (windowed streaming). Returns float32 numpy (wav (1, T*480),
+        source (1, T*480, 1), f0 (1, T))."""
+        mel = self._f32(gen_mels)
+        if cache_source is not None:
+            cache_source = self._f32(cache_source)
+        with nn.no_tf32_convs():
+            wav, s, f0 = hift_inference(self.params["mel2wav"], mel, noise, generator,
+                                        cache_source=cache_source, cache_len=cache_len,
+                                        phase_carry=phase_carry)
+        return wav.cpu().numpy(), s.cpu().numpy(), f0.cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # streaming feeds (serve/streaming.py StreamingVocoder)
+    # ------------------------------------------------------------------
+    def new_stream_cache(self) -> torch.Tensor:
+        """The source cache of a stream, (1, STREAM_CACHE_FRAMES*480, 1) on
+        the device; every feed updates it in place."""
+        return torch.zeros((1, self.STREAM_CACHE_FRAMES * TOTAL_UPSAMPLE, 1),
+                           device=self.device)
+
+    def _stream_body(self, token, P, ref, z, source, cache_source, cache_len,
+                     vocode_len):
+        """One feed: flow over [prompt | gen] with the aligned noise z ->
+        the generated region with the frames from vocode_len on set to
+        MEL_FLOOR (the held-back lookahead) -> HiFT whose first cache_len
+        source samples come from the cache; the new source written back to
+        the cache. Returns (wav (1, 2G*480), cache, f0 (1, 2G))."""
+        n_samp = (token.shape[1] - P) * TOKEN_MEL_RATIO * TOTAL_UPSAMPLE
+        if token.shape[1] > self.STREAM_ROW_CAP or n_samp > cache_source.shape[1]:
+            raise ValueError(f"stream of {token.shape[1]} tokens exceeds the streaming "
+                             f"capacity ({self.STREAM_ROW_CAP} tokens)")
+        with nn.no_tf32_convs():
+            gen = self._flow(token, P, ref, z)[:, P * TOKEN_MEL_RATIO:].clone()
+            gen[:, vocode_len:] = MEL_FLOOR
+            wav, src, f0 = hift_inference(self.params["mel2wav"], gen, source,
+                                          cache_source=cache_source, cache_len=cache_len)
+        cache_source[:, :src.shape[1]] = src
+        return wav, cache_source, f0
+
+    @torch.no_grad()
+    def fused_stream_step(self, tokens_all, ref: RefDict, noise_dev: torch.Tensor,
+                          phase: torch.Tensor, cache_source_dev: torch.Tensor,
+                          cache_len: int, vocode_frames: int, generator=None):
+        """One streaming feed from host tokens, every intermediate on the
+        device. tokens_all: (1, n) every generated token so far; noise_dev:
+        the stream's flow noise aligned to [prompt | gen]; phase: its HiFT
+        phases (the source noise is drawn here); cache_source_dev: from
+        new_stream_cache (updated in place); vocode_frames: the mel frames
+        to vocode after the lookahead trim. Returns device tensors (wav
+        (1, 2n*480), the cache, f0 (1, 2n))."""
+        prompt, _, _, P = self.device_ref(ref)
+        gen = self._host_tokens(tokens_all)
+        token = torch.cat([prompt[0], gen])[None]
+        source = self.source_noise(phase, gen.numel() * TOKEN_MEL_RATIO, generator)
+        return self._stream_body(token, P, ref, noise_dev, source, cache_source_dev,
+                                 cache_len, vocode_frames)
+
+    def new_stream_row(self, ref: RefDict) -> torch.Tensor:
+        """The stream's packed [prompt | gen] token row on the device,
+        (1, STREAM_ROW_CAP + 1) long (the last slot takes the rejected
+        tokens), with the prompt written."""
+        prompt, _, _, P = self.device_ref(ref)
+        row = torch.zeros((1, self.STREAM_ROW_CAP + 1), dtype=torch.long, device=self.device)
+        row[:, :P] = prompt
+        return row
+
+    @torch.no_grad()
+    def fused_stream_append(self, row_dev: torch.Tensor, n_acc: int, gen_tokens, n_raw,
+                            ref: RefDict, noise_dev: torch.Tensor, phase: torch.Tensor,
+                            cache_source_dev: torch.Tensor, cache_len: int,
+                            emitted_samples: int, *, generator=None, lookahead: int,
+                            vocab: int = SPEECH_VOCAB_SIZE, final: bool = False,
+                            append_sil: int = 0, extra_fetch=()):
+        """One streaming feed straight from a decode chunk's device output.
+
+        gen_tokens (L,) and n_raw (the chunk's count) stay on the device:
+        the first n_raw ids below `vocab` are appended to row_dev (updated
+        in place) after its n_acc tokens, then append_sil silence tokens.
+        One host read brings back the count of appended ids, those ids and
+        the `extra_fetch` device scalars; then the flow runs over [prompt |
+        every token], HiFT vocodes up to the tip with the last `lookahead`
+        tokens' frames held back unless `final`, and only the samples from
+        emitted_samples on are returned. Returns (wav_tail (1, n) on the
+        device, row, cache, n_new, n_acc', chunk_row (1, n_new) int32 numpy,
+        the extras as host ints)."""
+        prompt, _, _, P = self.device_ref(ref)
+        gen = torch.as_tensor(gen_tokens, device=self.device).reshape(-1).long()
+        if P + n_acc + gen.shape[0] + append_sil > self.STREAM_ROW_CAP:
+            raise ValueError(f"stream exceeds the row capacity ({P + n_acc + gen.shape[0]} "
+                             f"+ {append_sil} > {self.STREAM_ROW_CAP})")
+        idx = torch.arange(gen.shape[0], device=self.device)
+        valid = (idx < torch.as_tensor(n_raw, device=self.device)) & (gen < vocab)
+        cap = row_dev.shape[1] - 1
+        tgt = torch.where(valid, P + n_acc + torch.cumsum(valid, 0) - 1, cap)
+        row_dev[0].scatter_(0, tgt, gen)
+        # the one host read of the feed: the count, the kept ids, the extras
+        extras = [torch.as_tensor(e, device=self.device).reshape(1).long()
+                  for e in extra_fetch]
+        got = torch.cat([valid.sum().reshape(1)] + extras
+                        + [torch.where(valid, gen, -1)]).cpu().numpy()
+        n_new, k = int(got[0]), len(extras)
+        chunk_row = got[1 + k:][got[1 + k:] >= 0].astype(np.int32)[None]
+        n_acc2 = n_acc + n_new + append_sil
+        row_dev[0, P + n_acc + n_new:P + n_acc2] = SIL_TOKEN
+        vl = n_acc2 if final else max(n_acc2 - lookahead, 0)
+        wav_tail = torch.zeros((1, 0), device=self.device)
+        if vl > 0:
+            source = self.source_noise(phase, n_acc2 * TOKEN_MEL_RATIO, generator)
+            wav, cache_source_dev, _ = self._stream_body(
+                row_dev[:, :P + n_acc2], P, ref, noise_dev, source, cache_source_dev,
+                cache_len, vl * TOKEN_MEL_RATIO)
+            wav_tail = wav[:, emitted_samples:vl * TOKEN_MEL_RATIO * TOTAL_UPSAMPLE]
+        return (wav_tail, row_dev, cache_source_dev, n_new, n_acc2, chunk_row,
+                tuple(int(v) for v in got[1:1 + k]))
 
     @torch.no_grad()
     def embed_ref(self, ref_wav: np.ndarray, ref_sr: int) -> RefDict:

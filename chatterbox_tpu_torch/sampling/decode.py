@@ -88,6 +88,62 @@ def decode_step(params: dict, hp: T3Config, token: torch.Tensor, step: int,
     return t3m.speech_logits(params, hidden[:, 0]).float()
 
 
+def prefill(params: dict, hp: T3Config, cond: t3m.T3CondTensors,
+            text_tokens: torch.Tensor, batch: int, cfg_mode: bool,
+            max_new_tokens: int, kv_int8: bool = False, tile_align: bool = False):
+    """The dense prefix through the backbone into a new cache of P +
+    max_new_tokens positions (rounded up to the decode-attention tile when
+    tile_align). Returns (cache, logits (batch, V) f32 at the prefix's last
+    position, P)."""
+    cfg = hp.backbone
+    dev = params["speech_emb"]["w"].device
+    x = build_prefix(params, hp, cond, text_tokens, batch, cfg_mode)   # (B, P, D)
+    P = x.shape[1]
+    cache_cls = bb.KVCacheInt8 if kv_int8 else bb.KVCache
+    cache = cache_cls.zeros(cfg, batch, cache_len(P + max_new_tokens, tile_align), dev)
+    positions = torch.arange(P, device=dev)[None].expand(batch, -1)
+    hidden = bb.backbone_apply(params["backbone"], cfg, x, positions, cache, 0)
+    return cache, t3m.speech_logits(params, hidden[:, -1]).float(), P
+
+
+def new_seen(hp: T3Config, cfg_mode: bool, device) -> torch.Tensor:
+    """The repetition history before the first token: the CFG family counts
+    the start token as seen."""
+    seen = torch.zeros(hp.speech_tokens_dict_size, dtype=torch.bool, device=device)
+    if cfg_mode:
+        seen[hp.start_speech_token] = True
+    return seen
+
+
+def sample_step(hp: T3Config, logits: torch.Tensor, seen: torch.Tensor, step: int,
+                sp: S.SamplerParams, done: torch.Tensor, *, cfg_mode: bool,
+                top_k: int = 0, generator: Optional[torch.Generator] = None,
+                gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The sampler of decode step `step`, shared by t3_generate and the
+    chunked decode: the family's logits processor (CFG: rows 0 and B-1
+    combined; Turbo: the start token penalized on step 0 only, then the
+    generated tokens), a gumbel-max draw (`gumbel[step]` when replayed,
+    else from `generator`), and the stop token where every logit was
+    filtered away or the stream is `done`. Marks the token seen, in place.
+    Returns the token, a () long on the device."""
+    stop = hp.stop_speech_token
+    if cfg_mode:
+        l = S.process_logits_cfg(logits[0], logits[-1], seen, sp)
+    else:
+        pen = seen
+        if step == 0:
+            pen = seen.clone()
+            pen[hp.start_speech_token] = True
+        l = S.process_logits_turbo(logits[0], pen, sp, top_k)
+    g = (gumbel[step].to(l.device) if gumbel is not None
+         else S.gumbel(l.shape, generator, l.device))
+    tok = S.sample_categorical(l, g)
+    # every logit filtered away: stop instead of sampling noise
+    tok = torch.where((l <= S.NEG_INF).all() | done, stop, tok)
+    seen.index_fill_(0, tok.view(1), True)
+    return tok
+
+
 @torch.no_grad()
 def t3_generate(params: dict, hp: T3Config, cond: t3m.T3CondTensors,
                 text_tokens: torch.Tensor, sp: S.SamplerParams, *,
@@ -107,50 +163,23 @@ def t3_generate(params: dict, hp: T3Config, cond: t3m.T3CondTensors,
     fused_attn (None means False): decode steps take the decode-attention
     kernels over a tile-aligned cache. kv_int8: the int8 KV cache.
     """
-    cfg = hp.backbone
     dev = params["speech_emb"]["w"].device
-    V = hp.speech_tokens_dict_size
     stop = hp.stop_speech_token
     B = 2 if cfg_mode and cfg_batch2 else 1
     fused_attn = bool(fused_attn)
-
-    # ---- dense prefix and prefill -----------------------------------------
-    x = build_prefix(params, hp, cond, text_tokens, B, cfg_mode)   # (B, P, D)
-    P = x.shape[1]
-    cache_cls = bb.KVCacheInt8 if kv_int8 else bb.KVCache
-    cache = cache_cls.zeros(cfg, B, cache_len(P + max_new_tokens, fused_attn), dev)
-    positions = torch.arange(P, device=dev)[None].expand(B, -1)
-    hidden = bb.backbone_apply(params["backbone"], cfg, x, positions, cache, 0)
-    logits = t3m.speech_logits(params, hidden[:, -1]).float()  # (B, V)
+    cache, logits, P = prefill(params, hp, cond, text_tokens, B, cfg_mode,
+                               max_new_tokens, kv_int8, fused_attn)
 
     # ---- token loop ---------------------------------------------------------
     tokens = torch.full((max_new_tokens,), stop, dtype=torch.long, device=dev)
-    seen = torch.zeros(V, dtype=torch.bool, device=dev)
-    if cfg_mode:
-        seen[hp.start_speech_token] = True
+    seen = new_seen(hp, cfg_mode, dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
     n_tokens = torch.full((), max_new_tokens, dtype=torch.long, device=dev)
-    stop_t = torch.full((), stop, dtype=torch.long, device=dev)
     n_forward = 0
     for step in range(max_new_tokens):
-        if cfg_mode:
-            l = S.process_logits_cfg(logits[0], logits[B - 1], seen, sp)
-        else:
-            pen = seen
-            if step == 0:
-                # Turbo penalizes the start token on step 0 only, then the
-                # generated tokens
-                pen = seen.clone()
-                pen[hp.start_speech_token] = True
-            l = S.process_logits_turbo(logits[0], pen, sp, top_k)
-        g = (gumbel[step].to(dev) if gumbel is not None
-             else S.gumbel((V,), generator, dev))
-        tok = S.sample_categorical(l, g)
-        # every logit filtered away: stop instead of sampling noise
-        tok = torch.where((l <= S.NEG_INF).all(), stop_t, tok)
-        tok = torch.where(done, stop_t, tok)
+        tok = sample_step(hp, logits, seen, step, sp, done, cfg_mode=cfg_mode,
+                          top_k=top_k, generator=generator, gumbel=gumbel)
         tokens[step] = tok
-        seen.index_fill_(0, tok.view(1), True)
         if not ignore_eos:
             is_stop = tok == stop
             n_tokens = torch.where(is_stop & ~done,

@@ -30,6 +30,9 @@ weights quantized to int4:
   * Turbo from a checkpoint directory and a prompt file: from_local, then
     generate(text, audio_prompt_path=wav) with the frontend (resampler,
     mels, S3 tokenizer, CAMPPlus, voice encoder) on the card; B1, B2.
+  * both pipelines' generate_stream: the chunked decode (B1 / B2 or B5 /
+    B6 a layer and step) and the streaming vocoder; and voice conversion
+    (ChatterboxVC from a checkpoint directory), on no kernel.
 B11 (fused_mlp_int8) is on no path: nothing in the JAX package calls it
 outside its own test. Phase 3 holds it against its plain version.
 
@@ -98,7 +101,24 @@ Phases, in order; any failure exits non-zero without the final "ok" line:
      up, then three requests timed as phase 5 times them with
      prepare_conditionals inside the timed window (B1 and B2 launched
      layers x steps times), x-realtime with and without the frontend, and
-     the device's share of one profiled request.
+     the device's share of one profiled request;
+  7. streaming and voice conversion: the chunked decode (t3_prefill_decode,
+     then t3_decode_chunk, chunks of 25, EOS ignored) against t3_generate
+     on the same 250 gumbel rows, every token equal, for both families;
+     full-width HiFT over growing windows (96, 168, 240 frames) with the
+     source cache against the one-shot vocode (1e-4); the streaming
+     vocoder on the card against the cpu on a small S3Gen with the same
+     numbers, four feed_from_decode feeds (1e-4, lengths exact); each
+     pipeline's generate_stream (32 tokens) once to warm up, then two
+     timed streams of 250 tokens in chunks of 25 (time to first audio,
+     gaps between chunks, tokens, x-realtime; B1 / B2 or B5 / B6
+     launched layers x decode steps times) and the device's share of one
+     profiled stream;
+     a 520M-family s3gen.safetensors (10-step CFM, random full-width
+     weights) and conds.pt written to a temporary directory,
+     ChatterboxVC.from_local on the card (the loaded leaves equal the
+     written ones), set_target_voice on a 6 s voice, generate on a 10 s
+     source once to warm up, then three timed runs (no kernel launched).
 The line before the last is {"kernels": [...]}, the last
 {"ok": true, "device": {...}}.
 """
@@ -1898,6 +1918,310 @@ def frontend_path() -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 7: streaming synthesis and voice conversion
+# ---------------------------------------------------------------------------
+
+STREAM_CHUNK = 25              # tokens a decode chunk of generate_stream
+HIFT_WINDOWS = (96, 168, 240)  # growing HiFT windows (mel frames); 16 held back
+STREAM_LA = 16                 # frames held back a window: past HiFT's receptive field
+STREAM_RUNS = 2                # timed streams a pipeline
+
+
+def stream_tokens_equal(tts, label, decode_kw):
+    """The chunked decode (t3_prefill_decode, then t3_decode_chunk, chunks of
+    25, EOS ignored) against t3_generate on the same 250 pre-drawn gumbel
+    rows: every token equal."""
+    import torch
+    from chatterbox_tpu_torch.ops import sampling as S
+    from chatterbox_tpu_torch.sampling.chunked import t3_decode_chunk, t3_prefill_decode
+    from chatterbox_tpu_torch.sampling.decode import t3_generate
+    kw = dict(decode_kw)
+    ids = torch.as_tensor(kw.pop("ids"), device="cuda").long()
+    cfg_mode = kw.pop("cfg_mode", False)
+    kw.pop("cfg_batch2", None)
+    g = S.gumbel((N_TOKENS, tts.hp.speech_tokens_dict_size),
+                 torch.Generator(device="cuda").manual_seed(71), "cuda")
+    cond = tts.conds.t3.as_tensors("cuda")
+    state, toks, _ = t3_prefill_decode(tts.t3_params, tts.hp, cond, ids, gumbel=g,
+                                       max_new_tokens=N_TOKENS, n_steps=STREAM_CHUNK,
+                                       cfg_mode=cfg_mode, ignore_eos=True, **kw)
+    chunks = [toks[:state.step]]
+    while state.step < N_TOKENS:
+        step = state.step
+        state, toks, _ = t3_decode_chunk(tts.t3_params, tts.hp, state, kw["sp"],
+                                         n_steps=STREAM_CHUNK, top_k=kw.get("top_k", 0),
+                                         cfg_mode=cfg_mode, ignore_eos=True)
+        chunks.append(toks[:state.step - step])
+    res = t3_generate(tts.t3_params, tts.hp, cond, ids, max_new_tokens=N_TOKENS,
+                      cfg_mode=cfg_mode, ignore_eos=True, gumbel=g, **kw)
+    streamed = torch.cat(chunks)
+    same = int((streamed == res.tokens).sum())
+    log(f"stream tokens ({label}): {same} of {N_TOKENS} chunked tokens (chunks of "
+        f"{STREAM_CHUNK}) equal t3_generate's on the same gumbel draws; "
+        f"{len(set(streamed.tolist()))} distinct")
+    if not torch.equal(streamed, res.tokens):
+        raise AssertionError(f"{label}: the chunked decode's tokens differ from t3_generate's")
+
+
+def hift_stream_check(eng):
+    """Full-width HiFT on the card: windows of 96, 168 and 240 random mel
+    frames, each taking the last one's source cache and emitting up to 16
+    frames short of its end (all of the last), against the one-shot
+    mel_to_wav_stream on the same noise: within 1e-4."""
+    import numpy as np
+    import torch
+    from chatterbox_tpu_torch.models.s3gen.hift import SourceNoise
+    T = HIFT_WINDOWS[-1]
+    mel = (np.random.default_rng(72).standard_normal((1, T, 80)) * 0.5).astype(np.float32)
+    noise = SourceNoise.draw(1, T, torch.Generator(device="cuda").manual_seed(73), "cuda")
+    full = eng.mel_to_wav_stream(mel, noise=noise)[0][0]
+    cache, clen, emitted, out = None, 0, 0, []
+    for Tc in HIFT_WINDOWS:
+        part = SourceNoise(noise.phase, noise.noise_u[:, :Tc * 480])
+        wav, src, _ = eng.mel_to_wav_stream(mel[:, :Tc], cache_source=cache, cache_len=clen,
+                                            noise=part)
+        upto = (Tc if Tc == T else Tc - STREAM_LA) * 480
+        out.append(wav[0, emitted:upto])
+        emitted, cache, clen = upto, src, Tc * 480
+    stream = np.concatenate(out)
+    err = float(np.abs(stream - full).max()) if stream.shape == full.shape else float("inf")
+    log(f"HiFT streaming (base {eng.params['mel2wav']['conv_pre']['b'].shape[0]}, windows "
+        f"{HIFT_WINDOWS} frames): growing windows vs one-shot, max abs err "
+        f"{err:.3e} (scale {np.abs(full).max():.3f}, tolerance 1e-4)")
+    if not (np.isfinite(stream).all() and err <= 1e-4):
+        raise AssertionError(f"HiFT streaming differs from the one-shot vocode: {err}")
+
+
+class StreamDraws:
+    """A stream's random numbers drawn once on the cpu (the flow buffer, the
+    HiFT phases, source noise for `frames` mel frames) and served on
+    `device` through an engine's draw_noise, so that the card's vocoder and
+    the cpu's take the same numbers."""
+
+    def __init__(self, seed: int, frames: int, device):
+        import torch
+        from chatterbox_tpu_torch.serve.streaming import StreamingVocoder
+        g = torch.Generator().manual_seed(seed)
+        self.buffer = torch.randn((1, StreamingVocoder.MAX_MEL_FRAMES, 80), generator=g)
+        self.phase = (torch.rand((1, 1, 9), generator=g) * 2 - 1) * torch.pi
+        self.noise_u = torch.randn((1, frames * 480, 9), generator=g)
+        self.buffer, self.phase, self.noise_u = (t.to(device) for t in
+                                                 (self.buffer, self.phase, self.noise_u))
+
+    def __call__(self, n_mel, n_gen_mel, generator):
+        import torch
+        from chatterbox_tpu_torch.models.s3gen.hift import SourceNoise
+        from chatterbox_tpu_torch.models.s3gen.model import S3GenNoise
+        z = self.buffer if n_mel else torch.zeros((1, 0, 80), device=self.buffer.device)
+        return S3GenNoise(z, SourceNoise(self.phase, self.noise_u[:, :n_gen_mel * 480]))
+
+
+def vocoder_reference():
+    """The streaming vocoder on the card against the cpu: a small S3Gen
+    (tiny flow, HiFT base 32, meanflow) with the same weights and the same
+    numbers, four chunks through feed_from_decode (device tensors), the last
+    final with 3 silence tokens: every feed's audio within 1e-4 and its
+    length exact."""
+    import numpy as np
+    import torch
+    from chatterbox_tpu_torch.models.s3gen.flow import FlowDims
+    from chatterbox_tpu_torch.models.s3gen.model import RefDict, S3GenEngine, s3gen_init
+    from chatterbox_tpu_torch.models.s3tok.model import S3TokenizerConfig
+    from chatterbox_tpu_torch.serve.streaming import StreamingVocoder
+    rng = np.random.default_rng(74)
+    dims = FlowDims.tiny_test()
+    s3 = s3gen_init(seed=74, device="cpu", meanflow=True, dims=dims, hift_base=32,
+                    tok_cfg=S3TokenizerConfig.tiny_test())
+    ref = RefDict(rng.integers(0, 6561, (1, 20)), np.array([20]),
+                  (rng.standard_normal((1, 40, 80)) * 0.5).astype(np.float32),
+                  rng.standard_normal((1, 192)).astype(np.float32))
+    chunks = [rng.integers(0, 6561, n) for n in (25, 25, 25, 13)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = S3GenEngine(s3 if dev == "cpu" else _to(s3, "cuda"), dims=dims)
+        eng.draw_noise = StreamDraws(75, 2 * 91, dev)
+        voc = StreamingVocoder(eng, ref)
+        out[dev] = []
+        for i, c in enumerate(chunks):
+            final = i == len(chunks) - 1
+            wav, n, _ = voc.feed_from_decode(torch.as_tensor(c, device=dev), len(c),
+                                             vocab=6561, final=final,
+                                             append_sil=3 if final else 0)
+            out[dev].append(wav)
+    errs = []
+    for i, (a, b) in enumerate(zip(out["cuda"], out["cpu"])):
+        if a.shape != b.shape or not np.isfinite(a).all() or len(a) == 0:
+            raise AssertionError(f"streaming vocoder feed {i}: {a.shape} on the card, "
+                                 f"{b.shape} on the cpu")
+        errs.append(float(np.abs(a - b).max()))
+    log(f"reference streaming vocoder (meanflow, feed_from_decode, 4 feeds of "
+        f"{[len(c) for c in chunks]} tokens, the last final + 3 silence): samples "
+        f"{[len(a) for a in out['cuda']]} on both, max abs err per feed "
+        f"{[f'{e:.3e}' for e in errs]} (tolerance 1e-4)")
+    if max(errs) > 1e-4:
+        raise AssertionError(f"the streaming vocoder on the card disagrees: {errs}")
+
+
+def _device_us(prof) -> float:
+    """Device time (us) of a profile's kernels, copies and sets, summed over
+    the raw trace events (key_averages builds an object for each of a
+    stream's ~10^5 events and takes tens of seconds there)."""
+    import torch
+    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA) / 1e3
+
+
+def timed_streams(tts, label, kernels, stream_kw) -> dict:
+    """A 32-token generate_stream to warm up, then two streams of
+    PHASE5_TEXT (250 tokens, chunks of 25) with the launch counts set to 0
+    just before and read just after (each of `kernels` launched layers x
+    decode steps times, nothing else); per stream the time to the first
+    chunk, the gaps between chunks, tokens and audio seconds, x-realtime;
+    then the device's share of one profiled stream. Returns the launch
+    counts."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    kw = dict(stream_kw, chunk_tokens=STREAM_CHUNK)
+
+    def stream(n=N_TOKENS):
+        t0 = time.perf_counter()
+        marks, n_samples = [], 0
+        for chunk in tts.generate_stream(PHASE5_TEXT, max_new_tokens=n, **kw):
+            marks.append(time.perf_counter() - t0)
+            if not (chunk.dtype == np.float32 and np.isfinite(chunk).all()):
+                raise AssertionError(f"{label}: a streamed chunk is not finite float32")
+            n_samples += len(chunk)
+        st = tts.last_decode
+        return marks, n_samples, st.step, st.n_forward, bool(st.done)
+
+    stream(WARMUP_TOKENS)                                            # warm-up
+    reset_counts()
+    runs = [stream() for _ in range(STREAM_RUNS)]
+    counts = read_counts()
+    L, forwards = tts.hp.backbone.num_layers, sum(r[3] for r in runs)
+    check_counts(counts, f"{label} stream, {L} layers x {forwards} decode steps",
+                 {k: L * forwards for k in kernels})
+    for marks, n_samples, steps, _, done in runs:
+        audio_s, wall = n_samples / 24000, marks[-1]
+        # 960 samples a vocoded token: at most the decoded ones and 3 silence
+        if not (0 < n_samples <= (steps + 3) * 960 and n_samples % 960 == 0):
+            raise AssertionError(f"{label}: {n_samples} samples for {steps} tokens")
+        gaps = np.diff(marks)
+        log(f"{label} stream: first audio {marks[0] * 1e3:.1f} ms, {len(marks)} chunks, gaps "
+            f"{np.min(gaps) * 1e3 if len(gaps) else 0:.1f}-"
+            f"{np.max(gaps) * 1e3 if len(gaps) else 0:.1f} ms (mean "
+            f"{np.mean(gaps) * 1e3 if len(gaps) else 0:.1f}), {steps} tokens"
+            f"{' (EOS)' if done else ''}, {audio_s:.2f} s of audio in {wall:.3f} s -> "
+            f"x-realtime {audio_s / wall:.3f}")
+    best = min(r[0][-1] for r in runs)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        stream()
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    dev_us = _device_us(prof)
+    log(f"{label} stream: {dev_us / 1e3:.1f} ms of device time (profiled stream) against "
+        f"{best * 1e3:.1f} ms of wall (best unprofiled) -> device busy "
+        f"{100 * dev_us / 1e3 / (best * 1e3):.1f} % of a whole stream (profiled stream and "
+        f"its trace {t1 - t0:.1f} s, the sum {time.perf_counter() - t1:.1f} s)")
+    return counts
+
+
+def vc_path(conds) -> None:
+    """A 520M-family s3gen.safetensors (10-step CFM, full width, random
+    weights, CAMPPlus with seeded batch statistics) and conds.pt written to
+    a temporary directory; ChatterboxVC.from_local on the card, the loaded
+    leaves equal to the written ones; set_target_voice on a 6 s synthetic
+    voice and generate on a 10 s synthetic source: a warm-up, then three
+    timed runs. No kernel is on this path: the counts stay 0."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    from chatterbox_tpu_torch import ChatterboxVC
+    from chatterbox_tpu_torch.convert.native_ckpt import save_safetensors
+    from chatterbox_tpu_torch.models.s3gen.model import s3gen_init
+    from chatterbox_tpu_torch.utils.audio_io import save_wav
+    s3 = s3gen_init(31, "cuda", meanflow=False)
+    s3["speaker_encoder"] = seeded_batch_stats(s3["speaker_encoder"], 32)
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        t0 = time.perf_counter()
+        save_safetensors(s3gen_state_dict(s3), d / "s3gen.safetensors")
+        conds.save(str(d / "conds.pt"))
+        save_wav(d / "target.wav", 0.5 * synthetic_voice(6.0, 24000, seed=33), 24000)
+        save_wav(d / "source.wav", 0.5 * synthetic_voice(10.0, 16000, seed=34, f0=110.0),
+                 16000)
+        mib = (d / "s3gen.safetensors").stat().st_size / 2**20
+        log(f"VC: wrote s3gen.safetensors ({mib:.1f} MiB), conds.pt and two WAVs in "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        vc = ChatterboxVC.from_local(d)
+        torch.cuda.synchronize()
+        n = _equal_trees(vc.s3gen.params, s3, "s3gen")
+        log(f"VC: from_local on {vc.device} in {time.perf_counter() - t0:.1f} s; the {n} "
+            f"loaded leaves equal the written ones; meanflow={vc.s3gen.meanflow}, "
+            f"{vc.s3gen.n_timesteps} CFG flow steps; conds.pt's voice "
+            f"{'loaded' if vc.ref_dict is not None else 'missing'}")
+        if vc.s3gen.meanflow or vc.ref_dict is None:
+            raise AssertionError("VC: load_vc must build a CFM engine with conds.pt's voice")
+        del s3
+        t0 = time.perf_counter()
+        vc.set_target_voice(str(d / "target.wav"))
+        torch.cuda.synchronize()
+        log(f"VC: set_target_voice (6 s) in {(time.perf_counter() - t0) * 1e3:.1f} ms "
+            f"({int(vc.ref_dict.prompt_token_len[0])} prompt tokens)")
+        src = str(d / "source.wav")
+        vc.generate(src)                                             # warm-up
+        reset_counts()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            wav = vc.generate(src)
+            walls.append(time.perf_counter() - t0)
+            if not (wav.shape == (1, 250 * 960) and np.isfinite(wav).all()
+                    and np.abs(wav).max() > 0):
+                raise AssertionError(f"VC: converted {wav.shape}")
+        check_counts(read_counts(), "VC (no kernel on this path)", {})
+        log(f"VC generate (10 s source: tokenize, 10-step CFG flow, HiFT): "
+            f"{[round(w * 1e3, 1) for w in walls]} ms -> x-realtime {10.0 / min(walls):.3f} "
+            f"(best of 3); no kernel of the port is on this path (S3Gen is plain PyTorch)")
+
+
+def streaming_path(turbo, cfg520) -> dict:
+    """Phase 7: the chunked decode against t3_generate (both families, 250
+    tokens), HiFT streaming at full width, the streaming vocoder card vs
+    cpu, timed generate_streams of both pipelines, and VC. Returns the
+    launch counts of the timed streams."""
+    from chatterbox_tpu_torch.ops.sampling import SamplerParams
+    t0 = time.perf_counter()
+    cfg_kw = dict(temperature=0.8, top_p=1.0, min_p=0.05, repetition_penalty=1.2,
+                  cfg_weight=0.5)
+    stream_tokens_equal(turbo, "Turbo", dict(ids=turbo_ids(turbo, PHASE5_TEXT),
+                                             sp=SamplerParams(0.8, 0.95, 1.2), top_k=1000))
+    stream_tokens_equal(cfg520, "520M CFG", dict(ids=cfg520.frame_text(PHASE5_TEXT),
+                                                 sp=SamplerParams(**cfg_kw), cfg_mode=True))
+    hift_stream_check(turbo.s3gen)
+    vocoder_reference()
+    log(f"phase 7 checks {time.perf_counter() - t0:.1f} s")
+    counts = {}
+    for tts, label, kernels, kw in (
+            (turbo, "Turbo", GPT2, dict(top_k=1000, temperature=0.8, top_p=0.95,
+                                        repetition_penalty=1.2)),
+            (cfg520, "520M CFG", LLAMA, dict(exaggeration=0.5, **cfg_kw))):
+        t0 = time.perf_counter()
+        for k, v in timed_streams(tts, label, kernels, kw).items():
+            counts[k] = counts.get(k, 0) + v
+        log(f"{label} streams {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    vc_path(cfg520.conds)
+    log(f"VC {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def int4_pipeline(tts, mode: str, seed: int):
     """The pipeline `tts` with its T3 weights drawn again from `seed` (as
     random_init draws them), cast to bf16 and quantized in `mode`; the S3Gen
@@ -1996,6 +2320,10 @@ def main(argv) -> int:
     for k, v in frontend_path().items():
         launches[k] = launches.get(k, 0) + v
     log(f"phase 6 (frontend) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for k, v in streaming_path(turbo, cfg520).items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"phase 7 (streaming and VC) {time.perf_counter() - t0:.1f} s")
     for r in rows:
         r["launches"] = launches[r["name"]]
         if r["name"] in PHASE3_ONLY:

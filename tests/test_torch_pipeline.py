@@ -199,15 +199,19 @@ def test_conds_pt_from_jax_loads_in_port(tmp_path):
                                                (port.ChatterboxTTS, JCfgTTS)])
 def test_generate_takes_only_the_jax_pipelines_knobs(port_cls, jax_cls):
     """No ignore_eos (a benchmark decodes through t3_generate, as bench.py
-    does); every knob of the port's generate is one the JAX pipeline has."""
+    does); every knob of the port's generate and generate_stream is one the
+    JAX pipeline's method has."""
     ours = set(inspect.signature(port_cls.generate).parameters)
     assert "ignore_eos" not in ours
     assert ours <= set(inspect.signature(jax_cls.generate).parameters)
     with pytest.raises(TypeError, match="ignore_eos"):
         port_cls.generate(None, "hi", ignore_eos=True)
+    stream = set(inspect.signature(port_cls.generate_stream).parameters)
+    assert "ignore_eos" not in stream
+    assert stream <= set(inspect.signature(jax_cls.generate_stream).parameters)
 
 
-def test_audio_prompt_path_raises_until_frontend_is_ported(tmp_path):
+def test_audio_prompt_of_5_s_or_less_is_refused(tmp_path):
     """The frontend is ported: a prompt path reaches Turbo's
     prepare_conditionals, which refuses a prompt of 5 s or less as the JAX
     pipeline does (tests/test_torch_load.py runs whole prompts)."""
@@ -238,7 +242,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "audio/filters", "audio/mels", "audio/resample", "audio/stft",
         "convert/native_ckpt", "convert/weights", "models/s3gen/campplus",
         "models/s3tok/model", "models/ve/model", "text/tokenizer", "utils/audio_io",
-        "utils/loudness")} <= walked
+        "utils/loudness", "sampling/chunked", "serve/streaming")} <= walked
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
