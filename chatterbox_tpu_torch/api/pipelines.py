@@ -1,15 +1,19 @@
 """Public pipelines: text -> speech tokens (T3) -> waveform (S3Gen) (the
-counterparts of ChatterboxTurboTTS and ChatterboxTTS in
-chatterbox_tpu/api/pipelines.py).
+counterparts of the pipelines in chatterbox_tpu/api/pipelines.py).
 
   * ChatterboxTurboTTS: GPT-2 T3, batch-1 decode, 2-step meanflow S3Gen;
+    `generate(draft=)` decodes speculatively (sampling/speculative.py),
+    with a draft pipeline or its own weights quantized int8 as the draft;
   * ChatterboxTTS: the original 520M model, llama T3 with perceiver,
     emotion input and learned positions, batch-2 CFG decode, 10-step CFG
     S3Gen;
+  * ChatterboxMultilingualTTS: the 520M family in 23 languages (a
+    2454-token grapheme vocabulary, `MTLTokenizer`), batch-2 CFG decode at
+    every cfg_weight, the last token's 40 ms trimmed;
   * ChatterboxVC: voice conversion, source wav -> S3 tokens -> the 520M
     family's 10-step CFG S3Gen in a target voice.
 
-Both TTS pipelines also stream (`generate_stream`): the T3 decodes in
+The TTS pipelines also stream (`generate_stream`): the T3 decodes in
 chunks (sampling/chunked.py) and each chunk is vocoded as it lands
 (serve/streaming.py), so the first audio comes after one chunk.
 
@@ -42,6 +46,7 @@ from ..nn import core as nn
 from ..ops.sampling import SamplerParams
 from ..sampling.chunked import t3_decode_chunk, t3_prefill_decode
 from ..sampling.decode import t3_generate
+from ..sampling.speculative import t3_generate_speculative
 from ..serve.streaming import StreamingVocoder
 from ..text.tokenizer import punc_norm
 from ..utils.audio_io import load_audio
@@ -50,6 +55,24 @@ from ..utils.quantize import best_serving_mode, cast_params, quantize_t3_backbon
 from ..utils.watermark import Watermarker
 
 logger = logging.getLogger(__name__)
+
+# the multilingual model's languages
+SUPPORTED_LANGUAGES = {
+    "ar": "Arabic", "da": "Danish", "de": "German", "el": "Greek",
+    "en": "English", "es": "Spanish", "fi": "Finnish", "fr": "French",
+    "he": "Hebrew", "hi": "Hindi", "it": "Italian", "ja": "Japanese",
+    "ko": "Korean", "ms": "Malay", "nl": "Dutch", "no": "Norwegian",
+    "pl": "Polish", "pt": "Portuguese", "ru": "Russian", "sv": "Swedish",
+    "sw": "Swahili", "tr": "Turkish", "zh": "Chinese",
+}
+
+# `t3_model` names of ChatterboxMultilingualTTS.from_local -> checkpoint files
+MULTILINGUAL_T3_MODELS = {
+    "v2": "t3_mtl23ls_v2.safetensors",
+    "t3_mtl23ls_v2": "t3_mtl23ls_v2.safetensors",
+    "v3": "t3_mtl23ls_v3.safetensors",
+    "t3_mtl23ls_v3": "t3_mtl23ls_v3.safetensors",
+}
 
 
 @dataclasses.dataclass
@@ -159,6 +182,19 @@ class _TTSBase:
                                 torch.bfloat16)
         return quantize_t3_backbone(t3_params, mode=best_serving_mode(hp.backbone))
 
+    @classmethod
+    def _random_cfg_family(cls, hp: T3Config, flow_dims: FlowDims,
+                           tok_cfg: S3TokenizerConfig, hift_base: int, tokenizer,
+                           seed: int, device):
+        """A 520M-family pipeline with random weights: T3 as `_random_t3`;
+        non-meanflow S3Gen with its frontend and the voice encoder in
+        float32."""
+        s3 = S3GenEngine(s3gen_init(seed + 1, device, meanflow=False, dims=flow_dims,
+                                    hift_base=hift_base, tok_cfg=tok_cfg),
+                         dims=flow_dims, meanflow=False, tok_cfg=tok_cfg)
+        return cls(cls._random_t3(hp, seed, device), hp, s3,
+                   ve.ve_init(nn.Init(seed + 2, device)), tokenizer, seed=seed)
+
     def prepare_conditionals(self, wav_fpath, exaggeration: float = 0.5):
         """Build `self.conds` from a reference WAV file."""
         self._prepare_from_wav(load_audio(wav_fpath, S3GEN_SR), exaggeration)
@@ -192,10 +228,12 @@ class _TTSBase:
                              "(or set `conds`) first")
         return self.conds
 
-    def _vocode(self, res, **tail) -> np.ndarray:
-        wav, _ = self.s3gen.inference_from_decode(
+    def _vocode(self, res, **tail):
+        """S3Gen over a decode result with the pipeline's token tail, then
+        the watermark: ((1, T) float32 waveform, the vocoded token count)."""
+        wav, n_gen = self.s3gen.inference_from_decode(
             res.tokens, res.n_tokens, self.conds.gen, generator=self.generator, **tail)
-        return self.watermarker.apply_watermark(wav[0], sample_rate=self.sr)[None]
+        return self.watermarker.apply_watermark(wav[0], sample_rate=self.sr)[None], n_gen
 
     def _stream(self, ids: np.ndarray, sp: SamplerParams, *, cfg_mode: bool,
                 max_new_tokens: int, chunk_tokens: int, top_k: int = 0,
@@ -290,6 +328,33 @@ class ChatterboxTurboTTS(_TTSBase):
     def norm_loudness(self, wav, sr, target_lufs=-27):
         return norm_loudness(wav, sr, target_lufs)
 
+    def _quantized_self_draft(self):
+        """This model's own weights quantized with `best_serving_mode`
+        (int8_fused at Turbo's widths), built once and kept: the draft of
+        `generate(draft="int8")`. It shares this pipeline's conditionals;
+        the float weights stay the verify target, so the sampling
+        distribution is theirs."""
+        if getattr(self, "_qdraft", None) is None:
+            if _is_quantized(self.t3_params):
+                raise ValueError("t3 params are already quantized - the int8 self-draft "
+                                 "needs the float model as the verify target")
+            qp = quantize_t3_backbone(self.t3_params, mode=best_serving_mode(self.hp.backbone))
+            outer = self
+
+            class _QuantView:
+                t3_params = qp
+                hp = outer.hp
+
+                @property
+                def conds(self):
+                    return outer.conds
+
+                def prepare_conditionals(self, *a, **kw):
+                    pass              # shares the outer model's conditionals
+
+            self._qdraft = _QuantView()
+        return self._qdraft
+
     def prepare_conditionals(self, wav_fpath, exaggeration=0.5, norm_loudness=True):
         """As the base, for a prompt longer than 5 s, brought to -27 LUFS
         unless norm_loudness is False."""
@@ -302,12 +367,34 @@ class ChatterboxTurboTTS(_TTSBase):
     def generate(self, text, repetition_penalty=1.2, min_p=0.00, top_p=0.95,
                  audio_prompt_path=None, exaggeration=0.0, cfg_weight=0.0,
                  temperature=0.8, top_k=1000, norm_loudness=True,
-                 max_new_tokens=1000, kv_int8=False):
+                 max_new_tokens=1000, kv_int8=False, draft=None, n_draft=4):
         """Synthesize `text` in the voice of `self.conds`; returns a (1, T)
         float32 waveform at 24 kHz. kv_int8 keeps the KV cache in int8,
-        read by the int8 decode-attention kernel."""
+        read by the int8 decode-attention kernel.
+
+        draft: speculative decoding (sampling/speculative.py): the draft
+        proposes n_draft tokens a round and this model verifies them in one
+        forward, so the output distribution is exactly this model's. Either
+        a draft pipeline (e.g. a Nano ChatterboxTurboTTS, which builds its
+        own conditionals from the same prompt) or "int8": this model's own
+        weights quantized (`_quantized_self_draft`; needs float T3 weights).
+        Speculative decode runs on the bf16 KV cache: with draft= set,
+        kv_int8 is ignored with a warning and draft= is kept (the JAX
+        package's behaviour; its docstring's "drops both knobs" is not what
+        its code does)."""
+        if draft is not None and kv_int8:
+            logger.warning("kv_int8 is ignored when draft= is set: speculative decode "
+                           "runs on the bf16 KV cache")
+        if draft == "int8":
+            draft = self._quantized_self_draft()
         conds = self._conds_for(audio_prompt_path, exaggeration=exaggeration,
                                 norm_loudness=norm_loudness)
+        if draft is not None:
+            if audio_prompt_path:
+                draft.prepare_conditionals(audio_prompt_path, exaggeration=exaggeration,
+                                           norm_loudness=norm_loudness)
+            if draft.conds is None:
+                raise ValueError("the draft pipeline needs conditionals too")
         if cfg_weight > 0.0 or exaggeration > 0.0 or min_p > 0.0:
             logger.warning(f"CFG, min_p and exaggeration are not supported by the "
                            f"{self.model_label} version and will be ignored.")
@@ -316,13 +403,20 @@ class ChatterboxTurboTTS(_TTSBase):
         ids = np.asarray(self.tokenizer.text_to_tokens(text)).reshape(1, -1)
         sp = SamplerParams(temperature=temperature, top_p=top_p,
                            repetition_penalty=repetition_penalty)
-        self.last_decode = res = t3_generate(
-            self.t3_params, self.hp, conds.t3.as_tensors(self.device),
-            torch.as_tensor(ids, dtype=torch.long, device=self.device), sp,
-            max_new_tokens=max_new_tokens, top_k=top_k, generator=self.generator,
-            kv_int8=kv_int8, fused_attn=kv_int8)
+        ids = torch.as_tensor(ids, dtype=torch.long, device=self.device)
+        if draft is not None:
+            self.last_decode = res = t3_generate_speculative(
+                self.t3_params, draft.t3_params, self.hp, draft.hp,
+                conds.t3.as_tensors(self.device), draft.conds.t3.as_tensors(self.device),
+                ids, sp, max_new_tokens=max_new_tokens, n_draft=n_draft, top_k=top_k,
+                generator=self.generator)
+        else:
+            self.last_decode = res = t3_generate(
+                self.t3_params, self.hp, conds.t3.as_tensors(self.device), ids, sp,
+                max_new_tokens=max_new_tokens, top_k=top_k, generator=self.generator,
+                kv_int8=kv_int8, fused_attn=kv_int8)
         # drop >= vocab, then three silence tokens (the reference Turbo tail)
-        return self._vocode(res, append_sil=3)
+        return self._vocode(res, append_sil=3)[0]
 
     def generate_stream(self, text, audio_prompt_path=None, temperature=0.8,
                         top_k=1000, top_p=0.95, repetition_penalty=1.2,
@@ -354,12 +448,8 @@ class ChatterboxTTS(_TTSBase):
         """Random weights at the given widths (default
         `T3Config.english_only()`): T3 as `_random_t3`; non-meanflow S3Gen
         with its frontend and the voice encoder in float32."""
-        hp = hp or T3Config.english_only()
-        s3 = S3GenEngine(s3gen_init(seed + 1, device, meanflow=False, dims=flow_dims,
-                                    hift_base=hift_base, tok_cfg=tok_cfg),
-                         dims=flow_dims, meanflow=False, tok_cfg=tok_cfg)
-        return cls(cls._random_t3(hp, seed, device), hp, s3,
-                   ve.ve_init(nn.Init(seed + 2, device)), tokenizer, seed=seed)
+        return cls._random_cfg_family(hp or T3Config.english_only(), flow_dims, tok_cfg,
+                                      hift_base, tokenizer, seed, device)
 
     @classmethod
     def from_local(cls, ckpt_dir, device="cuda") -> "ChatterboxTTS":
@@ -394,7 +484,7 @@ class ChatterboxTTS(_TTSBase):
             cfg_batch2=cfg_weight > 0, generator=self.generator, kv_int8=kv_int8,
             fused_attn=kv_int8)
         # slice SOS..EOS, drop >= vocab, empty -> one silence token
-        return self._vocode(res, cfg_slice=True)
+        return self._vocode(res, cfg_slice=True)[0]
 
     def generate_stream(self, text, audio_prompt_path=None, exaggeration=0.5,
                         cfg_weight=0.5, temperature=0.8, repetition_penalty=1.2,
@@ -410,6 +500,99 @@ class ChatterboxTTS(_TTSBase):
                            cfg_weight=cfg_weight)
         yield from self._stream(self.frame_text(text), sp, cfg_mode=True,
                                 max_new_tokens=max_new_tokens, chunk_tokens=chunk_tokens)
+
+
+class ChatterboxMultilingualTTS(_TTSBase):
+    """The 23-language pipeline: the 520M family's llama T3 with a
+    2454-token grapheme text vocabulary (`MTLTokenizer`, a `[lang]` prefix
+    on the text), batch-2 CFG decode at every cfg_weight, 10-step CFG
+    S3Gen, and the last token's 40 ms trimmed from the waveform."""
+
+    @classmethod
+    def get_supported_languages(cls) -> dict:
+        return SUPPORTED_LANGUAGES.copy()
+
+    @classmethod
+    def random_init(cls, hp: Optional[T3Config] = None,
+                    flow_dims: FlowDims = FlowDims(),
+                    tok_cfg: S3TokenizerConfig = S3TokenizerConfig(),
+                    hift_base: int = 512, tokenizer=None, seed: int = 0, device="cuda"):
+        """Random weights at the given widths (default
+        `T3Config.multilingual()`), built as ChatterboxTTS.random_init
+        builds them."""
+        return cls._random_cfg_family(hp or T3Config.multilingual(), flow_dims, tok_cfg,
+                                      hift_base, tokenizer, seed, device)
+
+    @classmethod
+    def from_local(cls, ckpt_dir, device="cuda",
+                   t3_model: Optional[str] = None) -> "ChatterboxMultilingualTTS":
+        """Load a reference checkpoint directory (convert/weights.py
+        `load_mtl_tts`); t3_model names the T3 file (MULTILINGUAL_T3_MODELS,
+        default v2). T3 stays float32."""
+        from ..convert.weights import load_mtl_tts
+        return load_mtl_tts(cls, Path(ckpt_dir), t3_model=t3_model, device=device)
+
+    def _request(self, text, language_id, audio_prompt_path, exaggeration, **sampler):
+        """The language check, the voice (with its exaggeration), and the
+        framed text ids: punc_norm, the `[lang]`-prefixed grapheme ids,
+        SOT/EOT. Returns ((1, Lt) ids, sampler)."""
+        if language_id and language_id.lower() not in SUPPORTED_LANGUAGES:
+            supported = ", ".join(SUPPORTED_LANGUAGES)
+            raise ValueError(f"Unsupported language_id '{language_id}'. "
+                             f"Supported languages: {supported}")
+        conds = self._conds_for(audio_prompt_path, exaggeration=exaggeration)
+        if float(exaggeration) != float(conds.t3.emotion_adv):
+            conds.t3.emotion_adv = float(exaggeration)
+        ids = np.asarray(self.tokenizer.text_to_tokens(
+            punc_norm(text, variant="mtl"),
+            language_id=language_id.lower() if language_id else None)).reshape(-1)
+        framed = np.concatenate([[self.hp.start_text_token], ids, [self.hp.stop_text_token]])
+        return framed.astype(np.int64)[None], SamplerParams(**sampler)
+
+    def generate(self, text, language_id, audio_prompt_path=None, exaggeration=0.5,
+                 cfg_weight=0.5, temperature=0.8, repetition_penalty=1.2, min_p=0.05,
+                 top_p=1.0, max_new_tokens=1000):
+        """Synthesize `text` in `language_id` (a key of SUPPORTED_LANGUAGES;
+        ValueError otherwise) in the voice of `self.conds`; returns a (1, T)
+        float32 waveform at 24 kHz. The decode is batch 2 even at
+        cfg_weight 0, as the reference's multilingual loop; the last
+        vocoded token's 40 ms are cut after the watermark."""
+        ids, sp = self._request(text, language_id, audio_prompt_path, exaggeration,
+                                temperature=temperature, top_p=top_p,
+                                repetition_penalty=repetition_penalty, min_p=min_p,
+                                cfg_weight=cfg_weight)
+        self.last_decode = res = t3_generate(
+            self.t3_params, self.hp, self.conds.t3.as_tensors(self.device),
+            torch.as_tensor(ids, device=self.device), sp, max_new_tokens=max_new_tokens,
+            cfg_mode=True, cfg_batch2=True, generator=self.generator)
+        wav, n_gen = self._vocode(res, cfg_slice=True)
+        return wav[:, : max(1, n_gen - 1) * (S3GEN_SR // 25)]
+
+    def generate_stream(self, text, language_id, audio_prompt_path=None,
+                        exaggeration=0.5, cfg_weight=0.5, temperature=0.8,
+                        repetition_penalty=1.2, min_p=0.05, top_p=1.0,
+                        max_new_tokens=1000, chunk_tokens=25):
+        """Stream `text` in `language_id`: yields (T,) float32 chunks at
+        24 kHz as tokens decode (see `_stream`); the 40 ms trim of
+        `generate` is held back and dropped at the stream's end."""
+        ids, sp = self._request(text, language_id, audio_prompt_path, exaggeration,
+                                temperature=temperature, top_p=top_p,
+                                repetition_penalty=repetition_penalty, min_p=min_p,
+                                cfg_weight=cfg_weight)
+        yield from self._stream(ids, sp, cfg_mode=True, max_new_tokens=max_new_tokens,
+                                chunk_tokens=chunk_tokens,
+                                trim_tail_samples=S3GEN_SR // 25)
+
+
+def _is_quantized(tree) -> bool:
+    """Whether a parameter tree holds quantized weights or fused-kernel
+    operands."""
+    if isinstance(tree, dict):
+        return any(k in ("w_q", "w_q4", "w_q4c", "fused") or _is_quantized(v)
+                   for k, v in tree.items())
+    if isinstance(tree, list):
+        return any(_is_quantized(v) for v in tree)
+    return False
 
 
 class ChatterboxVC:

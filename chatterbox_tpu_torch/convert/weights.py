@@ -1,9 +1,11 @@
 """Checkpoint conversion: the reference's checkpoint files -> this package's
 parameter trees (the counterpart of chatterbox_tpu/convert/weights.py).
 
-    ve.safetensors                  -> voice encoder
-    t3_cfg / t3_turbo_v1 / t3_nano_v1.safetensors -> T3 (llama or GPT-2)
-    s3gen{,_meanflow}.safetensors   -> S3Gen (S3 tokenizer, CAMPPlus, flow,
+    ve.safetensors (or ve.pt)       -> voice encoder
+    t3_cfg / t3_turbo_v1 / t3_nano_v1 / t3_mtl23ls_v2 (v3).safetensors
+                                    -> T3 (llama or GPT-2)
+    s3gen{,_meanflow}.safetensors (or s3gen.pt)
+                                    -> S3Gen (S3 tokenizer, CAMPPlus, flow,
                                        HiFT)
     conds.pt                        -> the built-in voice (optional)
 
@@ -593,6 +595,35 @@ def load_turbo_tts(cls, ckpt_dir: Path, nano: bool = False, device="cuda"):
         conds = Conditionals.load(ckpt_dir / "conds.pt")
     return cls(t3_params, hp, engine, ve_params, HFTokenizer(ckpt_dir), conds,
                model_label="Nano" if nano else "Turbo")
+
+
+def load_mtl_tts(cls, ckpt_dir: Path, t3_model: str | None = None, device="cuda"):
+    """The multilingual pipeline from the T3 file `t3_model` names
+    (MULTILINGUAL_T3_MODELS; default t3_mtl23ls_v2.safetensors), ve.pt
+    else ve.safetensors, s3gen.pt else s3gen.safetensors (the 520M
+    family's CFM S3Gen), grapheme_mtl_merged_expanded_v1.json (with
+    Cangjie5_TC.json beside it, when present) and, when present, conds.pt;
+    T3 stays float32."""
+    from ..api.pipelines import MULTILINGUAL_T3_MODELS, Conditionals
+    from ..text.tokenizer import MTLTokenizer
+    name = t3_model or "t3_mtl23ls_v2.safetensors"
+    name = MULTILINGUAL_T3_MODELS.get(name, name)
+    hp = T3Config.multilingual()
+    t3_params = convert_t3(_unwrap_model(load_safetensors(ckpt_dir / name)), hp, device)
+
+    def pt_or_safetensors(stem):
+        pt = ckpt_dir / f"{stem}.pt"
+        return load_torch_pt(pt) if pt.exists() else load_safetensors(
+            ckpt_dir / f"{stem}.safetensors")
+
+    ve_params = convert_voice_encoder(pt_or_safetensors("ve"), device)
+    engine = s3m.S3GenEngine(convert_s3gen(pt_or_safetensors("s3gen"), device=device),
+                             meanflow=False)
+    tok = MTLTokenizer(str(ckpt_dir / "grapheme_mtl_merged_expanded_v1.json"))
+    conds = None
+    if (ckpt_dir / "conds.pt").exists():
+        conds = Conditionals.load(ckpt_dir / "conds.pt")
+    return cls(t3_params, hp, engine, ve_params, tok, conds)
 
 
 def load_vc(cls, ckpt_dir: Path, device="cuda"):

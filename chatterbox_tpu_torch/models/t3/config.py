@@ -47,6 +47,11 @@ GPT2_SMALL = BackboneConfig(
     head_dim=64, intermediate_size=3072, vocab_size=50276,
 )
 
+GPT2_TINY_TEST = BackboneConfig(
+    family="gpt2", hidden_size=64, num_layers=2, num_heads=4,
+    head_dim=16, intermediate_size=256, vocab_size=96,
+)
+
 LLAMA_TINY_TEST = BackboneConfig(
     family="llama", hidden_size=64, num_layers=2, num_heads=4,
     head_dim=16, intermediate_size=256, num_kv_heads=4,
@@ -68,6 +73,7 @@ BACKBONES = {
     "Llama_520M": LLAMA_520M,
     "GPT2_medium": GPT2_MEDIUM,
     "GPT2_small": GPT2_SMALL,
+    "GPT2_tiny_test": GPT2_TINY_TEST,
     "Llama_tiny_test": LLAMA_TINY_TEST,
     "GPT2_fused_test": GPT2_FUSED_TEST,
     "Llama_fused_test": LLAMA_FUSED_TEST,
@@ -98,11 +104,21 @@ class T3Config:
     def backbone(self) -> BackboneConfig:
         return BACKBONES[self.backbone_name]
 
+    @property
+    def is_multilingual(self) -> bool:
+        return self.text_tokens_dict_size == 2454
+
     @classmethod
     def english_only(cls) -> "T3Config":
         """Llama-520M with CFG, perceiver, emotion input and learned
         positions (the original Chatterbox)."""
         return cls()
+
+    @classmethod
+    def multilingual(cls) -> "T3Config":
+        """The 23-language model: english_only's Llama-520M with a
+        2454-token grapheme text vocabulary."""
+        return cls(text_tokens_dict_size=2454)
 
     @classmethod
     def turbo(cls) -> "T3Config":

@@ -33,6 +33,14 @@ weights quantized to int4:
   * both pipelines' generate_stream: the chunked decode (B1 / B2 or B5 /
     B6 a layer and step) and the streaming vocoder; and voice conversion
     (ChatterboxVC from a checkpoint directory), on no kernel.
+  * the multilingual pipeline from a checkpoint directory
+    (ChatterboxMultilingualTTS.from_local: Llama-520M with the 2454-token
+    grapheme vocabulary, MTLTokenizer), requests in French, Korean and
+    Chinese, and its generate_stream; kernels B5, B6;
+  * speculative Turbo decode: a bf16 target verifying the drafts of its
+    own int8_fused self-draft (generate(draft="int8")); kernels B1, B2 in
+    the draft, none in the verify; and a Nano draft pipeline (plain int8,
+    no kernel).
 B11 (fused_mlp_int8) is on no path: nothing in the JAX package calls it
 outside its own test. Phase 3 holds it against its plain version.
 
@@ -118,9 +126,31 @@ Phases, in order; any failure exits non-zero without the final "ok" line:
      weights) and conds.pt written to a temporary directory,
      ChatterboxVC.from_local on the card (the loaded leaves equal the
      written ones), set_target_voice on a 6 s voice, generate on a 10 s
-     source once to warm up, then three timed runs (no kernel launched).
-The line before the last is {"kernels": [...]}, the last
-{"ok": true, "device": {...}}.
+     source once to warm up, then three timed runs (no kernel launched);
+  8. multilingual and speculative: a multilingual checkpoint directory
+     (t3_mtl23ls_v2.safetensors from random full-width weights, ve.pt and
+     s3gen.pt, conds.pt, a grapheme vocabulary trained here with the 23
+     language tags and the Cangjie code tokens, a small Cangjie5_TC.json)
+     loaded by from_local on the card, the loaded leaves equal to the
+     written ones; T3 quantized int8_fused; generate from a prompt file to
+     warm up, then one request each in fr, ko (Jamo) and zh (Cangjie
+     codes) timed as phase 5 times them (250 tokens, the 40 ms trim; B5 /
+     B6 launched 30 x steps); the chunked decode against t3_generate on the
+     same 250 gumbel rows; one timed generate_stream (time to first
+     audio); a greedy generate_stream whose samples equal generate's. Then
+     speculative Turbo: the seed-0 Turbo T3 in bf16, unquantized, as the
+     verify target, its int8_fused self-draft; the verify slab's K+1 logits
+     against K+1 single steps on the same cache (within 5 % of the logits'
+     scale); greedy speculative tokens (250, EOS ignored) against
+     sequential t3_generate (equal, or parting only where the sequential
+     top-2 gap is below that bound); three timed decodes of 250 tokens at
+     n_draft 4 and 8 (ms/token, acceptance, rounds; B1 / B2 launched 24 x
+     (K+1) x rounds, nothing else), the sequential bf16 target and phase
+     5's int8_fused Turbo in the same call; generate(draft="int8") end to
+     end; a Nano draft pipeline (acceptance, ms/token over 100 tokens, no
+     kernel).
+The line before the last is {"kernels": [...]} (launches summed over
+phases 5-8), the last {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -2072,14 +2102,15 @@ def _device_us(prof) -> float:
                if e.device_type() == torch.autograd.DeviceType.CUDA) / 1e3
 
 
-def timed_streams(tts, label, kernels, stream_kw) -> dict:
-    """A 32-token generate_stream to warm up, then two streams of
-    PHASE5_TEXT (250 tokens, chunks of 25) with the launch counts set to 0
-    just before and read just after (each of `kernels` launched layers x
-    decode steps times, nothing else); per stream the time to the first
-    chunk, the gaps between chunks, tokens and audio seconds, x-realtime;
-    then the device's share of one profiled stream. Returns the launch
-    counts."""
+def timed_streams(tts, label, kernels, stream_kw, text=PHASE5_TEXT, runs=STREAM_RUNS,
+                  profiled=True) -> dict:
+    """A 32-token generate_stream to warm up, then `runs` streams of `text`
+    (250 tokens, chunks of 25) with the launch counts set to 0 just before
+    and read just after (each of `kernels` launched layers x decode steps
+    times, nothing else); per stream the time to the first chunk, the gaps
+    between chunks, tokens and audio seconds, x-realtime; then, when
+    `profiled`, the device's share of one profiled stream. Returns the
+    launch counts."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2088,7 +2119,7 @@ def timed_streams(tts, label, kernels, stream_kw) -> dict:
     def stream(n=N_TOKENS):
         t0 = time.perf_counter()
         marks, n_samples = [], 0
-        for chunk in tts.generate_stream(PHASE5_TEXT, max_new_tokens=n, **kw):
+        for chunk in tts.generate_stream(text, max_new_tokens=n, **kw):
             marks.append(time.perf_counter() - t0)
             if not (chunk.dtype == np.float32 and np.isfinite(chunk).all()):
                 raise AssertionError(f"{label}: a streamed chunk is not finite float32")
@@ -2098,7 +2129,7 @@ def timed_streams(tts, label, kernels, stream_kw) -> dict:
 
     stream(WARMUP_TOKENS)                                            # warm-up
     reset_counts()
-    runs = [stream() for _ in range(STREAM_RUNS)]
+    runs = [stream() for _ in range(runs)]
     counts = read_counts()
     L, forwards = tts.hp.backbone.num_layers, sum(r[3] for r in runs)
     check_counts(counts, f"{label} stream, {L} layers x {forwards} decode steps",
@@ -2116,6 +2147,8 @@ def timed_streams(tts, label, kernels, stream_kw) -> dict:
             f"{' (EOS)' if done else ''}, {audio_s:.2f} s of audio in {wall:.3f} s -> "
             f"x-realtime {audio_s / wall:.3f}")
     best = min(r[0][-1] for r in runs)
+    if not profiled:
+        return counts
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         stream()
@@ -2222,6 +2255,418 @@ def streaming_path(turbo, cfg520) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the multilingual pipeline and speculative Turbo decode
+# ---------------------------------------------------------------------------
+
+# a sentence in each of the multilingual model's 23 languages
+MTL_SAMPLES = {
+    "ar": "مرحبا بالعالم، كيف حالك؟",
+    "da": "Hej verden, hvordan går det?",
+    "de": "Guten Tag! Schöne Grüße aus München.",
+    "el": "Γειά σου κόσμε, τι κάνεις;",
+    "en": "Hello world, how are you today?",
+    "es": "¡Hola, señor! ¿Qué tal el día?",
+    "fi": "Hyvää päivää, maailma.",
+    "fr": "Bonjour, ça va très bien aujourd'hui, merci beaucoup.",
+    "he": "שלום עולם, מה שלומך?",
+    "hi": "नमस्ते दुनिया, आप कैसे हैं?",
+    "it": "Ciao, come stai oggi?",
+    "ja": "日本語のテキストです。",
+    "ko": "안녕하세요, 세계! 만나서 반갑습니다.",
+    "ms": "Selamat pagi, dunia.",
+    "nl": "Goedemorgen, wereld. Hoe gaat het?",
+    "no": "Hei, verden! Blåbærsyltetøy.",
+    "pl": "Dzień dobry, świecie. Żółw.",
+    "pt": "Olá, mundo! A ação começa.",
+    "ru": "Привет, мир! Как дела?",
+    "sv": "Hej världen, hur mår du?",
+    "sw": "Habari ya dunia, rafiki.",
+    "tr": "Merhaba dünya, nasılsın?",
+    "zh": "你好，世界。妳好，中文。",
+}
+# Cangjie5_TC.json entries ("glyph\tcode"): 你 and 妳 share a code, so the
+# second is written with the index suffix 1
+CANGJIE_ENTRIES = ["你\tonf", "妳\tonf", "好\tvnd", "世\tpt", "界\twll", "中\tl", "文\tyk"]
+CJ_TOKENS = [f"[cj_{c}]" for c in "abcdefghijklmnopqrstuvwxyz0123456789."]
+MTL_VOCAB_FILE = "grapheme_mtl_merged_expanded_v1.json"
+MTL_REQUESTS = ("fr", "ko", "zh")
+SPEC_K = (4, 8)                # draft lengths timed
+NANO_TOKENS = 100              # the Nano draft's timed decode (it accepts ~4 %)
+VERIFY_TOL = 0.05              # verify slab against single steps, of the logits' scale
+
+
+def write_mtl_tokenizer(d, vocab_size: int = 500):
+    """A grapheme vocabulary (`tokenizers` BPE) trained on MTL_SAMPLES,
+    lowercased and NFKD-normalized as MTLTokenizer feeds it, with the special
+    tokens, the 23 `[lang]` tags and the `[cj_*]` code tokens; and
+    Cangjie5_TC.json (CANGJIE_ENTRIES) beside it."""
+    import unicodedata
+    from tokenizers import Tokenizer, models, pre_tokenizers, trainers
+    from chatterbox_tpu_torch.api.pipelines import SUPPORTED_LANGUAGES
+    from chatterbox_tpu_torch.text.tokenizer import SPECIAL_TOKENS
+    t = Tokenizer(models.BPE(unk_token="[UNK]"))
+    t.pre_tokenizer = pre_tokenizers.Whitespace()
+    corpus = [unicodedata.normalize("NFKD", s.lower()) for s in MTL_SAMPLES.values()] * 3
+    specials = SPECIAL_TOKENS + [f"[{lang}]" for lang in SUPPORTED_LANGUAGES] + CJ_TOKENS
+    t.train_from_iterator(corpus, trainers.BpeTrainer(vocab_size=vocab_size,
+                                                      special_tokens=specials))
+    t.save(str(d / MTL_VOCAB_FILE))
+    (d / "Cangjie5_TC.json").write_text(json.dumps(CANGJIE_ENTRIES, ensure_ascii=False),
+                                        encoding="utf-8")
+
+
+def save_pt(state_dict: dict, path):
+    """A {name: float32 numpy} state dict as a torch .pt file."""
+    import numpy as np
+    import torch
+    torch.save({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in state_dict.items()},
+               str(path))
+
+
+def write_mtl_checkpoint(d, t3_params, hp, s3gen_params, ve_params, pt: bool,
+                         t3_file: str = "t3_mtl23ls_v2.safetensors"):
+    """A multilingual checkpoint directory: t3_file, ve and s3gen as .pt
+    (pt) or .safetensors, and the grapheme vocabulary with its Cangjie
+    mapping."""
+    from chatterbox_tpu_torch.convert.native_ckpt import save_safetensors
+    save_safetensors(t3_state_dict(t3_params, hp), d / t3_file)
+    save = save_pt if pt else save_safetensors
+    ext = "pt" if pt else "safetensors"
+    save(ve_state_dict(ve_params), d / f"ve.{ext}")
+    save(s3gen_state_dict(s3gen_params), d / f"s3gen.{ext}")
+    write_mtl_tokenizer(d)
+
+
+def multilingual_path() -> dict:
+    """Phase 8, multilingual: a checkpoint directory written from random
+    full-width weights (Llama-520M T3 with the 2454-token text vocabulary,
+    ve.pt and s3gen.pt, conds.pt, the grapheme vocabulary and its Cangjie
+    mapping), loaded by from_local on the card, the loaded leaves equal to
+    the written ones; T3 quantized int8_fused; a warm-up generate from a
+    prompt file, then one request in each of MTL_REQUESTS timed as phase
+    5 times them (B5 / B6 launched layers x steps); the chunked decode
+    against t3_generate on the same gumbel rows; one timed generate_stream;
+    a greedy generate_stream against generate: the same samples, the 40 ms
+    trim included. Returns the launch counts of the timed runs."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    from chatterbox_tpu_torch import ChatterboxMultilingualTTS
+    from chatterbox_tpu_torch.models.s3gen.model import s3gen_init
+    from chatterbox_tpu_torch.models.t3 import model as t3m
+    from chatterbox_tpu_torch.models.t3.config import T3Config
+    from chatterbox_tpu_torch.models.ve import model as ve
+    from chatterbox_tpu_torch.nn import core as nn
+    from chatterbox_tpu_torch.sampling.decode import t3_generate
+    from chatterbox_tpu_torch.utils.audio_io import save_wav
+    from chatterbox_tpu_torch.utils.quantize import (best_serving_mode, cast_params,
+                                                     quantize_t3_backbone)
+    hp = T3Config.multilingual()
+    t3 = t3m.t3_init(hp, seed=40, device="cuda")
+    s3 = s3gen_init(41, "cuda", meanflow=False)
+    s3["speaker_encoder"] = seeded_batch_stats(s3["speaker_encoder"], 42)
+    vep = ve.ve_init(nn.Init(43, "cuda"))
+    sampler = dict(temperature=0.8, top_p=1.0, min_p=0.05, repetition_penalty=1.2,
+                   cfg_weight=0.5)
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        t0 = time.perf_counter()
+        write_mtl_checkpoint(d, t3, hp, s3, vep, pt=True)
+        synthetic_conds(hp, 0.5).save(str(d / "conds.pt"))
+        wav_path = d / "prompt.wav"
+        save_wav(wav_path, 0.5 * synthetic_voice(6.0, 24000, seed=44), 24000)
+        mib = sum(f.stat().st_size for f in d.iterdir()) / 2**20
+        log(f"multilingual: wrote {sorted(f.name for f in d.iterdir())} ({mib:.1f} MiB) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        tts = ChatterboxMultilingualTTS.from_local(d)
+        torch.cuda.synchronize()
+        n = (_equal_trees(tts.t3_params, t3, "t3") + _equal_trees(tts.s3gen.params, s3, "s3gen")
+             + _equal_trees(tts.ve_params, vep, "ve"))
+        vocab = tts.tokenizer.tokenizer.get_vocab()
+        log(f"multilingual: from_local on {tts.device} in {time.perf_counter() - t0:.1f} s; "
+            f"the {n} loaded leaves equal the written ones; {len(vocab)} graphemes (ids below "
+            f"{max(vocab.values()) + 1}), {len(tts.tokenizer.cangjie_converter.word2cj)} "
+            f"Cangjie glyphs, conds.pt {'loaded' if tts.conds is not None else 'missing'}")
+        if (max(vocab.values()) >= hp.text_tokens_dict_size or tts.conds is None
+                or tts.s3gen.meanflow or not tts.hp.is_multilingual):
+            raise AssertionError("multilingual: the loaded pipeline is not the one written")
+        del t3, s3, vep
+        tts.t3_params = quantize_t3_backbone(cast_params(tts.t3_params, torch.bfloat16),
+                                             mode=best_serving_mode(hp.backbone))
+        t0 = time.perf_counter()
+        wav = tts.generate(MTL_SAMPLES["fr"], language_id="fr", audio_prompt_path=str(wav_path),
+                           max_new_tokens=WARMUP_TOKENS, exaggeration=0.5, **sampler)
+        if not (wav.ndim == 2 and wav.shape[1] % 960 == 0 and np.isfinite(wav).all()):
+            raise AssertionError(f"multilingual: generate from the prompt gave {wav.shape}")
+        log(f"multilingual: T3 quantized {best_serving_mode(hp.backbone)}; a warm-up generate "
+            f"from the prompt file in {time.perf_counter() - t0:.1f} s")
+
+        L, forwards = hp.backbone.num_layers, 0
+        reset_counts()
+        for lang in MTL_REQUESTS:
+            ids, sp = tts._request(MTL_SAMPLES[lang], lang, None, 0.5, **sampler)
+            text = tts.tokenizer.decode(ids[0, 1:-1])
+            if lang == "zh" and "[cj_" not in text:
+                raise AssertionError(f"multilingual zh: no Cangjie codes in {text!r}")
+            t0 = time.perf_counter()
+            res = t3_generate(tts.t3_params, hp, tts.conds.t3.as_tensors("cuda"),
+                              torch.as_tensor(ids, device="cuda"), sp, max_new_tokens=N_TOKENS,
+                              cfg_mode=True, cfg_batch2=True, ignore_eos=True,
+                              generator=tts.generator)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            wav, n_voc = tts.s3gen.inference_from_decode(res.tokens, res.n_tokens, tts.conds.gen,
+                                                         generator=tts.generator, cfg_slice=True)
+            wav = wav[:, : max(1, n_voc - 1) * 960]              # the 40 ms trim
+            wall = time.perf_counter() - t0
+            forwards += res.n_forward
+            if (n_voc != vocoded_tokens(res, True) or wav.shape[1] != max(1, n_voc - 1) * 960
+                    or not np.isfinite(wav).all()):
+                raise AssertionError(f"multilingual {lang}: {wav.shape} of {n_voc} tokens")
+            audio_s = wav.shape[1] / 24000
+            log(f"multilingual {lang} request ({ids.shape[1]} text ids, {text[:40]!r}): "
+                f"{wall:.4f} s for {audio_s:.2f} s of audio ({n_voc} vocoded tokens of "
+                f"{N_TOKENS}, 40 ms trimmed) -> x-realtime {audio_s / wall:.3f}; T3 "
+                f"{t1 - t0:.4f} s ({(t1 - t0) / N_TOKENS * 1e3:.3f} ms/token), S3Gen "
+                f"{wall - (t1 - t0):.4f} s")
+        counts = read_counts()
+        check_counts(counts, f"multilingual, {L} layers x {forwards} decode steps",
+                     {k: L * forwards for k in LLAMA})
+
+        ids, sp = tts._request(MTL_SAMPLES["fr"], "fr", None, 0.5, **sampler)
+        stream_tokens_equal(tts, "multilingual fr", dict(ids=ids, sp=sp, cfg_mode=True))
+        stream_kw = dict(language_id="fr", exaggeration=0.5, **sampler)
+        for k, v in timed_streams(tts, "multilingual fr", LLAMA, stream_kw,
+                                  text=MTL_SAMPLES["fr"], runs=1, profiled=False).items():
+            counts[k] = counts.get(k, 0) + v
+
+        # greedy (min_p = 1): the stream decodes generate's tokens, so its
+        # samples are generate's, both less the last token's 40 ms
+        greedy = dict(sampler, min_p=1.0)
+        tts.set_seed(45)
+        one = tts.generate(MTL_SAMPLES["ko"], language_id="ko", max_new_tokens=N_TOKENS,
+                           **greedy)
+        toks = tts.last_decode.tokens[: int(tts.last_decode.n_tokens)].cpu().numpy()
+        n_voc = vocoded_tokens(tts.last_decode, True)
+        tts.set_seed(45)
+        stream = sum(len(c) for c in tts.generate_stream(
+            MTL_SAMPLES["ko"], language_id="ko", max_new_tokens=N_TOKENS,
+            chunk_tokens=STREAM_CHUNK, **greedy))
+        # the stream cannot take back audio before a stray start token
+        stray_sos = bool((toks[:np.argmax(np.append(toks == EOS, True))] == SOS).any())
+        log(f"multilingual ko greedy: generate {one.shape[1]} samples ({n_voc} vocoded tokens, "
+            f"{max(1, n_voc - 1)} after the trim), generate_stream {stream} samples"
+            f"{' (a start token mid-stream: the stream keeps the audio before it)' if stray_sos else ''}")
+        if one.shape[1] != max(1, n_voc - 1) * 960 or (not stray_sos and stream != one.shape[1]):
+            raise AssertionError("multilingual: the stream's samples differ from generate's")
+    return counts
+
+
+def verify_check(tts, cond, ids, K: int) -> float:
+    """The target's verify forward over a (K+1)-token slab [BOS, K random
+    speech tokens] against K+1 single-token steps from the same prefill:
+    the max logit error, which must stay within VERIFY_TOL of the logits'
+    scale. Returns that bound in logits."""
+    import torch
+    from chatterbox_tpu_torch.models.t3 import backbone as bb
+    from chatterbox_tpu_torch.models.t3 import model as t3m
+    from chatterbox_tpu_torch.nn import core as nn
+    from chatterbox_tpu_torch.sampling.decode import prefill
+    p, hp = tts.t3_params, tts.hp
+    g = torch.Generator(device="cuda").manual_seed(46)
+    slab = torch.cat([torch.tensor([hp.start_speech_token], device="cuda"),
+                      torch.randint(0, S3_VOCAB, (K,), generator=g, device="cuda")])
+    with torch.no_grad():
+        cache, _, P = prefill(p, hp, cond, ids, 1, False, K + 1)
+        steps_cache = bb.KVCache(cache.k.clone(), cache.v.clone())
+        pos = P - 1 + torch.arange(K + 1, device="cuda")
+        emb = nn.embedding(p["speech_emb"], slab[None]).to(p["speech_emb"]["w"].dtype)
+        h = bb.backbone_apply(p["backbone"], hp.backbone, emb, pos[None], cache, P - 1)
+        verify = t3m.speech_logits(p, h[0]).float()
+        single = []
+        for i in range(K + 1):
+            emb = t3m.speech_embed_token(p, hp, slab[i].view(1), i)
+            h = bb.backbone_apply(p["backbone"], hp.backbone, emb,
+                                  torch.full((1, 1), P - 1 + i, device="cuda"), steps_cache,
+                                  P - 1 + i)
+            single.append(t3m.speech_logits(p, h[:, 0]).float()[0])
+        single = torch.stack(single)
+    err, scale = float((verify - single).abs().max()), float(single.abs().max())
+    bound = VERIFY_TOL * scale
+    log(f"speculative verify ({K + 1}-token slab, bf16 target) against {K + 1} single steps "
+        f"on the same cache: max logit error {err:.4e} (scale {scale:.3f}, bound {bound:.4e} "
+        f"= {VERIFY_TOL} of the scale)")
+    if not err <= bound:
+        raise AssertionError(f"speculative verify differs from single steps: {err} > {bound}")
+    return bound
+
+
+def greedy_check(tts, draft, cond, ids, bound: float) -> None:
+    """top_k=1, 250 tokens, EOS ignored: the speculative tokens (int8 draft,
+    K=4) against sequential t3_generate on the same bf16 target. Where they
+    part, the sequential top-2 logit gap at that step must be below the
+    verify bound (slab and step round apart there)."""
+    import torch
+    from chatterbox_tpu_torch.ops.sampling import SamplerParams
+    from chatterbox_tpu_torch.sampling.decode import decode_step, prefill, t3_generate
+    from chatterbox_tpu_torch.sampling.speculative import t3_generate_speculative
+    sp = SamplerParams(0.8, 0.95, 1.2)
+    seq = t3_generate(tts.t3_params, tts.hp, cond, ids, sp, max_new_tokens=N_TOKENS, top_k=1,
+                      ignore_eos=True)
+    res = t3_generate_speculative(tts.t3_params, draft.t3_params, tts.hp, draft.hp, cond, cond,
+                                  ids, sp, max_new_tokens=N_TOKENS, n_draft=4, top_k=1,
+                                  ignore_eos=True)
+    differ = torch.nonzero(seq.tokens != res.tokens).flatten().tolist()
+    msg = (f"greedy speculative (int8 draft, K=4): {N_TOKENS - len(differ)} of {N_TOKENS} "
+           f"tokens equal sequential t3_generate's on the bf16 target; {res.n_rounds} rounds, "
+           f"acceptance {res.n_accepted / res.n_drafted:.3f}")
+    if not differ:
+        log(msg)
+        return
+    j = differ[0]
+    with torch.no_grad():
+        cache, logits, P = prefill(tts.t3_params, tts.hp, cond, ids, 1, False, j + 1)
+        for s in range(j):
+            logits = decode_step(tts.t3_params, tts.hp, seq.tokens[s], s, cache, P + s)
+    top2 = torch.topk(logits[0], 2).values
+    gap = float(top2[0] - top2[1])
+    log(f"{msg}; they part at step {j}, where the sequential top-2 logit gap is {gap:.4e} "
+        f"(verify bound {bound:.4e})")
+    if not gap <= bound:
+        raise AssertionError(f"greedy speculative parts from sequential at step {j} with a "
+                             f"top-2 gap {gap} above the verify bound {bound}")
+
+
+def _time_decode(fn, runs: int = 3):
+    """fn() `runs` times, synced: (walls, the last result)."""
+    import torch
+    walls = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return walls, res
+
+
+def speculative_path(turbo) -> dict:
+    """Phase 8, speculative Turbo: the seed-0 Turbo T3 in bf16, unquantized,
+    as target (phase 5's S3Gen and conditionals); its int8_fused self-draft
+    (B1 / B2). The verify slab against single steps; greedy tokens against
+    sequential; three timed decodes of 250 tokens (EOS ignored, Turbo's
+    sampler) at each of SPEC_K (B1 / B2 launched layers x (K+1) x rounds,
+    nothing else), the sequential bf16 target (no kernel) and phase 5's
+    int8_fused Turbo (B1 / B2 layers x steps) in the same call;
+    generate(draft="int8") end to end; a Nano draft pipeline (plain int8,
+    no kernel). Returns the launch counts of the timed runs."""
+    import numpy as np
+    import torch
+    from chatterbox_tpu_torch import ChatterboxTurboTTS
+    from chatterbox_tpu_torch.models.t3 import model as t3m
+    from chatterbox_tpu_torch.models.t3.config import T3Config
+    from chatterbox_tpu_torch.ops.sampling import SamplerParams
+    from chatterbox_tpu_torch.sampling.decode import t3_generate
+    from chatterbox_tpu_torch.sampling.speculative import t3_generate_speculative
+    from chatterbox_tpu_torch.utils.quantize import cast_params
+    hp = turbo.hp
+    target = ChatterboxTurboTTS(cast_params(t3m.t3_init(hp, seed=0, device="cuda"),
+                                            torch.bfloat16),
+                                hp, turbo.s3gen, turbo.ve_params, turbo.tokenizer, turbo.conds,
+                                seed=0)
+    draft = target._quantized_self_draft()
+    cond = turbo.conds.t3.as_tensors("cuda")
+    ids = torch.as_tensor(turbo_ids(turbo, PHASE5_TEXT), device="cuda").long()
+    sp = SamplerParams(0.8, 0.95, 1.2)
+    L = hp.backbone.num_layers
+    t0 = time.perf_counter()
+    bound = verify_check(target, cond, ids, max(SPEC_K))
+    greedy_check(target, draft, cond, ids, bound)
+    log(f"speculative checks {time.perf_counter() - t0:.1f} s")
+
+    def spec(K, params=draft.t3_params, dhp=hp, n=N_TOKENS):
+        return t3_generate_speculative(target.t3_params, params, hp, dhp, cond, cond, ids, sp,
+                                       max_new_tokens=n, n_draft=K, top_k=1000, ignore_eos=True,
+                                       generator=target.generator)
+
+    counts = {}
+    for K in SPEC_K:
+        spec(K, n=WARMUP_TOKENS)                                         # warm-up
+        reset_counts()
+        walls, rounds, drafted, accepted = [], 0, 0, 0
+        for _ in range(3):
+            w, res = _time_decode(lambda: spec(K), runs=1)
+            walls += w
+            rounds, drafted, accepted = (rounds + res.n_rounds, drafted + res.n_drafted,
+                                         accepted + res.n_accepted)
+            if int(res.n_tokens) != N_TOKENS:
+                raise AssertionError(f"speculative K={K}: {int(res.n_tokens)} tokens")
+        part = read_counts()
+        check_counts(part, f"speculative K={K}, {L} layers x {K + 1} draft steps x {rounds} "
+                     f"rounds", {k: L * (K + 1) * rounds for k in GPT2})
+        for k, v in part.items():
+            counts[k] = counts.get(k, 0) + v
+        log(f"speculative Turbo (bf16 target, int8_fused self-draft) K={K}: "
+            f"{[round(w, 4) for w in walls]} s for {N_TOKENS} tokens -> "
+            f"{min(walls) / N_TOKENS * 1e3:.3f} ms/token (best of 3); acceptance "
+            f"{accepted / drafted:.3f} ({accepted} of {drafted}); {rounds / 3:.1f} rounds "
+            f"a request ({N_TOKENS * 3 / rounds:.2f} tokens a round)")
+
+    for label, tts, kernels in (("sequential bf16 target", target, ()),
+                                ("sequential int8_fused (phase 5's Turbo)", turbo, GPT2)):
+        def seq(tts=tts):
+            return t3_generate(tts.t3_params, hp, cond, ids, sp, max_new_tokens=N_TOKENS,
+                               top_k=1000, ignore_eos=True, generator=tts.generator)
+        seq()                                                            # warm-up
+        reset_counts()
+        walls, res = _time_decode(seq)
+        part = read_counts()
+        check_counts(part, f"{label}, {L} layers x {3 * res.n_forward} decode steps",
+                     {k: L * 3 * res.n_forward for k in kernels})
+        for k, v in part.items():
+            counts[k] = counts.get(k, 0) + v
+        log(f"{label}: {[round(w, 4) for w in walls]} s for {N_TOKENS} tokens -> "
+            f"{min(walls) / N_TOKENS * 1e3:.3f} ms/token (best of 3)")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    wav = target.generate(PHASE5_TEXT, draft="int8", n_draft=4, top_k=1000,
+                          max_new_tokens=N_TOKENS)
+    wall = time.perf_counter() - t0
+    res = target.last_decode
+    part = read_counts()
+    check_counts(part, f"generate(draft='int8'), {L} layers x 5 draft steps x "
+                 f"{res.n_rounds} rounds", {k: L * 5 * res.n_rounds for k in GPT2})
+    for k, v in part.items():
+        counts[k] = counts.get(k, 0) + v
+    if not (wav.ndim == 2 and wav.shape[1] > 0 and np.isfinite(wav).all()):
+        raise AssertionError(f"generate(draft='int8') gave {wav.shape}")
+    log(f"Turbo generate(draft='int8', n_draft=4): {int(res.n_tokens)} tokens "
+        f"({res.n_rounds} rounds, acceptance {res.n_accepted / max(res.n_drafted, 1):.3f}), "
+        f"{wav.shape[1] / 24000:.2f} s of audio in {wall:.3f} s -> x-realtime "
+        f"{wav.shape[1] / 24000 / wall:.3f}")
+
+    nano_hp = T3Config.nano()
+    nano = ChatterboxTurboTTS(ChatterboxTurboTTS._random_t3(nano_hp, 50, "cuda"), nano_hp,
+                              turbo.s3gen, turbo.ve_params, turbo.tokenizer, turbo.conds,
+                              seed=50, model_label="Nano")
+    wav = target.generate(PHASE5_TEXT, draft=nano, n_draft=4, max_new_tokens=WARMUP_TOKENS)
+    if not (wav.ndim == 2 and np.isfinite(wav).all()):
+        raise AssertionError(f"generate(draft=nano) gave {wav.shape}")
+    reset_counts()
+    walls, res = _time_decode(lambda: spec(4, nano.t3_params, nano_hp, n=NANO_TOKENS), runs=1)
+    check_counts(read_counts(), "speculative with the Nano draft (plain int8, no kernel)", {})
+    log(f"speculative Turbo with a Nano draft pipeline (GPT-2-small, int8), K=4: "
+        f"{walls[0]:.4f} s for {NANO_TOKENS} tokens -> "
+        f"{walls[0] / NANO_TOKENS * 1e3:.3f} ms/token; acceptance "
+        f"{res.n_accepted / res.n_drafted:.3f}; {res.n_rounds} rounds")
+    return counts
+
+
 def int4_pipeline(tts, mode: str, seed: int):
     """The pipeline `tts` with its T3 weights drawn again from `seed` (as
     random_init draws them), cast to bf16 and quantized in `mode`; the S3Gen
@@ -2324,6 +2769,13 @@ def main(argv) -> int:
     for k, v in streaming_path(turbo, cfg520).items():
         launches[k] = launches.get(k, 0) + v
     log(f"phase 7 (streaming and VC) {time.perf_counter() - t0:.1f} s")
+    del cfg520
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for part in (multilingual_path(), speculative_path(turbo)):
+        for k, v in part.items():
+            launches[k] = launches.get(k, 0) + v
+    log(f"phase 8 (multilingual and speculative) {time.perf_counter() - t0:.1f} s")
     for r in rows:
         r["launches"] = launches[r["name"]]
         if r["name"] in PHASE3_ONLY:

@@ -15,6 +15,7 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from chatterbox_tpu.api.pipelines import ChatterboxMultilingualTTS as JMTL  # noqa: E402
 from chatterbox_tpu.api.pipelines import ChatterboxTTS as JCfgTTS  # noqa: E402
 from chatterbox_tpu.api.pipelines import ChatterboxTurboTTS as JTTS  # noqa: E402
 from chatterbox_tpu.api.pipelines import Conditionals as JConds  # noqa: E402
@@ -196,11 +197,13 @@ def test_conds_pt_from_jax_loads_in_port(tmp_path):
 
 
 @pytest.mark.parametrize("port_cls,jax_cls", [(port.ChatterboxTurboTTS, JTTS),
-                                               (port.ChatterboxTTS, JCfgTTS)])
+                                               (port.ChatterboxTTS, JCfgTTS),
+                                               (port.ChatterboxMultilingualTTS, JMTL)])
 def test_generate_takes_only_the_jax_pipelines_knobs(port_cls, jax_cls):
     """No ignore_eos (a benchmark decodes through t3_generate, as bench.py
     does); every knob of the port's generate and generate_stream is one the
-    JAX pipeline's method has."""
+    JAX pipeline's method has (Turbo's draft= and n_draft= included; the
+    multilingual generate has no kv_int8, as JAX's has none)."""
     ours = set(inspect.signature(port_cls.generate).parameters)
     assert "ignore_eos" not in ours
     assert ours <= set(inspect.signature(jax_cls.generate).parameters)
@@ -242,7 +245,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "audio/filters", "audio/mels", "audio/resample", "audio/stft",
         "convert/native_ckpt", "convert/weights", "models/s3gen/campplus",
         "models/s3tok/model", "models/ve/model", "text/tokenizer", "utils/audio_io",
-        "utils/loudness", "sampling/chunked", "serve/streaming")} <= walked
+        "utils/loudness", "sampling/chunked", "serve/streaming",
+        "sampling/speculative")} <= walked
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
