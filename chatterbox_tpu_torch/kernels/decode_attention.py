@@ -46,7 +46,7 @@ import math
 
 import torch
 
-from .fused_layer import _check, _check_device
+from .fused_layer import _check, _check_device, count_launch
 
 launches = {"decode_attention_streamed": 0, "decode_attention_streamed_int8": 0,
             "decode_attention": 0}
@@ -288,7 +288,7 @@ def _launch_split(name, q, k, v, cur_len, lo, splits=None, tiled=True, k_s=None,
         _stream(q.device))
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    launches[name] += 1
+    count_launch(launches, name)
     return out
 
 

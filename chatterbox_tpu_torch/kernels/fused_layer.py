@@ -48,12 +48,22 @@ Pallas kernels.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
 launches = {"ln_qkv_int8": 0, "attnout_ln_mlp_int8": 0,
             "rms_qkv_int8": 0, "attnout_rms_glu_int8": 0,
             "ln_qkv_int4": 0, "attnout_ln_mlp_int4": 0}
+_count_lock = threading.Lock()
+
+
+def count_launch(counter: dict, name: str) -> None:
+    """Count one launch of `name` in `counter` (under a lock: the serving
+    loops launch kernels from their own thread)."""
+    with _count_lock:
+        counter[name] += 1
+
 
 MAX_B = 16           # rows a kernel call takes (csrc: row instances 2-16)
 K_STEP = 512         # contraction bytes a warp reads per iteration
@@ -629,7 +639,7 @@ def ln_qkv_int8(x, g, b, w_t, s, bias, eps: float):
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"ln_qkv_int8 launch failed: CUDA error {err}")
-    launches["ln_qkv_int8"] += 1
+    count_launch(launches, "ln_qkv_int8")
     return out
 
 
@@ -692,7 +702,7 @@ def attnout_ln_mlp_int8_tiled(a, xres, wo_t, so, bo, g2, be2, w1_t, s1, b1, w2_t
         down_splits, int(pdl), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"attnout_ln_mlp_int8 launch failed: CUDA error {err}")
-    launches["attnout_ln_mlp_int8"] += 1
+    count_launch(launches, "attnout_ln_mlp_int8")
     return out
 
 
@@ -716,7 +726,7 @@ def rms_qkv_int8(x, g, w_t, s, eps: float):
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"rms_qkv_int8 launch failed: CUDA error {err}")
-    launches["rms_qkv_int8"] += 1
+    count_launch(launches, "rms_qkv_int8")
     return out
 
 
@@ -772,7 +782,7 @@ def attnout_rms_glu_int8_tiled(a, xres, wo_t, so, g2, wg_t, sg, wu_t, su, wd_t, 
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"attnout_rms_glu_int8 launch failed: CUDA error {err}")
-    launches["attnout_rms_glu_int8"] += 1
+    count_launch(launches, "attnout_rms_glu_int8")
     return out
 
 
@@ -823,7 +833,7 @@ def ln_qkv_int4_tiled(x, g, b, wp_t, slo_t, shi_t, bias, eps: float, cols: int):
         out.data_ptr(), B, D, N, cols, eps, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"ln_qkv_int4 launch failed: CUDA error {err}")
-    launches["ln_qkv_int4"] += 1
+    count_launch(launches, "ln_qkv_int4")
     return out
 
 
@@ -885,7 +895,7 @@ def attnout_ln_mlp_int4_tiled(a, xres, wo_t, so_lo, so_hi, bo, g2, be2, w1c_t, s
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"attnout_ln_mlp_int4 launch failed: CUDA error {err}")
-    launches["attnout_ln_mlp_int4"] += 1
+    count_launch(launches, "attnout_ln_mlp_int4")
     return out
 
 

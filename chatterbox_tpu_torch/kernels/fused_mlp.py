@@ -29,7 +29,7 @@ import torch
 
 from .fused_layer import (_ACT, _F32, _I8, GELU_UNITS, _check, _check_device,
                           _gelu_new_f32, _kernels, _ln_bf16, _mlp_tile_limits,
-                          _warp_dot_i8, gelu_tiling, tc_phases_limits)
+                          _warp_dot_i8, count_launch, gelu_tiling, tc_phases_limits)
 
 launches = {"fused_mlp_int8": 0}
 
@@ -100,5 +100,5 @@ def fused_mlp_int8_tiled(x, ln_g, ln_b, w1_q, s1, b1, w2_q, s2, b2, gelu_units: 
         int(pdl), torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"fused_mlp_int8 launch failed: CUDA error {err}")
-    launches["fused_mlp_int8"] += 1
+    count_launch(launches, "fused_mlp_int8")
     return out

@@ -44,8 +44,8 @@ from __future__ import annotations
 import torch
 
 from .fused_layer import (GROUP, SMEM_LIMIT, _ACT, _F32, _I8, _check, _check_device,
-                          int4_block_sum, int4_kernels, int4_smem, row_split_dots,
-                          unpack_int4)
+                          count_launch, int4_block_sum, int4_kernels, int4_smem,
+                          row_split_dots, unpack_int4)
 
 launches = {"matmul_int4": 0}
 
@@ -148,7 +148,7 @@ def matmul_int4_tiled(x, w, s_lo, s_hi, out_dtype, cols: int, splits: int):
         cols, splits, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"matmul_int4 launch failed: CUDA error {err}")
-    launches["matmul_int4"] += 1
+    count_launch(launches, "matmul_int4")
     return out
 
 

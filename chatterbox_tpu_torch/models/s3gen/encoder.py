@@ -4,12 +4,16 @@ mel-rate features (the counterpart of chatterbox_tpu/models/s3gen/encoder.py).
 linear embed + LN -> espnet rel-pos -> PreLookahead(3) -> conformer blocks ->
 nearest 2x upsample conv -> linear embed + LN -> conformer blocks -> LN.
 Each block: pre-norm rel-pos MHA (Transformer-XL pos_bias_u/v + rel_shift)
-and a pre-norm SiLU feed-forward. The port runs one utterance at its exact
-length, so no padding masks are needed.
+and a pre-norm SiLU feed-forward. One utterance runs at its exact length
+with no mask; a batch of rows of different lengths (the batched vocode)
+passes `lens`, which masks each row's keys past its length and zeroes its
+pad before the lookahead conv, so each row's frames are its exact-length
+result up to rounding.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -32,6 +36,24 @@ def espnet_rel_pos(T: int, d_model: int) -> np.ndarray:
     return pe[None].astype(np.float32)
 
 
+_REL_POS: dict = {}        # (d, device, dtype) -> the longest table made so far
+
+
+def rel_pos_table(T: int, d: int, device, dtype) -> torch.Tensor:
+    """espnet_rel_pos(T, d) on `device`: the middle 2T-1 rows of one longer
+    table per (d, device, dtype), made on the host and copied once (through
+    pinned memory on the card, so a call never waits for the device)."""
+    key = (d, str(device), dtype)
+    tab = _REL_POS.get(key)
+    if tab is None or (tab.shape[1] + 1) // 2 < T:
+        t = torch.from_numpy(espnet_rel_pos(max(T, 1024), d))
+        if torch.device(device).type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        _REL_POS[key] = tab = t.to(device, dtype)
+    n = (tab.shape[1] + 1) // 2
+    return tab[:, n - T:n - 1 + T]
+
+
 def rel_shift(x: torch.Tensor) -> torch.Tensor:
     """(B, H, T, 2T-1) -> (B, H, T, T) Transformer-XL shift."""
     B, H, T, L = x.shape
@@ -51,7 +73,8 @@ def rel_attn_init(init: nn.Init, d: int, n_heads: int) -> dict:
 
 
 def rel_attn_apply(p: dict, x: torch.Tensor, pos_emb: torch.Tensor,
-                   n_heads: int) -> torch.Tensor:
+                   n_heads: int, key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (B, T, D); key_mask (B, T) bool or None (every key attends)."""
     B, T, D = x.shape
     hd = D // n_heads
     q = nn.split_heads(nn.linear(p["q"], x), n_heads)
@@ -60,8 +83,14 @@ def rel_attn_apply(p: dict, x: torch.Tensor, pos_emb: torch.Tensor,
     pe = nn.linear(p["pos"], pos_emb).reshape(1, -1, n_heads, hd).transpose(1, 2)
     ac = (q + p["pos_bias_u"][None, :, None, :]) @ k.transpose(-1, -2)
     bd = rel_shift((q + p["pos_bias_v"][None, :, None, :]) @ pe.transpose(-1, -2))
-    probs = torch.softmax((ac + bd) / math.sqrt(hd), dim=-1)
-    return nn.linear(p["out"], nn.merge_heads(probs @ v))
+    scores = (ac + bd) / math.sqrt(hd)
+    if key_mask is None:
+        probs = torch.softmax(scores, dim=-1)
+    else:
+        m = key_mask[:, None, None, :]
+        low = torch.finfo(scores.dtype).min
+        probs = torch.where(m, torch.softmax(torch.where(m, scores, low), dim=-1), 0.0)
+    return nn.linear(p["out"], nn.merge_heads(probs.to(v.dtype) @ v))
 
 
 def conformer_layer_init(init: nn.Init, d: int, n_heads: int, ff: int) -> dict:
@@ -70,10 +99,10 @@ def conformer_layer_init(init: nn.Init, d: int, n_heads: int, ff: int) -> dict:
             "ff_out": init.linear(ff, d)}
 
 
-def conformer_layer_apply(p: dict, x, pos_emb, n_heads: int):
+def conformer_layer_apply(p: dict, x, pos_emb, n_heads: int, key_mask=None):
     """Pre-norm attention + pre-norm SiLU FF, LN eps 1e-12."""
     x = x + rel_attn_apply(p["attn"], nn.layer_norm(p["norm_mha"], x, 1e-12),
-                           pos_emb, n_heads)
+                           pos_emb, n_heads, key_mask)
     h = nn.layer_norm(p["norm_ff"], x, 1e-12)
     return x + nn.linear(p["ff_out"], nn.silu(nn.linear(p["ff_in"], h)))
 
@@ -97,7 +126,7 @@ def upsample_encoder_init(init: nn.Init, d: int = 512, n_heads: int = 8,
 def _embed(p: dict, x: torch.Tensor, d: int):
     """Linear + LN(eps 1e-5), scaled by sqrt(d), plus the rel-pos table."""
     x = nn.layer_norm(p["norm"], nn.linear(p["linear"], x), 1e-5) * math.sqrt(d)
-    pos = torch.from_numpy(espnet_rel_pos(x.shape[1], d)).to(x.device, x.dtype)
+    pos = rel_pos_table(x.shape[1], d, x.device, x.dtype)
     return x, pos
 
 
@@ -108,16 +137,25 @@ def pre_lookahead_apply(p: dict, x: torch.Tensor, lookahead: int = 3):
 
 
 def upsample_encoder_apply(params: dict, x: torch.Tensor, d: int = 512,
-                           n_heads: int = 8) -> torch.Tensor:
-    """x (B, T, d) token features -> (B, 2T, d)."""
+                           n_heads: int = 8, lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (B, T, d) token features -> (B, 2T, d). lens (B,) long: each row's
+    valid tokens (None: every row is T long); frames past 2 * lens[b] of
+    row b are rubbish for the caller to mask."""
+    key_mask = key_mask2 = None
+    if lens is not None:
+        key_mask = torch.arange(x.shape[1], device=x.device)[None] < lens[:, None]
+        key_mask2 = torch.arange(2 * x.shape[1], device=x.device)[None] < 2 * lens[:, None]
     x, pos = _embed(params["embed"], x, d)
+    if key_mask is not None:
+        # the lookahead conv then sees the zeros an exact-length run sees
+        x = x * key_mask[..., None].to(x.dtype)
     x = pre_lookahead_apply(params["pre_lookahead"], x)
     for blk in params["blocks"]:
-        x = conformer_layer_apply(blk, x, pos, n_heads)
+        x = conformer_layer_apply(blk, x, pos, n_heads, key_mask)
     # nearest x2, then a left-padded conv k=5
     x = nn.conv1d(params["up_conv"], torch.repeat_interleave(x, 2, dim=1),
                   padding=(4, 0))
     x, pos2 = _embed(params["up_embed"], x, d)
     for blk in params["up_blocks"]:
-        x = conformer_layer_apply(blk, x, pos2, n_heads)
+        x = conformer_layer_apply(blk, x, pos2, n_heads, key_mask2)
     return nn.layer_norm(params["after_norm"], x, 1e-5)

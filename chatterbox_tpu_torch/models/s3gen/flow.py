@@ -1,7 +1,9 @@
 """Flow front of S3Gen: speech tokens -> conformer encoder (mu) -> meanflow
 or CFG flow matching -> mel (the counterpart of
-chatterbox_tpu/models/s3gen/flow.py). Runs in float32, one utterance at its
-exact length."""
+chatterbox_tpu/models/s3gen/flow.py). Runs in float32: `flow_inference`
+one utterance at its exact length, `flow_inference_batch` rows of different
+prompt and generated lengths in one masked call (the batched vocode), each
+row's valid frames its exact-length result up to rounding."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -78,3 +80,39 @@ def flow_inference(params: dict, token: torch.Tensor, prompt_len: int,
     solve = solve_euler_meanflow if meanflow else solve_euler_cfg
     return solve(params["decoder"], z, mu, spks, conds, n_timesteps=n_timesteps,
                  n_heads=dims.unet_heads)
+
+
+def flow_inference_batch(params: dict, token: torch.Tensor, token_len: torch.Tensor,
+                         prompt_len: torch.Tensor, prompt_feat: torch.Tensor,
+                         embedding: torch.Tensor, z: torch.Tensor, n_timesteps: int = 2,
+                         dims: FlowDims = FlowDims(), meanflow: bool = True) -> torch.Tensor:
+    """The masked counterpart of flow_inference (JAX `flow_inference` with
+    per-row lengths). token (B, T) rows [prompt_b | gen_b | pad]; token_len
+    (B,) long P_b + G_b and prompt_len (B,) long P_b, on the device;
+    prompt_feat (B, T_feat, 80) each voice's prompt mels, zero-padded;
+    embedding (B, 192); z (B, 2T, 80) each row's starting noise over its
+    [prompt | gen] frames. The encoder and the estimator run in their
+    parameters' type (the batched vocode may cast both to bfloat16); mu
+    and the Euler state stay float32. Returns mels (B, 2T, 80); row b's
+    generated region is [2 P_b, 2 (P_b + G_b))."""
+    B, T = token.shape
+    dev = token.device
+    emb = embedding / torch.linalg.norm(embedding, dim=-1, keepdim=True)
+    spks = nn.linear(params["spk_embed_affine"], emb)
+    mask_tok = torch.arange(T, device=dev)[None] < token_len[:, None]
+    x = nn.embedding(params["input_embedding"], token) * mask_tok[..., None]
+    enc_dt = params["encoder"]["after_norm"]["g"].dtype
+    h = upsample_encoder_apply(params["encoder"], x.to(enc_dt), d=dims.enc_dim,
+                               n_heads=dims.enc_heads, lens=token_len)
+    mu = nn.linear(params["encoder_proj"], h.float())              # (B, 2T, 80)
+    T_mel = mu.shape[1]
+    frames = torch.arange(T_mel, device=dev)[None]
+    mask_mel = frames < TOKEN_MEL_RATIO * token_len[:, None]
+    pf = prompt_feat[:, :T_mel]
+    if pf.shape[1] < T_mel:
+        pf = torch.nn.functional.pad(pf, (0, 0, 0, T_mel - pf.shape[1]))
+    # conditioning: each row's prompt mels, then zeros
+    conds = torch.where((frames < TOKEN_MEL_RATIO * prompt_len[:, None])[..., None], pf, 0.0)
+    solve = solve_euler_meanflow if meanflow else solve_euler_cfg
+    return solve(params["decoder"], z, mu, spks, conds, n_timesteps=n_timesteps,
+                 n_heads=dims.unet_heads, mask=mask_mel)

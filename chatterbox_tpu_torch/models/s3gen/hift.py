@@ -4,8 +4,9 @@ chatterbox_tpu/models/s3gen/hift.py).
 f0 predictor -> x480 f0 upsample -> harmonic sine source -> source STFT
 (n_fft 16, hop 4) fused into a 3-stage ConvTranspose upsampler (8, 5, 3)
 with Snake resblocks -> conv_post -> exp-magnitude / sin-phase iSTFT ->
-clamp +-0.99. The STFT and iSTFT are torch.stft / torch.istft with the
-periodic Hann window. Inside the decoder the layout is channels-first
+clamp +-0.99. The STFT is torch.stft with the periodic Hann window; the
+iSTFT is torch.istft's computation written out (`_istft`), without its
+host read. Inside the decoder the layout is channels-first
 (B, C, T); the public functions keep the JAX package's (B, T, C).
 """
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from ...nn import core as nn
 
@@ -169,9 +171,27 @@ def hift_decode(params: dict, mel: torch.Tensor, s: torch.Tensor) -> torch.Tenso
     magnitude = torch.clamp(torch.exp(x[:, :n_half]), max=1e2)
     phase = torch.sin(x[:, n_half:])
     spec_o = torch.complex(magnitude * torch.cos(phase), magnitude * torch.sin(phase))
-    wav = torch.istft(spec_o, ISTFT_NFFT, ISTFT_HOP, ISTFT_NFFT, window=win,
-                      center=True)
-    return torch.clamp(wav, -AUDIO_LIMIT, AUDIO_LIMIT)
+    return torch.clamp(_istft(spec_o, win), -AUDIO_LIMIT, AUDIO_LIMIT)
+
+
+def _istft(spec: torch.Tensor, win: torch.Tensor) -> torch.Tensor:
+    """torch.istft(spec, ISTFT_NFFT, ISTFT_HOP, ISTFT_NFFT, window=win,
+    center=True) written out: each frame's inverse real FFT, windowed and
+    overlap-added, divided by the window's squared overlap-add, the centre
+    padding trimmed. torch.istft also checks the window's envelope on the
+    host, a read that would wait for the device."""
+    n_fft, hop = ISTFT_NFFT, ISTFT_HOP
+    n_frames = spec.shape[-1]
+    frames = torch.fft.irfft(spec.transpose(1, 2), n=n_fft) * win      # (B, F, n_fft)
+    n = n_fft + hop * (n_frames - 1)
+
+    def overlap_add(f):
+        return F.fold(f.transpose(1, 2), (1, n), (1, n_fft), stride=(1, hop))[:, 0, 0]
+
+    y = overlap_add(frames)
+    env = overlap_add((win * win).expand(1, n_frames, n_fft))
+    lo, hi = n_fft // 2, n - n_fft // 2
+    return y[:, lo:hi] / env[:, lo:hi]
 
 
 def hift_inference(params: dict, mel: torch.Tensor,

@@ -29,6 +29,18 @@ changes. The JAX package vocodes a feed at a mel bucket instead, with every
 frame past the vocoded length at MEL_FLOOR; where that bucket is the tip
 (exact buckets, all tokens valid) the two agree. A voice's tensors are
 uploaded once per RefDict object (`device_ref`).
+
+The batched vocode (`inference_batch`, `_dispatch`, `_fetch`; serving)
+runs B requests, possibly in different voices, through ONE masked flow
+call (models/s3gen/flow.py `flow_inference_batch`), then HiFT over each
+row's generated region at its exact length and the trim-fade. The JAX
+package pads every row's mels with MEL_FLOOR to a shared bucket before one
+batched HiFT call; HiFT's receptive field then carries the padding into a
+row's last frames, so a row's audio would depend on its batchmates. Each
+row's random numbers come from its own generator or S3GenNoise, so a row's
+audio is the same alone, in any batch, and from `inference`. There is no
+padding of the batch axis (XLA's compile reuse) and no compile grid
+(`warmup_grid`).
 """
 from __future__ import annotations
 
@@ -40,9 +52,11 @@ import torch
 from ...audio.mels import mel_spectrogram_24k
 from ...audio.resample import resample
 from ...nn import core as nn
+from ...utils.quantize import cast_params
 from ..s3tok.model import S3_SR, S3TokenizerConfig, s3tokenizer_init, s3tokenizer_tokenize
 from .campplus import campplus_embed_wav, campplus_init
-from .flow import FlowDims, TOKEN_MEL_RATIO, flow_init, flow_inference
+from .flow import (FlowDims, TOKEN_MEL_RATIO, flow_inference, flow_inference_batch,
+                   flow_init)
 from .hift import TOTAL_UPSAMPLE, SourceNoise, hift_inference, hift_init
 
 S3GEN_SR = 24_000
@@ -122,18 +136,42 @@ def pack_tokens(gen_tokens: torch.Tensor, n_raw, prompt_token: torch.Tensor,
     return torch.cat([prompt_token.reshape(-1).long(), gen, sil])[None]
 
 
+def pack_prompt_gen(token_rows: list, refs: list):
+    """Pack B requests' [prompt | gen] token rows, zero-padded to the batch's
+    longest P + G. token_rows: (G_b,) host ids below the flow's vocabulary;
+    refs: RefDicts. Returns (tokens (B, max P + G) int64 numpy, Ps, Gs)."""
+    Ps = [int(np.asarray(r.prompt_token_len).reshape(-1)[0]) for r in refs]
+    rows = [np.asarray(t).reshape(-1) for t in token_rows]
+    Gs = [len(t) for t in rows]
+    tokens = np.zeros((len(rows), max(p + g for p, g in zip(Ps, Gs))), np.int64)
+    for i, (r, t) in enumerate(zip(refs, rows)):
+        if len(t) and (t.min() < 0 or t.max() >= SPEECH_VOCAB_SIZE):
+            raise ValueError(f"row {i}: speech token ids must lie in [0, {SPEECH_VOCAB_SIZE})")
+        tokens[i, :Ps[i]] = np.asarray(r.prompt_token).reshape(-1)[:Ps[i]]
+        tokens[i, Ps[i]:Ps[i] + Gs[i]] = t
+    return tokens, Ps, Gs
+
+
 class S3GenEngine:
     """Owns the parameters of an S3Gen: meanflow (Turbo, 2 steps by default)
     or CFM with CFG (520M, 10 steps), and the frontend (`tokenizer`,
-    `speaker_encoder`) that embed_ref and tokenize need."""
+    `speaker_encoder`) that embed_ref and tokenize need.
+
+    batched_bf16_min_b: the batched vocode runs the flow (encoder and
+    estimator) in bfloat16 when a batch has at least this many rows, as
+    the JAX package does (None: float32 at every batch size). HiFT and
+    every single-request and streaming call stay float32."""
 
     STREAM_CACHE_FRAMES = 3072    # the streaming source cache's capacity, mel frames
     STREAM_ROW_CAP = 1536         # the streaming token row's capacity, tokens
     _REF_CACHE_CAP = 16
 
     def __init__(self, params: dict, dims: FlowDims = FlowDims(), meanflow: bool = True,
-                 tok_cfg: S3TokenizerConfig = S3TokenizerConfig()):
+                 tok_cfg: S3TokenizerConfig = S3TokenizerConfig(),
+                 batched_bf16_min_b: Optional[int] = 16):
         self.params = params
+        self.batched_bf16_min_b = batched_bf16_min_b
+        self._params_flow_bf16 = None      # the bf16 flow copy, made on first use
         self.dims = dims
         self.meanflow = meanflow
         self.tok_cfg = tok_cfg
@@ -195,6 +233,10 @@ class S3GenEngine:
             mels = self._flow(token, P, ref, noise.z, n_timesteps)
             wav, _, _ = hift_inference(self.params["mel2wav"],
                                        mels[:, P * TOKEN_MEL_RATIO:], noise.source)
+        return self._trim_fade(wav)
+
+    def _trim_fade(self, wav: torch.Tensor) -> torch.Tensor:
+        """(B, T) -> the same with the trim-fade over its first samples."""
         n_fade = min(self._fade.shape[0], wav.shape[1])
         return torch.cat([wav[:, :n_fade] * self._fade[:n_fade], wav[:, n_fade:]], dim=1)
 
@@ -291,6 +333,107 @@ class S3GenEngine:
                                         cache_source=cache_source, cache_len=cache_len,
                                         phase_carry=phase_carry)
         return wav.cpu().numpy(), s.cpu().numpy(), f0.cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # batched vocode (serving: one masked flow call for B requests)
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def inference_batch(self, token_rows: list, refs: list, generators=None, *,
+                        noises: Optional[list] = None,
+                        n_timesteps: Optional[int] = None) -> list:
+        """B requests, possibly in different voices, vocoded together.
+        token_rows: (G_b,) host ids; refs: RefDicts. Returns B (G_b*960,)
+        float32 waveforms, each equal (up to rounding) to `inference` of
+        that row on the same random numbers."""
+        return self.inference_batch_fetch(self.inference_batch_dispatch(
+            token_rows, refs, generators, noises=noises, n_timesteps=n_timesteps))
+
+    def _bf16_flow_params(self) -> dict:
+        """The parameters with the flow's encoder and estimator in bfloat16
+        (made once; the other subtrees shared)."""
+        if self._params_flow_bf16 is None:
+            flow = dict(self.params["flow"])
+            for k in ("encoder", "decoder"):
+                flow[k] = cast_params(flow[k], torch.bfloat16)
+            self._params_flow_bf16 = dict(self.params, flow=flow)
+        return self._params_flow_bf16
+
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device without waiting for the
+        device's queue: through pinned memory on the card."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    @torch.no_grad()
+    def inference_batch_dispatch(self, token_rows: list, refs: list, generators=None, *,
+                                 noises: Optional[list] = None,
+                                 n_timesteps: Optional[int] = None):
+        """The first half of inference_batch: queues the work on the device
+        and returns a handle for inference_batch_fetch, reading nothing
+        back. generators: one torch.Generator a row (each row's audio then
+        depends on its own generator alone), or None (torch's default);
+        noises: one S3GenNoise a row instead (`draw_noise`'s shapes for that
+        row's 2(P + G) and 2G frames)."""
+        B = len(token_rows)
+        if B < 1 or len(refs) != B:
+            raise ValueError(f"{B} token rows for {len(refs)} voices")
+        if noises is not None and len(noises) != B:
+            raise ValueError(f"{len(noises)} noises for {B} rows")
+        gens = [None] * B if generators is None else list(generators)
+        if len(gens) != B:
+            raise ValueError(f"{len(gens)} generators for {B} rows")
+        tokens, Ps, Gs = pack_prompt_gen(token_rows, refs)
+        T = tokens.shape[1]
+        feat_T = max(np.asarray(r.prompt_feat).shape[1] for r in refs)
+        feats = np.zeros((B, feat_T, 80), np.float32)
+        for i, r in enumerate(refs):
+            f = np.asarray(r.prompt_feat, np.float32)
+            feats[i, :f.shape[1]] = f[0]
+        embs = np.concatenate([np.asarray(r.embedding, np.float32).reshape(1, -1)
+                               for r in refs])
+        dev = self.device
+        rows = []
+        for i in range(B):
+            n_mel = (Ps[i] + Gs[i]) * TOKEN_MEL_RATIO
+            if noises is not None:
+                rows.append(noises[i])
+            elif Gs[i]:
+                rows.append(self.draw_noise(n_mel, Gs[i] * TOKEN_MEL_RATIO, gens[i]))
+            else:
+                rows.append(None)        # nothing to vocode: no draws, as `inference`
+        z = torch.zeros((B, T * TOKEN_MEL_RATIO, 80), device=dev)
+        for i, nz in enumerate(rows):
+            if nz is not None:
+                n_mel = (Ps[i] + Gs[i]) * TOKEN_MEL_RATIO
+                z[i, :n_mel] = nz.z[0, :n_mel].to(dev, torch.float32)
+        use_bf16 = self.batched_bf16_min_b is not None and B >= self.batched_bf16_min_b
+        params = self._bf16_flow_params() if use_bf16 else self.params
+        lens = self._upload(np.array([[p + g for p, g in zip(Ps, Gs)], Ps], np.int64))
+        with nn.no_tf32_convs():
+            mels = flow_inference_batch(
+                params["flow"], self._upload(tokens), lens[0], lens[1], self._upload(feats),
+                self._upload(embs), z, n_timesteps=n_timesteps or self.n_timesteps,
+                dims=self.dims, meanflow=self.meanflow)
+            wavs = []
+            for i in range(B):
+                if not Gs[i]:
+                    continue
+                p0 = Ps[i] * TOKEN_MEL_RATIO
+                wav, _, _ = hift_inference(self.params["mel2wav"],
+                                           mels[i:i + 1, p0:p0 + Gs[i] * TOKEN_MEL_RATIO],
+                                           rows[i].source)
+                wavs.append(self._trim_fade(wav)[0])
+        flat = torch.cat(wavs) if wavs else torch.zeros((0,), device=dev)
+        return flat, [g * TOKEN_MEL_RATIO * TOTAL_UPSAMPLE for g in Gs]
+
+    def inference_batch_fetch(self, handle) -> list:
+        """The second half of inference_batch: the one host read of the
+        batch's audio, split into its rows' (G_b*960,) float32 waveforms."""
+        flat, lengths = handle
+        host = flat.float().cpu().numpy()
+        return np.split(host, np.cumsum(lengths)[:-1])
 
     # ------------------------------------------------------------------
     # streaming feeds (serve/streaming.py StreamingVocoder)

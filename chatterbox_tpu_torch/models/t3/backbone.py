@@ -318,3 +318,65 @@ def backbone_apply(params: dict, cfg: BackboneConfig, embeds: torch.Tensor,
     if cfg.is_gpt:
         return nn.layer_norm(params["ln_f"], x, cfg.layer_norm_eps)
     return nn.rms_norm(params["norm"], x, cfg.rms_norm_eps)
+
+
+def backbone_step_rows(params: dict, cfg: BackboneConfig, embeds: torch.Tensor,
+                       pos: torch.Tensor, cache, fused_attn: bool = False) -> torch.Tensor:
+    """One single-token decode step whose cache offset differs per row (the
+    slot engine's left-aligned rows, sampling/continuous.py): embeds
+    (B, 1, D), pos (B,) long on the device, each row's position. K and V
+    (and, for `KVCacheInt8`, their scales) are written at cache[:, b, :,
+    pos[b]] by indexed writes, so nothing is read on the host; the learned
+    (GPT-2) or rotary (llama) positions are each row's own pos, and row b
+    attends to keys [0, pos[b]]. With fused_attn the decode-attention
+    kernels take pos as their per-row `cur` over the whole cache (B4 on the
+    int8 cache with MHA heads, B3 / B7 on the bf16 cache); otherwise plain
+    attention over the whole cache under the key mask. Returns the
+    final-norm hidden states (B, 1, D)."""
+    B, t, D = embeds.shape
+    if t != 1:
+        raise ValueError(f"a per-row step feeds one token a row, got {t}")
+    x = embeds
+    dev = x.device
+    pos = pos.reshape(B).long()
+    rope = None
+    if cfg.is_gpt:
+        x = x + nn.embedding(params["wpe"], pos[:, None]).to(x.dtype)
+    else:
+        rope = tuple(c.to(x.dtype) for c in
+                     rope_cos_sin(inv_freq_tensor(cfg, dev), pos[:, None]))
+    int8 = isinstance(cache, KVCacheInt8)
+    T = cache.max_len
+    rows = torch.arange(B, device=dev)
+    cur = pos.to(torch.int32)
+    mask = (torch.arange(T, device=dev)[None] <= pos[:, None])[:, None, None]
+    int8_kernel = (int8 and fused_attn and cfg.num_heads == kv_heads(cfg)
+                   and T % TT == 0)
+    for i, lp in enumerate(params["layers"]):
+        fused = "fused" in lp
+        q, k, v = _qkv(lp, cfg, x, fused, rope)
+        if fused_attn:
+            q = q.contiguous()     # the kernels take (B, H, 1, hd) packed
+        if int8:
+            kvq, kvs = quantize_kv(torch.stack((k, v)))
+            kvs = kvs.to(cache.k_s.dtype)
+            cache.k_q[i, rows, :, pos] = kvq[0, :, :, 0]
+            cache.v_q[i, rows, :, pos] = kvq[1, :, :, 0]
+            cache.k_s[i, rows, :, pos] = kvs[0, :, :, 0]
+            cache.v_s[i, rows, :, pos] = kvs[1, :, :, 0]
+            if int8_kernel:
+                attn = decode_attention_streamed_int8(
+                    q, cache.k_q[i], cache.k_s[i][..., 0], cache.v_q[i],
+                    cache.v_s[i][..., 0], cur)
+            else:
+                deq = lambda c_q, c_s: c_q[i].to(q.dtype) * c_s[i].to(q.dtype)
+                attn = _attn_core(q, deq(cache.k_q, cache.k_s), deq(cache.v_q, cache.v_s),
+                                  cur, mask, T, fused_attn)
+        else:
+            cache.k[i, rows, :, pos] = k[:, :, 0].to(cache.k.dtype)
+            cache.v[i, rows, :, pos] = v[:, :, 0].to(cache.v.dtype)
+            attn = _attn_core(q, cache.k[i], cache.v[i], cur, mask, T, fused_attn)
+        x = _after_attn(lp, cfg, x, nn.merge_heads(attn), fused)
+    if cfg.is_gpt:
+        return nn.layer_norm(params["ln_f"], x, cfg.layer_norm_eps)
+    return nn.rms_norm(params["norm"], x, cfg.rms_norm_eps)

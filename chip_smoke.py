@@ -41,6 +41,12 @@ weights quantized to int4:
     own int8_fused self-draft (generate(draft="int8")); kernels B1, B2 in
     the draft, none in the verify; and a Nano draft pipeline (plain int8,
     no kernel).
+  * batched serving: the batched vocode (S3GenEngine.inference_batch, one
+    masked flow call for rows of different voices; no kernel),
+    TTSServer and ServingLoop over BatchDecoder (Turbo, int8 cache: B1,
+    B2, B4), and the continuous slot engine ContinuousTTSServer behind
+    ContinuousServingLoop (8 Turbo slots on the int8 cache: B1, B2, B4 with
+    each row's position as its `cur`; 4 CFG slots, 8 rows: B5, B6).
 B11 (fused_mlp_int8) is on no path: nothing in the JAX package calls it
 outside its own test. Phase 3 holds it against its plain version.
 
@@ -82,7 +88,7 @@ Phases, in order; any failure exits non-zero without the final "ok" line:
   5. main paths, each with the launch counts set to 0 just before and read
      just after it (its own kernels launched layers x decode steps times,
      B8 seven times that, every other kernel not at all): each pipeline's
-     generate once to warm up (32 tokens), then three requests timed as
+     generate once to warm up (32 tokens), then two requests timed as
      bench.py times them, t3_generate with EOS ignored then S3Gen's
      inference_from_decode with the pipeline's own tail (Turbo: 3 silence
      tokens; 520M: the SOS..EOS slice), on the text ids its generate makes
@@ -106,7 +112,7 @@ Phases, in order; any failure exits non-zero without the final "ok" line:
      against the same call on the cpu (embeddings and prompt mels to 1e-3,
      at least 99 % of the S3 tokens equal), timed with its split; T3
      quantized int8_fused; generate(text, audio_prompt_path=wav) to warm
-     up, then three requests timed as phase 5 times them with
+     up, then two requests timed as phase 5 times them with
      prepare_conditionals inside the timed window (B1 and B2 launched
      layers x steps times), x-realtime with and without the frontend, and
      the device's share of one profiled request;
@@ -126,7 +132,7 @@ Phases, in order; any failure exits non-zero without the final "ok" line:
      weights) and conds.pt written to a temporary directory,
      ChatterboxVC.from_local on the card (the loaded leaves equal the
      written ones), set_target_voice on a 6 s voice, generate on a 10 s
-     source once to warm up, then three timed runs (no kernel launched);
+     source once to warm up, then two timed runs (no kernel launched);
   8. multilingual and speculative: a multilingual checkpoint directory
      (t3_mtl23ls_v2.safetensors from random full-width weights, ve.pt and
      s3gen.pt, conds.pt, a grapheme vocabulary trained here with the 23
@@ -143,14 +149,39 @@ Phases, in order; any failure exits non-zero without the final "ok" line:
      against K+1 single steps on the same cache (within 5 % of the logits'
      scale); greedy speculative tokens (250, EOS ignored) against
      sequential t3_generate (equal, or parting only where the sequential
-     top-2 gap is below that bound); three timed decodes of 250 tokens at
+     top-2 gap is below that bound); two timed decodes of 250 tokens at
      n_draft 4 and 8 (ms/token, acceptance, rounds; B1 / B2 launched 24 x
      (K+1) x rounds, nothing else), the sequential bf16 target and phase
      5's int8_fused Turbo in the same call; generate(draft="int8") end to
      end; a Nano draft pipeline (acceptance, ms/token over 100 tokens, no
      kernel).
+  9. batched serving: three voices made by embed_ref from synthetic 5.2,
+     6.0 and 6.8 s prompts (130, 150, 170 prompt tokens); the batched
+     vocode of eight Turbo rows of 60-250 tokens in those voices on the
+     meanflow S3Gen, and of four on the 10-step CFM S3Gen, each row against
+     `inference` of it alone on the same noise (1e-4), the batch's wall
+     against the single calls'; inference_batch_dispatch under CUDA's
+     sync debug mode (no synchronising call), then the fetch; the
+     CFM S3Gen at 16 rows with batched_bf16_min_b at its default (the flow
+     in bf16) against None (float32): max |dwav| (under 0.05) and both
+     walls; TTSServer.synthesize_batch of eight Turbo requests (int8_fused,
+     kv_int8, EOS honoured) and a ServingLoop fed 16 (two batches of eight,
+     run two deep), every result a finite wav, audio seconds per wall
+     second, B1 / B2 / B4 launched 24 x decode steps; ContinuousTTSServer
+     at 8 Turbo slots (int8_fused, kv_int8) behind a ContinuousServingLoop,
+     16 requests in 4 waves 1 s apart with caps of 50-250 tokens, four of
+     them streams (first_chunk 12, stream_chunk 25), the rest vocoded in
+     the loop: aggregate tokens/s, each request's latency, the streams'
+     first audio and gaps, one host read a round, B1 / B2 / B4 launched 24
+     x decode steps, two requests against their isolated runs (token for
+     token), a round under sync debug mode (no synchronising call) and the
+     device's share
+     of a profiled round; ContinuousTTSServer at 4 CFG slots (8 rows) on
+     the 520M int8_fused T3 and its CFM S3Gen, six requests staggered and
+     vocoded, B5 / B6 launched 30 x decode steps, one request against
+     BatchDecoder's tokens for it alone.
 The line before the last is {"kernels": [...]} (launches summed over
-phases 5-8), the last {"ok": true, "device": {...}}.
+phases 5-9), the last {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -164,6 +195,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate (NVIDIA data sheet)
 PEAK_INT8_OPS = 1.979e15       # dense int8 tensor-core rate, same source
 N_TOKENS = 250
 WARMUP_TOKENS = 32             # a warm-up generate's tokens (every kernel built already)
+TIMED_RUNS = 2                 # timed runs of a request, a decode or a conversion (best of)
 P_PROMPT = 125
 PHASE5_TEXT = "The quick brown fox jumps over the lazy dog near the river bank."
 SOS, EOS, S3_VOCAB = 6561, 6562, 6561
@@ -1148,7 +1180,7 @@ def check_counts(counts, label, expected: dict):
 
 
 def run_path(tts, label, kernels, gen_kw, decode_kw, tail):
-    """A short warm-up generate, then three timed runs of one request as
+    """A short warm-up generate, then TIMED_RUNS timed runs of one request as
     bench.py times it: t3_generate with EOS ignored (decode_kw: the text
     ids, sampler and engine knobs the pipeline's generate passes), then
     S3Gen's inference_from_decode with the pipeline's tail (`tail`), with
@@ -1171,7 +1203,7 @@ def run_path(tts, label, kernels, gen_kw, decode_kw, tail):
 
     reset_counts()
     totals, t3s, s3s, forwards = [], [], [], 0
-    for _ in range(3):
+    for _ in range(TIMED_RUNS):
         t0 = time.perf_counter()
         res = decode(N_TOKENS)
         torch.cuda.synchronize()
@@ -1198,9 +1230,9 @@ def run_path(tts, label, kernels, gen_kw, decode_kw, tail):
     t3 = min(t3s)
     log(f"{label} request (t3_generate + inference_from_decode): "
         f"{[round(t, 4) for t in totals]} s for {audio_s:.2f} s of audio ({n_voc} vocoded "
-        f"tokens of {N_TOKENS}) -> x-realtime {audio_s / best:.3f} (best of 3); T3 decode "
-        f"{t3:.4f} s -> {N_TOKENS / t3:.1f} tok/s ({t3 / N_TOKENS * 1e3:.3f} ms/token), "
-        f"S3Gen {min(s3s):.4f} s (best of 3)")
+        f"tokens of {N_TOKENS}) -> x-realtime {audio_s / best:.3f} (best of {TIMED_RUNS}); "
+        f"T3 decode {t3:.4f} s -> {N_TOKENS / t3:.1f} tok/s ({t3 / N_TOKENS * 1e3:.3f} "
+        f"ms/token), S3Gen {min(s3s):.4f} s (best of {TIMED_RUNS})")
     profile_decode(decode, t3 / N_TOKENS, label)
     return counts
 
@@ -1209,19 +1241,18 @@ def _profiled_decode(decode, n: int) -> dict:
     """{kernel name: (device us, calls)} of decode(n), a decode of n tokens."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         decode(n)
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        # device-side events only: the CPU operator rows carry their
-        # kernels' time too and would count it twice
+        # device-side events only (the trace holds no CPU operators)
         if e.device_type == torch.autograd.DeviceType.CUDA:
             out[e.key] = (e.self_device_time_total, e.count)
     return out
 
 
-def profile_decode(decode, step_s: float, label: str, n1: int = 9, n2: int = 41):
+def profile_decode(decode, step_s: float, label: str, n1: int = 9, n2: int = 25):
     """Device time of one decode step by kernel name (torch.profiler): the
     difference of decode(n2) and decode(n1), decodes of n2 and n1 tokens, so
     the prefill they share drops out; beside the unprofiled wall time of a
@@ -1366,6 +1397,16 @@ def fused_attention_paths(turbo, cfg520) -> dict:
     return totals
 
 
+BATCH_TEXTS = ("The quick brown fox jumps over the lazy dog near the river bank.",
+               "A stitch in time saves nine, or so the old saying goes.",
+               "Please call Stella and ask her to bring these things.",
+               "It was the best of times, it was the worst of times.",
+               "Rain fell softly on the quiet harbour all night long.",
+               "Numbers like 1999 and 2024 should read naturally too.",
+               "She sells sea shells by the sea shore every summer.",
+               "The meeting starts at nine; please do not be late.")
+
+
 def batched_paths(turbo, cfg520) -> dict:
     """BatchDecoder with the int8 cache: eight Turbo requests of 12-30 text
     tokens, then four 520M CFG requests (eight rows). Each serves its batch
@@ -1376,14 +1417,7 @@ def batched_paths(turbo, cfg520) -> dict:
     import torch
     from chatterbox_tpu_torch.sampling.batched import t3_generate_batched
     from chatterbox_tpu_torch.serve.batching import BatchDecoder, TTSRequest
-    texts = ["The quick brown fox jumps over the lazy dog near the river bank.",
-             "A stitch in time saves nine, or so the old saying goes.",
-             "Please call Stella and ask her to bring these things.",
-             "It was the best of times, it was the worst of times.",
-             "Rain fell softly on the quiet harbour all night long.",
-             "Numbers like 1999 and 2024 should read naturally too.",
-             "She sells sea shells by the sea shore every summer.",
-             "The meeting starts at nine; please do not be late."]
+    texts = BATCH_TEXTS
     turbo_reqs = [TTSRequest(_Tokenizer(12 + 18 * i // 7, 50000).text_to_tokens(t)[0],
                              turbo.conds.t3, request_id=i, seed=100 + i)
                   for i, t in enumerate(texts)]
@@ -1800,7 +1834,7 @@ def frontend_path() -> dict:
     card (and on the cpu), the loaded trees held against the written ones;
     prepare_conditionals on a 6 s synthetic voice held against the cpu
     path and timed, with its split; T3 quantized int8_fused; a warm-up
-    generate(text, audio_prompt_path=wav), then three requests timed as
+    generate(text, audio_prompt_path=wav), then TIMED_RUNS requests timed as
     phase 5 times them with prepare_conditionals inside the timed window.
     Returns the launch counts of the timed requests."""
     import tempfile
@@ -1922,7 +1956,7 @@ def frontend_path() -> dict:
         log(f"frontend: T3 quantized and a warm-up generate from the prompt file in "
             f"{time.perf_counter() - t0:.1f} s")
         reset_counts()
-        runs = [request() for _ in range(3)]
+        runs = [request() for _ in range(TIMED_RUNS)]
         counts = read_counts()
         L, forwards = hp.backbone.num_layers, sum(r[3] for r in runs)
         check_counts(counts, f"Turbo from a prompt file, {L} layers x {forwards} decode steps",
@@ -1932,7 +1966,7 @@ def frontend_path() -> dict:
         log(f"Turbo request from a prompt file (prepare_conditionals + t3_generate + "
             f"inference_from_decode): {[round(r[0], 4) for r in runs]} s for {audio_s:.2f} s of "
             f"audio -> x-realtime {audio_s / full:.3f} with the frontend, {audio_s / bare:.3f} "
-            f"without it (best of 3)")
+            f"without it (best of {TIMED_RUNS})")
 
         from torch.profiler import ProfilerActivity, profile
         t0 = time.perf_counter()
@@ -2211,7 +2245,7 @@ def vc_path(conds) -> None:
         vc.generate(src)                                             # warm-up
         reset_counts()
         walls = []
-        for _ in range(3):
+        for _ in range(TIMED_RUNS):
             t0 = time.perf_counter()
             wav = vc.generate(src)
             walls.append(time.perf_counter() - t0)
@@ -2221,7 +2255,8 @@ def vc_path(conds) -> None:
         check_counts(read_counts(), "VC (no kernel on this path)", {})
         log(f"VC generate (10 s source: tokenize, 10-step CFG flow, HiFT): "
             f"{[round(w * 1e3, 1) for w in walls]} ms -> x-realtime {10.0 / min(walls):.3f} "
-            f"(best of 3); no kernel of the port is on this path (S3Gen is plain PyTorch)")
+            f"(best of {TIMED_RUNS}); no kernel of the port is on this path (S3Gen is plain "
+            f"PyTorch)")
 
 
 def streaming_path(turbo, cfg520) -> dict:
@@ -2542,7 +2577,7 @@ def greedy_check(tts, draft, cond, ids, bound: float) -> None:
                              f"top-2 gap {gap} above the verify bound {bound}")
 
 
-def _time_decode(fn, runs: int = 3):
+def _time_decode(fn, runs: int = TIMED_RUNS):
     """fn() `runs` times, synced: (walls, the last result)."""
     import torch
     walls = []
@@ -2558,7 +2593,7 @@ def speculative_path(turbo) -> dict:
     """Phase 8, speculative Turbo: the seed-0 Turbo T3 in bf16, unquantized,
     as target (phase 5's S3Gen and conditionals); its int8_fused self-draft
     (B1 / B2). The verify slab against single steps; greedy tokens against
-    sequential; three timed decodes of 250 tokens (EOS ignored, Turbo's
+    sequential; TIMED_RUNS timed decodes of 250 tokens (EOS ignored, Turbo's
     sampler) at each of SPEC_K (B1 / B2 launched layers x (K+1) x rounds,
     nothing else), the sequential bf16 target (no kernel) and phase 5's
     int8_fused Turbo (B1 / B2 layers x steps) in the same call;
@@ -2598,7 +2633,7 @@ def speculative_path(turbo) -> dict:
         spec(K, n=WARMUP_TOKENS)                                         # warm-up
         reset_counts()
         walls, rounds, drafted, accepted = [], 0, 0, 0
-        for _ in range(3):
+        for _ in range(TIMED_RUNS):
             w, res = _time_decode(lambda: spec(K), runs=1)
             walls += w
             rounds, drafted, accepted = (rounds + res.n_rounds, drafted + res.n_drafted,
@@ -2612,9 +2647,10 @@ def speculative_path(turbo) -> dict:
             counts[k] = counts.get(k, 0) + v
         log(f"speculative Turbo (bf16 target, int8_fused self-draft) K={K}: "
             f"{[round(w, 4) for w in walls]} s for {N_TOKENS} tokens -> "
-            f"{min(walls) / N_TOKENS * 1e3:.3f} ms/token (best of 3); acceptance "
-            f"{accepted / drafted:.3f} ({accepted} of {drafted}); {rounds / 3:.1f} rounds "
-            f"a request ({N_TOKENS * 3 / rounds:.2f} tokens a round)")
+            f"{min(walls) / N_TOKENS * 1e3:.3f} ms/token (best of {TIMED_RUNS}); acceptance "
+            f"{accepted / drafted:.3f} ({accepted} of {drafted}); "
+            f"{rounds / TIMED_RUNS:.1f} rounds a request "
+            f"({N_TOKENS * TIMED_RUNS / rounds:.2f} tokens a round)")
 
     for label, tts, kernels in (("sequential bf16 target", target, ()),
                                 ("sequential int8_fused (phase 5's Turbo)", turbo, GPT2)):
@@ -2625,12 +2661,12 @@ def speculative_path(turbo) -> dict:
         reset_counts()
         walls, res = _time_decode(seq)
         part = read_counts()
-        check_counts(part, f"{label}, {L} layers x {3 * res.n_forward} decode steps",
-                     {k: L * 3 * res.n_forward for k in kernels})
+        check_counts(part, f"{label}, {L} layers x {TIMED_RUNS * res.n_forward} decode steps",
+                     {k: L * TIMED_RUNS * res.n_forward for k in kernels})
         for k, v in part.items():
             counts[k] = counts.get(k, 0) + v
         log(f"{label}: {[round(w, 4) for w in walls]} s for {N_TOKENS} tokens -> "
-            f"{min(walls) / N_TOKENS * 1e3:.3f} ms/token (best of 3)")
+            f"{min(walls) / N_TOKENS * 1e3:.3f} ms/token (best of {TIMED_RUNS})")
 
     reset_counts()
     t0 = time.perf_counter()
@@ -2665,6 +2701,538 @@ def speculative_path(turbo) -> dict:
         f"{walls[0] / NANO_TOKENS * 1e3:.3f} ms/token; acceptance "
         f"{res.n_accepted / res.n_drafted:.3f}; {res.n_rounds} rounds")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 9: batched serving: the batched vocode, TTSServer / ServingLoop and
+# the continuous slot engine
+# ---------------------------------------------------------------------------
+
+VOICE_SECONDS = (5.2, 6.0, 6.8)  # three voices: 130, 150 and 170 prompt tokens
+BATCH_TOL = 1e-4                 # a batched row against its single-request vocode
+BF16_TOL = 0.05                  # the bf16 flow's audio against float32's
+WAVE_GAP_S = 1.0                 # between the continuous traffic's waves
+SLOT_CHUNK = 16                  # decode steps a round of the slot engine
+NEAR_TIE = 0.02                  # a token parting across engines: its margin, of the logits' scale
+
+
+def serve_voices(eng):
+    """Three voices from synthetic prompts of VOICE_SECONDS (embed_ref on the card)."""
+    return [eng.embed_ref(synthetic_voice(s, 24000, seed=20 + i), 24000)
+            for i, s in enumerate(VOICE_SECONDS)]
+
+
+def _gens(seeds):
+    import torch
+    return [torch.Generator(device="cuda").manual_seed(int(s)) for s in seeds]
+
+
+def _rows(n, lo, hi, seed):
+    """n rows of random speech ids below 6561, lengths spread over [lo, hi]."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, S3_VOCAB, int(g)).astype(np.int32)
+            for g in rng.permutation(np.linspace(lo, hi, n).round())]
+
+
+def _p(ref) -> int:
+    return int(ref.prompt_token_len[0])
+
+
+def batched_vocode_check(eng, label, rows, refs, seed, reps=2) -> None:
+    """inference_batch against `inference` of each row on the same noise
+    (each row's generator seeded alike), within BATCH_TOL; the batch's wall
+    against the single calls'."""
+    import numpy as np
+    import torch
+    seeds = [seed + i for i in range(len(rows))]
+
+    def batch():
+        return eng.inference_batch(rows, refs, _gens(seeds))
+
+    def singles():
+        return [eng.inference(r, v, generator=g)[0] for r, v, g in zip(rows, refs, _gens(seeds))]
+
+    batch()                                                           # warm-up
+    walls = {}
+    for name, fn in (("batch", batch), ("singles", singles)):
+        best = float("inf")
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            best = min(best, time.perf_counter() - t0)
+        walls[name] = (best, out)
+    out, single = walls["batch"][1], walls["singles"][1]
+    for w, s, r in zip(out, single, rows):
+        if w.shape != s.shape or len(w) != len(r) * 960 or not np.isfinite(w).all():
+            raise AssertionError(f"{label}: a row of {len(r)} tokens gave {w.shape} "
+                                 f"(single {s.shape})")
+    err = max(float(np.abs(w - s).max()) for w, s in zip(out, single))
+    audio = sum(len(w) for w in out) / 24000
+    tb, ts = walls["batch"][0], walls["singles"][0]
+    log(f"{label}: {len(rows)} rows of {min(map(len, rows))}-{max(map(len, rows))} tokens, "
+        f"prompts of {sorted({_p(r) for r in refs})} tokens, in one masked flow call: "
+        f"{tb * 1e3:.1f} ms against {ts * 1e3:.1f} ms for {len(rows)} single calls "
+        f"({ts / tb:.2f}x; best of {reps}); {audio:.2f} s of audio -> x-realtime "
+        f"{audio / tb:.2f}; max |dwav| against the single calls {err:.3g} "
+        f"(tolerance {BATCH_TOL})")
+    if err > BATCH_TOL:
+        raise AssertionError(f"{label}: batched rows differ from the single calls by {err}")
+
+
+def run_without_sync(fn, label):
+    """fn() under CUDA's sync debug mode "warn", its warnings recorded;
+    raises, naming the line of every synchronising call, if fn made one.
+    Returns fn()'s result."""
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    where = sorted({f"{w.filename.rsplit('/repo/', 1)[-1]}:{w.lineno}" for w in caught
+                    if "called a synchronizing" in str(w.message)})
+    if where:
+        raise AssertionError(f"{label}: synchronising calls at {where}")
+    return out
+
+
+def dispatch_check(eng, rows, refs) -> None:
+    """inference_batch_dispatch with no synchronising call (run_without_sync),
+    then the fetch reads the audio back."""
+    import torch
+    t0 = time.perf_counter()
+    handle = run_without_sync(
+        lambda: eng.inference_batch_dispatch(rows, refs, _gens(range(len(rows)))),
+        "inference_batch_dispatch")
+    t1 = time.perf_counter()
+    ev = torch.cuda.Event()
+    ev.record()
+    queued = not ev.query()
+    out = eng.inference_batch_fetch(handle)
+    t2 = time.perf_counter()
+    log(f"batched vocode dispatch: {(t1 - t0) * 1e3:.1f} ms with no synchronising call (sync "
+        f"debug mode 'warn'), the device work {'still queued' if queued else 'already done'} "
+        f"when it returned; fetch {(t2 - t1) * 1e3:.1f} ms for {len(out)} rows")
+
+
+def bf16_flow_check(params, dims, rows, refs) -> None:
+    """The CFM S3Gen at len(rows) rows: batched_bf16_min_b at its default (the
+    flow in bf16 from 16 rows) against None (float32): max |dwav| and both
+    walls."""
+    import numpy as np
+    import torch
+    from chatterbox_tpu_torch.models.s3gen.model import S3GenEngine
+    outs, walls = {}, {}
+    for name, min_b in (("float32", None), ("bf16", 16)):
+        eng = S3GenEngine(params, dims=dims, meanflow=False, batched_bf16_min_b=min_b)
+        eng.inference_batch(rows, refs, _gens(range(len(rows))))     # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[name] = eng.inference_batch(rows, refs, _gens(range(len(rows))))
+        walls[name] = time.perf_counter() - t0
+    err = max(float(np.abs(a - b).max()) for a, b in zip(outs["bf16"], outs["float32"]))
+    scale = max(float(np.abs(b).max()) for b in outs["float32"])
+    log(f"CFM S3Gen, {len(rows)} rows: flow in bf16 (batched_bf16_min_b=16) "
+        f"{walls['bf16'] * 1e3:.1f} ms against float32 (None) {walls['float32'] * 1e3:.1f} ms; "
+        f"max |dwav| {err:.3g} of a {scale:.3f} peak")
+    if not all(np.isfinite(w).all() for w in outs["bf16"]) or err > BF16_TOL:
+        raise AssertionError(f"bf16 batched flow: max |dwav| {err} (limit {BF16_TOL})")
+
+
+def batched_vocode_path(turbo, cfg520, voices) -> None:
+    """The batched vocode at full width: eight Turbo rows in three voices on
+    the meanflow S3Gen, four on the 10-step CFM S3Gen, each against its
+    single calls; dispatch without a sync; the bf16 flow at 16 rows."""
+    refs8 = [voices[i % 3] for i in range(8)]
+    batched_vocode_check(turbo.s3gen, "Turbo meanflow S3Gen", _rows(8, 60, 250, 1), refs8, 100)
+    dispatch_check(turbo.s3gen, _rows(8, 60, 250, 1), refs8)
+    batched_vocode_check(cfg520.s3gen, "520M CFM S3Gen", _rows(4, 60, 250, 2), refs8[:4], 200)
+    bf16_flow_check(cfg520.s3gen.params, cfg520.s3gen.dims, _rows(16, 60, 250, 3),
+                    [voices[i % 3] for i in range(16)])
+
+
+def _turbo_requests(turbo, n, seed0, voices, **kw):
+    from chatterbox_tpu_torch.serve.batching import TTSRequest
+    texts = BATCH_TEXTS * (-(-n // len(BATCH_TEXTS)))
+    return [TTSRequest(_Tokenizer(12 + 18 * (i % 8) // 7, 50000).text_to_tokens(t)[0],
+                       turbo.conds.t3, request_id=i, seed=seed0 + i, ref=voices[i % 3], **kw)
+            for i, t in enumerate(texts[:n])]
+
+
+def _spied_decoder(dec, forwards: list):
+    """The decoder with each batch's decode-step count appended to `forwards`."""
+    orig = dec.decode_batch_dispatch
+
+    def dispatch(requests):
+        handle = orig(requests)
+        forwards.append(handle[0].n_forward)
+        return handle
+
+    dec.decode_batch_dispatch = dispatch
+    return dec
+
+
+def _check_wavs(label, results) -> float:
+    import numpy as np
+    for r in results:
+        if r.wav is None or not np.isfinite(r.wav).all() or len(r.wav) % 960:
+            raise AssertionError(f"{label}: request {r.request_id} has no finite audio")
+    return sum(len(r.wav) for r in results) / 24000
+
+
+def serving_path(turbo, voices) -> dict:
+    """TTSServer.synthesize_batch of eight Turbo requests (int8_fused,
+    kv_int8) in three voices, then a ServingLoop fed 16 requests (two
+    batches of eight, run two deep); B1 / B2 / B4 launched layers x decode
+    steps. Returns the launch counts."""
+    import threading
+    import numpy as np
+    import torch
+    from chatterbox_tpu_torch.serve.batching import (BatchDecoder, ServingLoop, TTSResult,
+                                                     TTSServer)
+    L = turbo.hp.backbone.num_layers
+    forwards: list = []
+    dec = _spied_decoder(BatchDecoder(turbo.t3_params, turbo.hp, max_batch=8,
+                                      max_new_tokens=N_TOKENS, kv_int8=True), forwards)
+    reqs = _turbo_requests(turbo, 8, 300, voices)
+    totals = {}
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wavs = TTSServer(dec, turbo.s3gen).synthesize_batch(reqs, [r.ref for r in reqs])
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    check_counts(counts, f"TTSServer, 8 Turbo requests, {L} layers x {sum(forwards)} decode "
+                 f"steps", {k: L * sum(forwards) for k in GPT2 + (B4,)})
+    audio = _check_wavs("TTSServer", [TTSResult(r.request_id, None, w)
+                                      for r, w in zip(reqs, wavs)])
+    log(f"TTSServer.synthesize_batch, 8 Turbo requests (kv_int8, EOS honoured, "
+        f"{forwards[0]} decode steps): {dt:.3f} s for {audio:.2f} s of audio -> "
+        f"{audio / dt:.3f} audio s per wall s")
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+
+    got, ev = [], threading.Event()
+
+    def on_result(res):
+        got.append(res)
+        if len(got) == 16:
+            ev.set()
+
+    loop = ServingLoop(dec, on_result, s3gen=turbo.s3gen)
+    for r in _turbo_requests(turbo, 16, 400, voices):
+        loop.submit(r)
+    forwards.clear()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        loop.start()
+        if not ev.wait(600):
+            raise AssertionError(f"ServingLoop: {len(got)} of 16 results")
+        dt = time.perf_counter() - t0
+    finally:
+        loop.stop()
+    counts = read_counts()
+    check_counts(counts, f"ServingLoop, 16 Turbo requests, {L} layers x {sum(forwards)} "
+                 f"decode steps", {k: L * sum(forwards) for k in GPT2 + (B4,)})
+    audio = _check_wavs("ServingLoop", got)
+    log(f"ServingLoop, 16 Turbo requests in {len(forwards)} batches (decode steps "
+        f"{forwards}): {dt:.3f} s for {audio:.2f} s of audio -> {audio / dt:.3f} audio s per "
+        f"wall s; tokens per request {sorted(len(r.speech_tokens) for r in got)}")
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+    return totals
+
+
+def _slot_requests(cond, ids_fn, n, seed0, caps, voices):
+    from chatterbox_tpu_torch.serve.batching import TTSRequest
+    return [TTSRequest(ids_fn(i), cond, request_id=i, seed=seed0 + i, max_new=int(caps[i]),
+                       ref=voices[i % 3]) for i in range(n)]
+
+
+def _isolated_tokens(make, req):
+    srv = make()
+    srv.submit(req)
+    return srv.run_until_idle()[req.request_id]
+
+
+def continuous_turbo_path(turbo, voices) -> dict:
+    """ContinuousTTSServer at 8 Turbo slots (int8_fused, kv_int8) behind a
+    ContinuousServingLoop: 16 requests in 4 waves with caps of 50-250
+    tokens, four of them streams (first_chunk 12, stream_chunk 25), the
+    rest vocoded in the loop; B1 / B2 / B4 launched layers x decode steps;
+    per-request latency, the streams' first audio and gaps, aggregate
+    tokens/s, host reads a round, a round without any synchronising call,
+    the device's share of a profiled round; two requests against their
+    isolated runs."""
+    import threading
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from chatterbox_tpu_torch.sampling import continuous as C
+    from chatterbox_tpu_torch.serve.batching import ContinuousServingLoop
+    hp, L = turbo.hp, turbo.hp.backbone.num_layers
+    kw = dict(n_slots=8, text_bucket=64, max_new_tokens=N_TOKENS, chunk=SLOT_CHUNK,
+              kv_int8=True)
+
+    def make(**more):
+        return C.ContinuousTTSServer(turbo.t3_params, hp, **dict(kw, **more))
+
+    ids = lambda i: _Tokenizer(12 + 18 * (i % 8) // 7, 50000).text_to_tokens(
+        BATCH_TEXTS[i % 8])[0]
+    caps = np.random.default_rng(5).permutation(np.linspace(50, 250, 16).round())
+    reqs = _slot_requests(turbo.conds.t3, ids, 16, 500, caps, voices)
+    streams = {2, 5, 11, 12}          # one or two a wave
+    srv = make(s3gen=turbo.s3gen, stream_chunk=25, first_chunk=12)
+    srv.submit(_slot_requests(turbo.conds.t3, ids, 1, 900, [16], voices)[0])
+    srv.run_until_idle()                                              # warm-up
+    srv.results.clear()
+    srv.wavs.clear()
+    t_submit, t_done, chunks = {}, {}, {i: [] for i in streams}
+    done_all = threading.Event()
+    results = {}
+
+    def on_result(res):
+        results[res.request_id] = res
+        t_done[res.request_id] = time.perf_counter()
+        if len(results) == 16:
+            done_all.set()
+
+    def on_chunk(i):
+        return lambda c, final: chunks[i].append((time.perf_counter(), c, final))
+
+    reads = []
+    orig_status = C.pack_status
+    C.pack_status = lambda st: (reads.append(1), orig_status(st))[1]
+    steps0, rounds0 = srv.decode_steps, srv.rounds
+    loop = ContinuousServingLoop(srv, on_result)
+    reset_counts()
+    try:
+        loop.start()
+        t0 = time.perf_counter()
+        for w in range(4):
+            for r in reqs[4 * w:4 * w + 4]:
+                t_submit[r.request_id] = time.perf_counter()
+                if r.request_id in streams:
+                    loop.submit_stream(r, on_chunk(r.request_id))
+                else:
+                    loop.submit(r)
+            if w < 3:
+                time.sleep(WAVE_GAP_S)
+        if not done_all.wait(600):
+            raise AssertionError(f"continuous Turbo: {len(results)} of 16 results")
+        wall = max(t_done.values()) - t0
+    finally:
+        loop.stop()
+        C.pack_status = orig_status
+    steps, rounds = srv.decode_steps - steps0, srv.rounds - rounds0
+    counts = read_counts()
+    check_counts(counts, f"ContinuousTTSServer, 8 Turbo slots, {L} layers x {steps} decode "
+                 f"steps", {k: L * steps for k in GPT2 + (B4,)})
+    for i, r in results.items():
+        if i in streams:
+            audio = np.concatenate([c for _, c, _ in chunks[i]])
+            if not (chunks[i][-1][2] and np.isfinite(audio).all()
+                    and len(audio) == (len(r.speech_tokens) + 3) * 960):
+                raise AssertionError(f"stream {i}: {len(audio)} samples for "
+                                     f"{len(r.speech_tokens)} tokens")
+        elif r.wav is None or not np.isfinite(r.wav).all() or \
+                len(r.wav) != max(len(r.speech_tokens), 1) * 960:
+            raise AssertionError(f"request {i}: no audio of its {len(r.speech_tokens)} tokens")
+    n_tok = sum(len(r.speech_tokens) for r in results.values())
+    lat = {i: t_done[i] - t_submit[i] for i in results}
+    log(f"continuous Turbo, 8 slots, 16 requests in 4 waves {WAVE_GAP_S} s apart (caps "
+        f"50-250): {n_tok} tokens in {wall:.3f} s -> {n_tok / wall:.1f} tok/s aggregate; "
+        f"{steps} decode steps in {rounds} rounds ({steps / wall:.1f} steps/s); host reads "
+        f"{len(reads)} for {rounds} rounds; cache {srv.state.cache.max_len} positions")
+    log("  latency per request (s, cap, tokens): " + ", ".join(
+        f"{i}: {lat[i]:.2f} ({int(caps[i])}, {len(results[i].speech_tokens)})"
+        for i in sorted(lat)))
+    for i in sorted(streams):
+        times = [t for t, c, _ in chunks[i] if len(c)]
+        gaps = np.diff(times) * 1e3
+        log(f"  stream {i}: first audio {(times[0] - t_submit[i]) * 1e3:.1f} ms after submit, "
+            f"{len(times)} chunks, gaps {gaps.min() if len(gaps) else 0:.1f}-"
+            f"{gaps.max() if len(gaps) else 0:.1f} ms")
+    if len(reads) != rounds:
+        raise AssertionError(f"{len(reads)} status reads for {rounds} rounds")
+
+    # two requests against their isolated runs (a server of the same slots)
+    for i in (1, 9):
+        alone = _isolated_tokens(make, reqs[i])
+        if not np.array_equal(alone, results[i].speech_tokens):
+            raise AssertionError(f"continuous Turbo request {i}: tokens differ from its "
+                                 f"isolated run")
+    log("continuous Turbo: requests 1 and 9 equal their isolated runs, token for token")
+
+    # a round without a synchronising call, then the device's share of a profiled round
+    prof_srv = make()
+    for r in _slot_requests(turbo.conds.t3, ids, 8, 700, [N_TOKENS] * 8, voices):
+        r.ref = None
+        prof_srv.submit(r)
+    prof_srv.serve_round()
+    prof_srv.serve_round()
+    run_without_sync(prof_srv._dispatch_round, "a continuous decode round")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prof_srv.serve_round()
+    torch.cuda.synchronize()
+    plain = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prof_srv.serve_round()
+        torch.cuda.synchronize()
+        profiled = time.perf_counter() - t0
+    dev_us = _device_us(prof)
+    log(f"continuous Turbo round ({SLOT_CHUNK} steps, 8 slots): a round ran with no "
+        f"synchronising call (sync debug mode 'warn'); {dev_us / 1e3:.2f} ms of device time "
+        f"against {plain * 1e3:.2f} ms of wall (unprofiled; {profiled * 1e3:.2f} profiled) "
+        f"-> device busy {100 * dev_us / 1e3 / (plain * 1e3):.1f} % of a round")
+    return counts
+
+
+def continuous_cfg_path(cfg520, voices) -> dict:
+    """ContinuousTTSServer at 4 CFG slots (8 rows) on the 520M int8_fused T3
+    and its CFM S3Gen: six requests, staggered, vocoded in the loop; B5 / B6
+    launched layers x decode steps; one request's tokens against
+    BatchDecoder's for it alone."""
+    import numpy as np
+    import torch
+    from chatterbox_tpu_torch.ops.sampling import SamplerParams
+    from chatterbox_tpu_torch.sampling import continuous as C
+    hp, L = cfg520.hp, cfg520.hp.backbone.num_layers
+
+    def ids(i):
+        return np.concatenate([[hp.start_text_token],
+                               _Tokenizer(10 + 6 * (i % 4), 704).text_to_tokens(
+                                   BATCH_TEXTS[i])[0], [hp.stop_text_token]])
+
+    caps = [100, 180, 140, 200, 120, 160]
+    reqs = _slot_requests(cfg520.conds.t3, ids, 6, 600, caps, voices)
+    for r in reqs:       # the 520M pipeline's sampler (BatchDecoder's default top_p is 0.95)
+        r.sampler = SamplerParams(temperature=0.8, top_p=1.0, repetition_penalty=1.2,
+                                  min_p=0.05, cfg_weight=0.5)
+    srv = C.ContinuousTTSServer(cfg520.t3_params, hp, n_slots=4, text_bucket=64,
+                                max_new_tokens=N_TOKENS, chunk=SLOT_CHUNK, cfg=True,
+                                s3gen=cfg520.s3gen)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs[:4]:
+        srv.submit(r)
+    srv.step()
+    srv.step()
+    for r in reqs[4:]:
+        srv.submit(r)
+    res = srv.run_until_idle()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    steps = srv.decode_steps
+    check_counts(counts, f"ContinuousTTSServer, 4 CFG slots, {L} layers x {steps} decode "
+                 f"steps", {k: L * steps for k in LLAMA})
+    for i, r in enumerate(reqs):
+        w = srv.wavs.get(i)
+        if w is None or not np.isfinite(w).all() or len(w) != max(len(res[i]), 1) * 960:
+            raise AssertionError(f"continuous CFG request {i}: no audio of its tokens")
+    n_tok = sum(len(t) for t in res.values())
+    log(f"continuous CFG, 4 slots (8 rows), 6 requests (caps {caps}): {n_tok} tokens "
+        f"(SOS..EOS slices) in {wall:.3f} s, {steps} decode steps in "
+        f"{srv.rounds} rounds -> {steps / wall:.1f} steps/s; tokens per request "
+        f"{[len(res[i]) for i in range(6)]}")
+    cfg_cross_engine(cfg520, reqs[3], res[3], lambda: C.ContinuousTTSServer(
+        cfg520.t3_params, hp, n_slots=4, text_bucket=64, max_new_tokens=N_TOKENS,
+        chunk=SLOT_CHUNK, cfg=True))
+    return counts
+
+
+def cfg_cross_engine(cfg520, r, in_batch, make_alone) -> None:
+    """Request r's tokens on the slot engine beside five others (in_batch)
+    against the slot engine alone (make_alone: a server of the same slots),
+    which must be equal, and against BatchDecoder alone (the batched
+    engine: left-padded rows, a cache of exactly prefix + budget): equal,
+    or parting first at a step where the batched engine's token leads the
+    slot engine's, under the same gumbel row, by less than NEAR_TIE of the
+    logits' scale (bf16 sums in another order flipping a near-tie),
+    reported with that margin."""
+    import numpy as np
+    import torch
+    from chatterbox_tpu_torch.ops import sampling as S
+    from chatterbox_tpu_torch.sampling.batched import (t3_decode_chunk_batched,
+                                                       t3_generate_batched,
+                                                       t3_prefill_batched)
+    from chatterbox_tpu_torch.models.t3.model import cond_len
+    from chatterbox_tpu_torch.sampling.decode import cache_len
+    from chatterbox_tpu_torch.serve.batching import BatchDecoder, drop_invalid_tokens_sliced
+    hp, params = cfg520.hp, cfg520.t3_params
+    N = min(r.max_new, N_TOKENS)
+    srv = make_alone()
+    srv.submit(r)
+    alone = srv.run_until_idle()[r.request_id]
+    if not np.array_equal(alone, in_batch):
+        raise AssertionError(f"continuous CFG request {r.request_id}: its tokens beside five "
+                             f"others differ from its tokens alone")
+    raw_s = srv.state.tokens[0, :int(srv.state.step[0])].cpu().numpy()
+    dec = BatchDecoder(params, hp, cfg=True, max_batch=1, max_new_tokens=N)
+    res = t3_generate_batched(params, hp, *dec.batch_inputs([r]), max_new_tokens=N,
+                              cfg_mode=True)
+    raw_b = res.tokens[0, :int(res.n_tokens[0])].cpu().numpy()
+    sliced = drop_invalid_tokens_sliced(raw_b)
+    if np.array_equal(sliced[sliced < S3_VOCAB], alone):
+        log(f"continuous CFG: request {r.request_id}'s {len(alone)} tokens equal its tokens "
+            f"beside five others and BatchDecoder's for it alone")
+        return
+    k = next(i for i in range(min(len(raw_s), len(raw_b)) + 1)
+             if i == min(len(raw_s), len(raw_b)) or raw_s[i] != raw_b[i])
+    if k == min(len(raw_s), len(raw_b)):
+        raise AssertionError(f"continuous CFG request {r.request_id}: {len(raw_s)} raw tokens "
+                             f"against BatchDecoder's {len(raw_b)}, equal where both run")
+    # the batched engine replayed to step k: its processed logits and the
+    # gumbel row both engines draw there
+    cond, text, lens, _, gens = dec.batch_inputs([r])
+    state = t3_prefill_batched(params, hp, cond, text, lens, gens,
+                               t_cap=cache_len(text.shape[1] + cond_len(hp) + 2 + N, False),
+                               max_new_tokens=N, cfg_mode=True)
+    sp = r.sampler
+    t3_decode_chunk_batched(params, hp, state, sp, n_steps=k, cfg_mode=True)
+    if not np.array_equal(state.tokens[0, :k].cpu().numpy(), raw_b[:k]):
+        raise AssertionError("the batched engine's replay parts from its own run")
+    l = S.process_logits_cfg(state.logits[:1], state.logits[1:], state.seen, sp)[0]
+    gen = torch.Generator(device=l.device)
+    gen.set_state(state.generators[0].get_state())
+    b = l + S.gumbel(l.shape, gen, l.device)
+    margin = float(b[int(raw_b[k])] - b[int(raw_s[k])])
+    scale = float(l[l > S.NEG_INF].abs().max())
+    log(f"continuous CFG: request {r.request_id}'s tokens equal its tokens beside five others "
+        f"({len(alone)}); against BatchDecoder's for it alone they part first at raw step "
+        f"{k} of {len(raw_b)} (slot engine {int(raw_s[k])}, batched {int(raw_b[k])}, argmax "
+        f"{int(b.argmax())}): the batched token leads by {margin:.4g} under the shared gumbel "
+        f"row, {100 * margin / scale:.3f} % of the logits' scale {scale:.3f} (a near-tie "
+        f"below {100 * NEAR_TIE:g} %)")
+    if not 0 <= margin < NEAR_TIE * scale:
+        raise AssertionError(f"continuous CFG request {r.request_id}: tokens part from "
+                             f"BatchDecoder's at step {k} by a margin of {margin}")
+
+
+def serving_phase(turbo, cfg520) -> dict:
+    """Phase 9. Returns the launch counts of its counted runs."""
+    totals = {}
+    t0 = time.perf_counter()
+    voices = serve_voices(turbo.s3gen)
+    log(f"voices: prompts of {[_p(v) for v in voices]} tokens "
+        f"({time.perf_counter() - t0:.2f} s)")
+    batched_vocode_path(turbo, cfg520, voices)
+    for part in (serving_path(turbo, voices), continuous_turbo_path(turbo, voices),
+                 continuous_cfg_path(cfg520, voices)):
+        for k, v in part.items():
+            totals[k] = totals.get(k, 0) + v
+    return totals
 
 
 def int4_pipeline(tts, mode: str, seed: int):
@@ -2769,13 +3337,16 @@ def main(argv) -> int:
     for k, v in streaming_path(turbo, cfg520).items():
         launches[k] = launches.get(k, 0) + v
     log(f"phase 7 (streaming and VC) {time.perf_counter() - t0:.1f} s")
-    del cfg520
-    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     for part in (multilingual_path(), speculative_path(turbo)):
         for k, v in part.items():
             launches[k] = launches.get(k, 0) + v
     log(f"phase 8 (multilingual and speculative) {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    for k, v in serving_phase(turbo, cfg520).items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"phase 9 (batched serving) {time.perf_counter() - t0:.1f} s")
     for r in rows:
         r["launches"] = launches[r["name"]]
         if r["name"] in PHASE3_ONLY:
