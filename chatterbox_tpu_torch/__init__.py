@@ -5,3 +5,5 @@ on "cuda" unless the caller passes another device."""
 from .api.pipelines import (ChatterboxMultilingualTTS, ChatterboxTTS,  # noqa: F401
                             ChatterboxTurboTTS, ChatterboxVC, Conditionals, T3CondHost)
 from .models.s3gen.model import RefDict  # noqa: F401
+
+__version__ = "0.1.0"

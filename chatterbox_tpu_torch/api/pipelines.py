@@ -51,7 +51,8 @@ from ..serve.streaming import StreamingVocoder
 from ..text.tokenizer import punc_norm
 from ..utils.audio_io import load_audio
 from ..utils.loudness import norm_loudness
-from ..utils.quantize import best_serving_mode, cast_params, quantize_t3_backbone
+from ..utils.quantize import (best_serving_mode, cast_params, is_quantized,
+                              quantize_t3_backbone)
 from ..utils.watermark import Watermarker
 
 logger = logging.getLogger(__name__)
@@ -335,7 +336,7 @@ class ChatterboxTurboTTS(_TTSBase):
         the float weights stay the verify target, so the sampling
         distribution is theirs."""
         if getattr(self, "_qdraft", None) is None:
-            if _is_quantized(self.t3_params):
+            if is_quantized(self.t3_params):
                 raise ValueError("t3 params are already quantized - the int8 self-draft "
                                  "needs the float model as the verify target")
             qp = quantize_t3_backbone(self.t3_params, mode=best_serving_mode(self.hp.backbone))
@@ -582,17 +583,6 @@ class ChatterboxMultilingualTTS(_TTSBase):
         yield from self._stream(ids, sp, cfg_mode=True, max_new_tokens=max_new_tokens,
                                 chunk_tokens=chunk_tokens,
                                 trim_tail_samples=S3GEN_SR // 25)
-
-
-def _is_quantized(tree) -> bool:
-    """Whether a parameter tree holds quantized weights or fused-kernel
-    operands."""
-    if isinstance(tree, dict):
-        return any(k in ("w_q", "w_q4", "w_q4c", "fused") or _is_quantized(v)
-                   for k, v in tree.items())
-    if isinstance(tree, list):
-        return any(_is_quantized(v) for v in tree)
-    return False
 
 
 class ChatterboxVC:

@@ -328,42 +328,73 @@ def backbone_step_rows(params: dict, cfg: BackboneConfig, embeds: torch.Tensor,
     (and, for `KVCacheInt8`, their scales) are written at cache[:, b, :,
     pos[b]] by indexed writes, so nothing is read on the host; the learned
     (GPT-2) or rotary (llama) positions are each row's own pos, and row b
-    attends to keys [0, pos[b]]. With fused_attn the decode-attention
-    kernels take pos as their per-row `cur` over the whole cache (B4 on the
-    int8 cache with MHA heads, B3 / B7 on the bf16 cache); otherwise plain
-    attention over the whole cache under the key mask. Returns the
-    final-norm hidden states (B, 1, D)."""
+    attends to keys [0, pos[b]]. Layers with "fused" operands run their two
+    fused kernels. With fused_attn the decode-attention kernels take pos as
+    their per-row `cur` over the whole cache (B4 on the int8 cache with MHA
+    heads, B3 / B7 on the bf16 cache); otherwise plain attention over the
+    whole cache under the key mask. Returns the final-norm hidden states
+    (B, 1, D)."""
+    if embeds.shape[1] != 1:
+        raise ValueError(f"a per-row step feeds one token a row, got {embeds.shape[1]}")
+    return _rows_forward(params, cfg, embeds, pos, cache, fused_attn)
+
+
+def backbone_slab_rows(params: dict, cfg: BackboneConfig, embeds: torch.Tensor,
+                       pos0: torch.Tensor, cache) -> torch.Tensor:
+    """A slab of s tokens a row at per-row cache offsets (the speculative
+    slot path's verify, sampling/continuous.py `decode_chunk_multi_spec`;
+    the JAX package's `backbone_apply_unrolled` with a (B,) start): embeds
+    (B, s, D), pos0 (B,) long on the device, each row's base position.
+    Per layer, K and V are written at cache[:, b, :, pos0[b] + j] first,
+    then attended, so the slab overwrites what stood at its positions (the
+    draft's int8-computed K / V); query j of row b attends to keys
+    [0, pos0[b] + j] over the whole cache, at learned or rotary position
+    pos0[b] + j. Plain layers and plain attention (the fused kernels take
+    one query); the bf16 cache only. Returns the final-norm hidden states
+    (B, s, D)."""
+    if isinstance(cache, KVCacheInt8):
+        raise ValueError("a multi-token slab verifies into the bf16 cache, not KVCacheInt8")
+    return _rows_forward(params, cfg, embeds, pos0, cache, False)
+
+
+def _rows_forward(params: dict, cfg: BackboneConfig, embeds: torch.Tensor,
+                  pos0: torch.Tensor, cache, fused_attn: bool) -> torch.Tensor:
+    """The layers over embeds (B, t, D) at per-row positions pos0[b] + j
+    (see backbone_step_rows and backbone_slab_rows). Fused layers and the
+    decode-attention kernels take single-token steps only."""
     B, t, D = embeds.shape
-    if t != 1:
-        raise ValueError(f"a per-row step feeds one token a row, got {t}")
     x = embeds
     dev = x.device
-    pos = pos.reshape(B).long()
+    pos = pos0.reshape(B, 1).long() + torch.arange(t, device=dev)     # (B, t)
     rope = None
     if cfg.is_gpt:
-        x = x + nn.embedding(params["wpe"], pos[:, None]).to(x.dtype)
+        x = x + nn.embedding(params["wpe"], pos).to(x.dtype)
     else:
         rope = tuple(c.to(x.dtype) for c in
-                     rope_cos_sin(inv_freq_tensor(cfg, dev), pos[:, None]))
+                     rope_cos_sin(inv_freq_tensor(cfg, dev), pos))
     int8 = isinstance(cache, KVCacheInt8)
     T = cache.max_len
-    rows = torch.arange(B, device=dev)
-    cur = pos.to(torch.int32)
-    mask = (torch.arange(T, device=dev)[None] <= pos[:, None])[:, None, None]
+    rows = torch.arange(B, device=dev)[:, None]
+    step = t == 1
+    fused_attn = fused_attn and step
+    cur = pos[:, 0].to(torch.int32)
+    mask = (torch.arange(T, device=dev) <= pos[:, :, None])[:, None]   # (B, 1, t, T)
     int8_kernel = (int8 and fused_attn and cfg.num_heads == kv_heads(cfg)
                    and T % TT == 0)
     for i, lp in enumerate(params["layers"]):
-        fused = "fused" in lp
+        fused = "fused" in lp and step
         q, k, v = _qkv(lp, cfg, x, fused, rope)
         if fused_attn:
             q = q.contiguous()     # the kernels take (B, H, 1, hd) packed
+        # the writes index (row, position) pairs: values (B, t, H, hd)
+        k, v = k.transpose(1, 2), v.transpose(1, 2)
         if int8:
             kvq, kvs = quantize_kv(torch.stack((k, v)))
             kvs = kvs.to(cache.k_s.dtype)
-            cache.k_q[i, rows, :, pos] = kvq[0, :, :, 0]
-            cache.v_q[i, rows, :, pos] = kvq[1, :, :, 0]
-            cache.k_s[i, rows, :, pos] = kvs[0, :, :, 0]
-            cache.v_s[i, rows, :, pos] = kvs[1, :, :, 0]
+            cache.k_q[i, rows, :, pos] = kvq[0]
+            cache.v_q[i, rows, :, pos] = kvq[1]
+            cache.k_s[i, rows, :, pos] = kvs[0]
+            cache.v_s[i, rows, :, pos] = kvs[1]
             if int8_kernel:
                 attn = decode_attention_streamed_int8(
                     q, cache.k_q[i], cache.k_s[i][..., 0], cache.v_q[i],
@@ -373,8 +404,8 @@ def backbone_step_rows(params: dict, cfg: BackboneConfig, embeds: torch.Tensor,
                 attn = _attn_core(q, deq(cache.k_q, cache.k_s), deq(cache.v_q, cache.v_s),
                                   cur, mask, T, fused_attn)
         else:
-            cache.k[i, rows, :, pos] = k[:, :, 0].to(cache.k.dtype)
-            cache.v[i, rows, :, pos] = v[:, :, 0].to(cache.v.dtype)
+            cache.k[i, rows, :, pos] = k.to(cache.k.dtype)
+            cache.v[i, rows, :, pos] = v.to(cache.v.dtype)
             attn = _attn_core(q, cache.k[i], cache.v[i], cur, mask, T, fused_attn)
         x = _after_attn(lp, cfg, x, nn.merge_heads(attn), fused)
     if cfg.is_gpt:

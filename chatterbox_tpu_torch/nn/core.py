@@ -183,9 +183,25 @@ def conv2d_cf(p: dict, x: torch.Tensor, stride=(1, 1), padding=(0, 0)) -> torch.
 
 def conv_transpose1d_cf(p: dict, x: torch.Tensor, stride: int,
                         padding: int = 0) -> torch.Tensor:
-    """torch.nn.ConvTranspose1d: x (B, Cin, T), weight (Cin, Cout, K)."""
-    return F.conv_transpose1d(x, p["w"], p.get("b"), stride=stride,
-                              padding=padding)
+    """torch.nn.ConvTranspose1d: x (B, Cin, T), weight (Cin, Cout, K), as
+    one ordinary convolution by phases: output phase r (positions r, r +
+    stride, ...) is x convolved with taps r, r + stride, ... of the kernel,
+    the phases stacked as output channels, then interleaved. cuDNN runs a
+    transposed convolution as a backward-data pass, some of whose
+    algorithms sum with atomics, so two runs could differ in the last bits;
+    a forward convolution gives the same samples on every run."""
+    w = p["w"]
+    cin, cout, K = w.shape
+    s = stride
+    M = -(-K // s)                              # taps a phase
+    wp = F.pad(w, (0, M * s - K)).reshape(cin, cout, M, s)       # [.., m, r] = w[.., r + m s]
+    wc = wp.flip(2).permute(3, 1, 0, 2).reshape(s * cout, cin, M)
+    T = x.shape[2]
+    z = F.conv1d(F.pad(x, (M - 1, M - 1)), wc)                  # (B, s Cout, T + M - 1)
+    z = z.reshape(x.shape[0], s, cout, T + M - 1).permute(0, 2, 3, 1).reshape(
+        x.shape[0], cout, (T + M - 1) * s)
+    y = z[:, :, padding:padding + (T - 1) * s + K - 2 * padding]
+    return y if p.get("b") is None else y + p["b"][:, None]
 
 
 # ---------------------------------------------------------------------------

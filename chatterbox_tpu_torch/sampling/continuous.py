@@ -33,9 +33,25 @@ row decodes. The slot cache starts small and doubles as rows advance
 (`grow_slot_cache`); the default bf16 cache is read whole every step, so its
 size bounds that read.
 
-Not in this module yet: the speculative slot path (`draft_int8`,
-`decode_chunk_multi_spec`, `nn_embed_slab`) and `warmup` (XLA's compile
-walk of the growth schedule).
+Speculative rounds (`decode_chunk_multi_spec`, `ContinuousTTSServer(
+draft_int8=True)`, Turbo only): the model's own int8 weights draft K tokens
+a row (B1 / B2 on int8_fused layers), one bf16 forward of the (K+1)-token
+slab at each row's offset verifies them (`backbone_slab_rows`), and a
+draft is accepted when it equals the token the target samples there, so
+the tokens are draft-off's. JAX reaches that by splitting each row's key
+chain once a token and advancing it by the tokens a round emits. A
+torch.Generator cannot hand a draw back, and how many tokens a round emits
+is known only on the device, so the port draws by absolute step instead:
+before a dispatch the host draws each slot's rows, in order, one (V,) row a
+draw as `_draws` draws them, up to its upper bound of the slot's step plus
+the dispatch's tokens, into a per-slot table on the device
+(`SlotStates.draw_table`, (S, cap, V) float32: 210 MB at 8 slots, a
+1000-token cap and V = 6563); position j of a round reads the row at step
++ j, in the draft and the verify alike. Rows drawn and not yet used stay
+for later rounds and are never drawn again, so the s-th draw of a request's
+generator samples its token s, as in draft-off.
+
+Not here: `warmup` (XLA's compile walk of the growth schedule).
 """
 from __future__ import annotations
 
@@ -51,9 +67,11 @@ from ..models.s3gen.model import SIL_TOKEN, SPEECH_VOCAB_SIZE
 from ..models.t3 import backbone as bb
 from ..models.t3 import model as t3m
 from ..models.t3.config import T3Config
+from ..nn import core as nn
 from ..ops import sampling as S
 from ..serve.batching import drop_invalid_tokens_sliced, vocode_seed
 from ..serve.streaming import PRE_LOOKAHEAD_LEN, StreamingVocoder
+from ..utils.quantize import best_serving_mode, is_quantized, quantize_t3_backbone
 
 _SAMPLER_FIELDS = tuple(f.name for f in dataclasses.fields(S.SamplerParams))
 
@@ -76,6 +94,8 @@ class SlotStates:
     cfg_weight: torch.Tensor
     generators: list             # S torch.Generators (None: empty slot or replayed draws)
     gumbel: list                 # S replayed (cap, V) draws (None: drawn from the generator)
+    n_drawn: list                # S host counts: rows of the slot in draw_table
+    draw_table: Optional[torch.Tensor] = None   # (S, cap, V) f32, row s: the draw of step s
 
     @property
     def n_slots(self) -> int:
@@ -108,7 +128,7 @@ def init_slots(hp: T3Config, n_slots: int, text_bucket: int, max_new_tokens: int
         temperature=z(torch.float32, 1.0), top_p=z(torch.float32, 1.0),
         repetition_penalty=z(torch.float32, 1.0), min_p=z(torch.float32),
         cfg_weight=z(torch.float32),
-        generators=[None] * n_slots, gumbel=[None] * n_slots)
+        generators=[None] * n_slots, gumbel=[None] * n_slots, n_drawn=[0] * n_slots)
 
 
 def _cache_fields(cache) -> tuple:
@@ -172,6 +192,7 @@ def admit(params: dict, hp: T3Config, state: SlotStates, slot: int,
         getattr(state, name)[slot] = float(v)
     state.generators[slot] = generator
     state.gumbel[slot] = None if gumbel is None else gumbel.to(dev)
+    state.n_drawn[slot] = 0
     return state
 
 
@@ -239,6 +260,137 @@ def decode_chunk_multi(params: dict, hp: T3Config, state: SlotStates, *, n_steps
     return state
 
 
+def fill_draws(state: SlotStates, upto) -> None:
+    """Extend each occupied slot's rows in `state.draw_table` to its first
+    min(upto[i], cap) steps (made on first use): the next rows of its
+    generator, one (V,) row a draw in order as `_draws` draws them, or its
+    replayed rows. Rows already there stay."""
+    Sn, cap = state.tokens.shape
+    V = state.logits.shape[1]
+    dev = state.logits.device
+    if state.draw_table is None:
+        state.draw_table = torch.zeros((Sn, cap, V), device=dev)
+    for i, (gen, rep) in enumerate(zip(state.generators, state.gumbel)):
+        have, n = state.n_drawn[i], min(int(upto[i]), cap)
+        if n <= have or (gen is None and rep is None):
+            continue
+        if rep is not None:
+            state.draw_table[i, have:n] = rep[have:n]
+        else:
+            state.draw_table[i, have:n] = torch.stack(
+                [S.gumbel((V,), gen, dev) for _ in range(have, n)])
+        state.n_drawn[i] = n
+
+
+def nn_embed_slab(params: dict, hp: T3Config, slab: torch.Tensor,
+                  step: torch.Tensor) -> torch.Tensor:
+    """Embed a (S, s) slab of speech tokens whose row r, position j sits at
+    speech index step[r] + j (token t is embedded at index t + 1, and slab
+    position j holds token step - 1 + j); learned indices past the table's
+    last clamp to it, as the decode's do. Returns (S, s, D) in the
+    embedding's type."""
+    emb = nn.embedding(params["speech_emb"], slab)
+    if hp.input_pos_emb == "learned":
+        w = params["speech_pos_emb"]["w"]
+        idx = (step[:, None] + torch.arange(slab.shape[1], device=slab.device)
+               ).clamp(max=w.shape[0] - 1)
+        emb = emb + w[idx]
+    return emb.to(params["speech_emb"]["w"].dtype)
+
+
+@torch.no_grad()
+def decode_chunk_multi_spec(params: dict, qparams: dict, hp: T3Config, state: SlotStates,
+                            *, n_rounds: int, n_draft: int = 8, top_k: int = 1000,
+                            step_bound=None) -> SlotStates:
+    """n_rounds speculative rounds over every running row (Turbo's chain),
+    in place, reading nothing on the host. A round: slab position 0
+    re-feeds the row's last token (BOS at step 0, which rewrites its
+    prefill position); K = n_draft single-token draft steps on `qparams`
+    (the int8 self-draft: B1 / B2 on int8_fused layers); one forward of
+    the (K+1)-token slab on `params` (`backbone_slab_rows`), writing its
+    K / V over the draft's; then position j's token y_j is sampled from the
+    verify logits with the row's draw of step + j, the same draw the draft
+    used there. Drafts are accepted while they equal y; the row emits y up
+    to the first mismatch (at least one token), its first EOS or its cap.
+    Penalties: position j sees the row's history and drafts 0..j-1, and at
+    step 0 the start token. The draws come from `state.draw_table`, filled
+    here up to step_bound[i] + n_rounds * (K+1) for each slot (step_bound:
+    host upper bounds of the slots' steps; default the cap). The bf16
+    cache only, whose rows the host sizes for prefix + step + K."""
+    if isinstance(state.cache, bb.KVCacheInt8):
+        raise ValueError("speculative rounds verify into the bf16 slot cache")
+    cfg = hp.backbone
+    Sn = state.n_slots
+    V = hp.speech_tokens_dict_size
+    K = n_draft
+    dev = state.logits.device
+    cap = state.tokens.shape[1]
+    T = state.cache.max_len
+    stop = hp.stop_speech_token
+    adv = n_rounds * (K + 1)
+    fill_draws(state, [cap] * Sn if step_bound is None else [b + adv for b in step_bound])
+    sp = S.SamplerParams(*[getattr(state, f)[:, None] for f in _SAMPLER_FIELDS])
+    sp3 = S.SamplerParams(*[getattr(state, f)[:, None, None] for f in _SAMPLER_FIELDS])
+    rows = torch.arange(Sn, device=dev)
+    j_all = torch.arange(K + 1, device=dev)
+    start_col = torch.arange(V, device=dev) == hp.start_speech_token
+    n_spos = qparams["speech_pos_emb"]["w"].shape[0] if hp.input_pos_emb == "learned" else 0
+    for _ in range(n_rounds):
+        step = state.step
+        running = state.active & ~state.done
+        g = state.draw_table[rows[:, None], (step[:, None] + j_all).clamp(max=cap - 1)]
+        prev = state.tokens[rows, (step - 1).clamp(0, cap - 1)]
+        tok = torch.where(step == 0, hp.start_speech_token, prev)
+        # the slab's base position; an empty slot's (-1) clamps to 0
+        pos0 = (state.prefix_lens + step - 1).clamp(0, T - 1 - K)
+        slab, pens = [tok], []
+        seen = state.seen.clone()
+        for j in range(K):
+            spos = step + j
+            emb = t3m.speech_embed_token(qparams, hp, tok,
+                                         spos.clamp(max=n_spos - 1) if n_spos else spos)
+            hidden = bb.backbone_step_rows(qparams["backbone"], cfg, emb, pos0 + j,
+                                           state.cache)
+            pen = seen | (start_col[None] & (spos == 0)[:, None])
+            l = S.process_logits_turbo(t3m.speech_logits(qparams, hidden[:, 0]).float(),
+                                       pen, sp, top_k)
+            tok = S.sample_categorical(l, g[:, j])
+            tok = torch.where((l <= S.NEG_INF).all(-1), stop, tok)
+            # scatter_ takes True as an argument; an indexed write of it would
+            # copy it from the host, a synchronising call
+            seen.scatter_(1, tok[:, None], True)
+            slab.append(tok)
+            pens.append(pen)
+        pens.append(seen)
+        slab = torch.stack(slab, 1)                                   # (S, K+1)
+        hidden = bb.backbone_slab_rows(params["backbone"], cfg,
+                                       nn_embed_slab(params, hp, slab, step), pos0,
+                                       state.cache)
+        l = S.process_logits_turbo(t3m.speech_logits(params, hidden).float(),
+                                   torch.stack(pens, 1), sp3, top_k)  # (S, K+1, V)
+        y = S.sample_categorical(l, g)
+        y = torch.where((l <= S.NEG_INF).all(-1), stop, y)
+        # accept by token match; stop at the first EOS or the row's cap
+        match = y[:, :K] == slab[:, 1:]
+        n_match = torch.where(match.all(1), K, (~match).int().argmax(1))
+        is_stop = (y == stop) & (j_all[None] <= n_match[:, None])
+        n_s = torch.where(is_stop.any(1), is_stop.int().argmax(1) + 1, n_match + 1)
+        n_emit = torch.where(running, torch.minimum(n_s, (state.max_new - step).clamp(min=1)),
+                             0)
+        emitted = j_all[None] < n_emit[:, None]                       # (S, K+1)
+        state.done = state.done | (running & ((is_stop & emitted).any(1)
+                                              | (step + n_emit >= state.max_new)))
+        for j in range(K + 1):
+            wpos = (step + j).clamp(max=cap - 1)
+            state.tokens[rows, wpos] = torch.where(emitted[:, j], y[:, j],
+                                                   state.tokens[rows, wpos])
+        hits = torch.zeros((Sn, V), dtype=torch.int32, device=dev)
+        hits.scatter_add_(1, y, emitted.int())
+        state.seen = state.seen | (hits > 0)
+        state.step = step + n_emit
+    return state
+
+
 def pack_status(state: SlotStates) -> torch.Tensor:
     """Everything the host scheduler reads, as one long tensor on the
     device: [done (S) | active (S) | step (S) | tokens (S * cap)]."""
@@ -290,14 +442,22 @@ class ContinuousTTSServer:
     def __init__(self, t3_params, hp: T3Config, n_slots: int = 8, text_bucket: int = 64,
                  max_new_tokens: int = 1000, chunk: int = 16, top_k: int = 1000,
                  seed: int = 0, s3gen=None, cfg: bool = False, kv_int8: bool = False,
-                 stream_chunk: int = 25, first_chunk: Optional[int] = None):
+                 stream_chunk: int = 25, first_chunk: Optional[int] = None,
+                 draft_int8: bool = False, n_draft: int = 8):
         """cfg serves the 520M / multilingual CFG family (two rows a slot;
         text arrives SOT/EOT-framed). stream_chunk: tokens a streaming feed
         (25: a second of audio). first_chunk (default stream_chunk): the
         size of a stream's first feed; while a stream has delivered no
         audio yet, rounds shorten to first_chunk steps. The token content
         never depends on round lengths, only when the host sees it. A full
-        slot set on fused int8 layers must fit the kernels' MAX_B rows."""
+        slot set on fused int8 layers must fit the kernels' MAX_B rows.
+
+        draft_int8: speculative rounds (`decode_chunk_multi_spec`): the
+        float T3's own weights quantized with `best_serving_mode` draft
+        n_draft tokens a row and round, one forward of the float T3
+        verifies them; the tokens stay draft-off's. Turbo on the bf16
+        cache only. It pays at low occupancy; a full slot set already
+        shares each weight read among its rows."""
         self.t3_params = t3_params
         self.hp = hp
         self.n_slots = n_slots
@@ -318,13 +478,29 @@ class ContinuousTTSServer:
         if "fused" in t3_params["backbone"]["layers"][0] and rows > MAX_B:
             raise ValueError(f"{n_slots} slots are {rows} rows; the fused decode-layer "
                              f"kernels take at most {MAX_B}")
+        self.draft = draft_int8
+        self.n_draft = n_draft
+        self._qparams = None
+        if draft_int8:
+            if cfg:
+                raise ValueError("speculative rounds cover the Turbo chain only, not cfg")
+            if kv_int8:
+                raise ValueError("speculative rounds verify into the bf16 slot cache, "
+                                 "not kv_int8")
+            if is_quantized(t3_params):
+                raise ValueError("draft_int8 needs the float T3 as the verify target; "
+                                 "these params are already quantized")
+            self._qparams = quantize_t3_backbone(t3_params,
+                                                 mode=best_serving_mode(hp.backbone))
         self.device = t3_params["speech_emb"]["w"].device
         self._cap_base = t3m.cond_len(hp) + text_bucket + (2 if cfg else 1)
-        self._t_full = self._cap_base + max_new_tokens
+        # a spec round's slab may overhang the last emitted token by K positions
+        self._t_full = self._cap_base + max_new_tokens + (n_draft + 1 if draft_int8 else 0)
         self._t_cap = min(self._t_full, self._cap_base + max(4 * chunk, 16))
         self.state = init_slots(hp, n_slots, text_bucket, max_new_tokens, t_cap=self._t_cap,
                                 cfg=cfg, kv_int8=kv_int8, device=self.device)
         self._slot_bound = [0] * n_slots   # host upper bound of prefix + step a slot
+        self._slot_prefix = [0] * n_slots  # each slot's prefix length
         self._fresh: set = set()           # slots admitted after the lagged snapshot
         self._seeds = np.random.default_rng(seed)   # seeds of unseeded requests
         self._pending: list = []           # (request, on_chunk) first in, first out
@@ -335,8 +511,10 @@ class ContinuousTTSServer:
         self._voc_pending = None           # (request ids, vocode handle)
         self._await_wav: set = set()       # harvested, audio not read back yet
         self._lagged = None                # serve_round's snapshot of the last round
-        self.rounds = 0                    # decode rounds dispatched
-        self.decode_steps = 0              # their steps (each runs every slot's row)
+        self.rounds = 0                    # decode rounds dispatched (a host read each)
+        self.decode_steps = 0              # their steps (each runs every slot's row);
+                                           # with draft_int8 the draft steps
+        self.spec_rounds = 0               # speculative rounds (a verify each)
 
     # ------------------------------------------------------------------
     def submit(self, req, on_chunk=None) -> None:
@@ -383,7 +561,8 @@ class ContinuousTTSServer:
                   cfg_weight=spr.cfg_weight if spr else cfg_w, cfg_mode=self.cfg)
             self._slot_req[slot] = req
             self._fresh.add(slot)
-            self._slot_bound[slot] = t3m.cond_len(self.hp) + len(ids) + (2 if self.cfg else 1)
+            self._slot_prefix[slot] = t3m.cond_len(self.hp) + len(ids) + (2 if self.cfg else 1)
+            self._slot_bound[slot] = self._slot_prefix[slot]
             if on_chunk is not None:
                 # the vocoder's generator: from the request's seed, apart from
                 # its decode's, as the batched vocode derives it
@@ -536,22 +715,38 @@ class ContinuousTTSServer:
         if self.first_chunk < self.chunk and any(
                 st is not None and not st.first_fed for st in self._slot_stream):
             n_steps = self.first_chunk
+        # speculative rounds emit up to K+1 tokens each: as many rounds as
+        # cover the round's steps. The slab's overhang of K positions past
+        # the last emitted token is rewritten next round, so it enters the
+        # capacity needed but not the slots' bounds.
+        K1 = self.n_draft + 1
+        n_rounds = -(-n_steps // K1) if self.draft else 0
+        adv = n_rounds * K1 if self.draft else n_steps
+        over = self.n_draft if self.draft else 0
         # grow the cache to cover every slot's next round, doubling; a done
         # but unharvested slot's bound may pass the full capacity
-        needed = min(max(self._slot_bound) + n_steps, self._t_full)
+        needed = min(max(self._slot_bound) + adv + over, self._t_full)
         if needed > self._t_cap:
             new_cap = self._t_cap
             while new_cap < needed:
                 new_cap = min(self._t_full, self._cap_base + 2 * (new_cap - self._cap_base))
             grow_slot_cache(self.state, new_t_cap=new_cap)
             self._t_cap = new_cap
-        decode_chunk_multi(self.t3_params, self.hp, self.state, n_steps=n_steps,
-                           top_k=self.top_k, cfg_mode=self.cfg)
+        if self.draft:
+            decode_chunk_multi_spec(
+                self.t3_params, self._qparams, self.hp, self.state, n_rounds=n_rounds,
+                n_draft=self.n_draft, top_k=self.top_k,
+                step_bound=[b - p for b, p in zip(self._slot_bound, self._slot_prefix)])
+            self.spec_rounds += n_rounds
+            self.decode_steps += n_rounds * self.n_draft
+        else:
+            decode_chunk_multi(self.t3_params, self.hp, self.state, n_steps=n_steps,
+                               top_k=self.top_k, cfg_mode=self.cfg)
+            self.decode_steps += n_steps
         self.rounds += 1
-        self.decode_steps += n_steps
         for i in range(self.n_slots):
             if self._slot_req[i] is not None:
-                self._slot_bound[i] += n_steps
+                self._slot_bound[i] += adv
         return True
 
     def step(self) -> list:

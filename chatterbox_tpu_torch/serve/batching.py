@@ -62,10 +62,13 @@ def register_lingering(thread) -> None:
     LINGERING_THREADS.append(thread)
 
 
-def vocode_seed(seed: int) -> int:
+def vocode_seed(seed: int, stream: int = 1) -> int:
     """The seed of a seeded request's vocode generator: derived from the
-    request's seed, apart from its decode's (which is the seed itself)."""
-    return int(np.random.SeedSequence([int(seed), 1]).generate_state(1, np.uint64)[0] >> 1)
+    request's seed, apart from its decode's (which is the seed itself).
+    stream tells apart the uses of one seed, as the JAX package's
+    fold_in index does (1: a synthesis's vocode, 2: voice conversion)."""
+    return int(np.random.SeedSequence([int(seed), int(stream)]).generate_state(
+        1, np.uint64)[0] >> 1)
 
 
 def drop_invalid_tokens_sliced(tokens: np.ndarray, sos: int = SOS,

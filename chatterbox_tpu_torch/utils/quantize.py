@@ -152,6 +152,17 @@ def _quantize_gpt2_layer_int4_fused(lp: dict) -> dict:
     return out
 
 
+def is_quantized(tree) -> bool:
+    """Whether a parameter tree holds quantized weights or fused-kernel
+    operands."""
+    if isinstance(tree, dict):
+        return any(k in ("w_q", "w_q4", "w_q4c", "fused") or is_quantized(v)
+                   for k, v in tree.items())
+    if isinstance(tree, list):
+        return any(is_quantized(v) for v in tree)
+    return False
+
+
 def best_serving_mode(cfg) -> str:
     """The quantization mode the JAX package serves each backbone with:
     the fused int8 decode-layer kernels where the widths fit their tiles

@@ -47,6 +47,11 @@ weights quantized to int4:
     B2, B4), and the continuous slot engine ContinuousTTSServer behind
     ContinuousServingLoop (8 Turbo slots on the int8 cache: B1, B2, B4 with
     each row's position as its `cur`; 4 CFG slots, 8 rows: B5, B6).
+  * the speculative slot path: ContinuousTTSServer(draft_int8=True) over a
+    bf16 Turbo T3 (B1, B2 in the int8_fused draft steps; the verify slab
+    unfused); the serving surfaces: the HTTP front over BatchDecoder and
+    the continuous server (B1, B2, B4), the MCP server, and the command
+    line (`cli.main(["synth", ...])` from phase 6's checkpoint directory).
 B11 (fused_mlp_int8) is on no path: nothing in the JAX package calls it
 outside its own test. Phase 3 holds it against its plain version.
 
@@ -88,7 +93,7 @@ Phases, in order; any failure exits non-zero without the final "ok" line:
   5. main paths, each with the launch counts set to 0 just before and read
      just after it (its own kernels launched layers x decode steps times,
      B8 seven times that, every other kernel not at all): each pipeline's
-     generate once to warm up (32 tokens), then two requests timed as
+     generate once to warm up (32 tokens), then TIMED_RUNS requests timed as
      bench.py times them, t3_generate with EOS ignored then S3Gen's
      inference_from_decode with the pipeline's own tail (Turbo: 3 silence
      tokens; 520M: the SOS..EOS slice), on the text ids its generate makes
@@ -112,7 +117,7 @@ Phases, in order; any failure exits non-zero without the final "ok" line:
      against the same call on the cpu (embeddings and prompt mels to 1e-3,
      at least 99 % of the S3 tokens equal), timed with its split; T3
      quantized int8_fused; generate(text, audio_prompt_path=wav) to warm
-     up, then two requests timed as phase 5 times them with
+     up, then TIMED_RUNS requests timed as phase 5 times them with
      prepare_conditionals inside the timed window (B1 and B2 launched
      layers x steps times), x-realtime with and without the frontend, and
      the device's share of one profiled request;
@@ -123,8 +128,8 @@ Phases, in order; any failure exits non-zero without the final "ok" line:
      source cache against the one-shot vocode (1e-4); the streaming
      vocoder on the card against the cpu on a small S3Gen with the same
      numbers, four feed_from_decode feeds (1e-4, lengths exact); each
-     pipeline's generate_stream (32 tokens) once to warm up, then two
-     timed streams of 250 tokens in chunks of 25 (time to first audio,
+     pipeline's generate_stream (32 tokens) once to warm up, then
+     STREAM_RUNS timed streams of 250 tokens in chunks of 25 (time to first audio,
      gaps between chunks, tokens, x-realtime; B1 / B2 or B5 / B6
      launched layers x decode steps times) and the device's share of one
      profiled stream;
@@ -132,7 +137,7 @@ Phases, in order; any failure exits non-zero without the final "ok" line:
      weights) and conds.pt written to a temporary directory,
      ChatterboxVC.from_local on the card (the loaded leaves equal the
      written ones), set_target_voice on a 6 s voice, generate on a 10 s
-     source once to warm up, then two timed runs (no kernel launched);
+     source once to warm up, then TIMED_RUNS timed runs (no kernel launched);
   8. multilingual and speculative: a multilingual checkpoint directory
      (t3_mtl23ls_v2.safetensors from random full-width weights, ve.pt and
      s3gen.pt, conds.pt, a grapheme vocabulary trained here with the 23
@@ -149,7 +154,7 @@ Phases, in order; any failure exits non-zero without the final "ok" line:
      against K+1 single steps on the same cache (within 5 % of the logits'
      scale); greedy speculative tokens (250, EOS ignored) against
      sequential t3_generate (equal, or parting only where the sequential
-     top-2 gap is below that bound); two timed decodes of 250 tokens at
+     top-2 gap is below that bound); TIMED_RUNS timed decodes of 250 tokens at
      n_draft 4 and 8 (ms/token, acceptance, rounds; B1 / B2 launched 24 x
      (K+1) x rounds, nothing else), the sequential bf16 target and phase
      5's int8_fused Turbo in the same call; generate(draft="int8") end to
@@ -180,8 +185,29 @@ Phases, in order; any failure exits non-zero without the final "ok" line:
      the 520M int8_fused T3 and its CFM S3Gen, six requests staggered and
      vocoded, B5 / B6 launched 30 x decode steps, one request against
      BatchDecoder's tokens for it alone.
+ 10. speculative slots and serving surfaces: the seed-0 Turbo T3 in bf16
+     (phase 8's verify target) behind ContinuousTTSServer(draft_int8=True,
+     n_draft=8), tokens only, at 1 slot (250 tokens) and at 4 slots (caps
+     100-250), against the same server with draft off: tokens equal, or,
+     where a request parts (reruns of both runs, a step or a round at a
+     time), draft-on's token the sample of the verify's logits under draft
+     off's gumbel row and sampler, those logits within VERIFY_TOL of draft
+     off's there, and draft off's margin reported against NEAR_TIE; B1 / B2
+     launched 24 x 8 x spec rounds and nothing else; one
+     host read a dispatch; ms per emitted token with draft on and off and
+     the acceptance (a rerun a round at a time); a dispatch under sync
+     debug mode. TTSHTTPServer on 127.0.0.1:0 over phase 5's Turbo: a
+     BatchDecoder (kv_int8, 100 tokens) answering 4 concurrent POST /tts,
+     each a 24 kHz PCM16 RIFF, the same seed alone twice byte-equal,
+     /v1/audio/speech as pcm, /vc against a registered voice (seeded:
+     the same bytes twice), /metrics
+     counting the requests; a 4-slot continuous backend (kv_int8) with a
+     streamed POST /tts (time to its first audio byte); B1 / B2 / B4
+     launched alike. MCPTTSServer.handle tools/call generate_speech. The
+     command line in process: `info`, and `synth` from phase 6's
+     checkpoint directory and prompt file, its WAV read back.
 The line before the last is {"kernels": [...]} (launches summed over
-phases 5-9), the last {"ok": true, "device": {...}}.
+phases 5-10), the last {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -189,13 +215,15 @@ import importlib
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate (NVIDIA data sheet)
 PEAK_INT8_OPS = 1.979e15       # dense int8 tensor-core rate, same source
 N_TOKENS = 250
 WARMUP_TOKENS = 32             # a warm-up generate's tokens (every kernel built already)
-TIMED_RUNS = 2                 # timed runs of a request, a decode or a conversion (best of)
+TIMED_RUNS = 1                 # timed runs of a request, a decode or a conversion (best of)
 P_PROMPT = 125
 PHASE5_TEXT = "The quick brown fox jumps over the lazy dog near the river bank."
 SOS, EOS, S3_VOCAB = 6561, 6562, 6561
@@ -1826,7 +1854,7 @@ def _compare_conds(out, ref) -> None:
             raise AssertionError(f"frontend {label} tokens: only {same} of {b.size} equal")
 
 
-def frontend_path() -> dict:
+def frontend_path(d) -> dict:
     """Phase 6: a Turbo checkpoint directory in the reference's layout,
     written from random full-width weights (GPT-2-medium T3, the full S3
     tokenizer, CAMPPlus with seeded batch statistics, flow, HiFT base 512,
@@ -1836,10 +1864,9 @@ def frontend_path() -> dict:
     path and timed, with its split; T3 quantized int8_fused; a warm-up
     generate(text, audio_prompt_path=wav), then TIMED_RUNS requests timed as
     phase 5 times them with prepare_conditionals inside the timed window.
-    Returns the launch counts of the timed requests."""
-    import tempfile
-    from pathlib import Path
-
+    d: an empty directory (a pathlib.Path), which keeps the checkpoint and
+    the prompt WAV for phase 10's command line. Returns the launch counts of
+    the timed requests."""
     import numpy as np
     import torch
     from chatterbox_tpu_torch import ChatterboxTurboTTS
@@ -1864,121 +1891,119 @@ def frontend_path() -> dict:
     s3["speaker_encoder"] = seeded_batch_stats(s3["speaker_encoder"], 22)
     vep = ve.ve_init(nn.Init(23, "cuda"))
     counts = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        d = Path(tmp)
+    t0 = time.perf_counter()
+    write_checkpoint(d, "t3_turbo_v1.safetensors", "s3gen_meanflow.safetensors", t3, hp, s3,
+                     vep)
+    write_turbo_tokenizer(d, 500, [PHASE5_TEXT * 4, "the river bank is near"])
+    wav_path = d / "prompt.wav"
+    save_wav(wav_path, 0.5 * synthetic_voice(6.0, 24000, seed=24), 24000)
+    files = sorted(f.name for f in d.iterdir())
+    mib = sum(f.stat().st_size for f in d.iterdir()) / 2**20
+    log(f"frontend: wrote {files} ({mib:.1f} MiB) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tts = ChatterboxTurboTTS.from_local(d)
+    torch.cuda.synchronize()
+    log(f"frontend: from_local on {tts.device} in {time.perf_counter() - t0:.1f} s "
+        f"(tokenizer {type(tts.tokenizer).__name__})")
+    n = (_equal_trees(tts.t3_params, t3, "t3") + _equal_trees(tts.s3gen.params, s3, "s3gen")
+         + _equal_trees(tts.ve_params, vep, "ve"))
+    log(f"frontend: the {n} loaded leaves equal the written ones")
+    del t3, s3, vep
+    t0 = time.perf_counter()
+    cpu = ChatterboxTurboTTS.from_local(d, device="cpu")
+    cpu.prepare_conditionals(str(wav_path))
+    log(f"frontend: from_local and prepare_conditionals on the cpu in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ms = _best_ms(lambda: tts.prepare_conditionals(str(wav_path)))
+    _compare_conds(tts.conds, cpu.conds)
+    del cpu
+
+    # the split of prepare_conditionals, each part on the card as it calls it
+    ref_24k = np.asarray(norm_loudness(load_audio(wav_path, 24000), 24000), np.float32)
+    dev = tts.s3gen.device
+    params, cfg = tts.s3gen.params, tts.s3gen.tok_cfg
+    w24 = torch.from_numpy(ref_24k).to(dev)
+    w16 = resample(w24, 24000, 16000)
+    n16 = 640 * -(-w16.shape[0] // 640)
+    w16p = torch.nn.functional.pad(w16, (0, n16 - w16.shape[0]))
+    w24p = torch.nn.functional.pad(w24, (0, max(0, n16 * 3 // 2 - w24.shape[0])))
+    n_len = torch.tensor([n16], device=dev)
+    ref_16k = w16.cpu().numpy()
+    with torch.no_grad(), nn.no_tf32_convs():
+        split = {
+            "load + loudness (host)": _best_ms(
+                lambda: norm_loudness(load_audio(wav_path, 24000), 24000)),
+            "resample x2": _best_ms(
+                lambda: (resample(w24, 24000, 16000), resample(w24, 24000, 16000))),
+            "mel 24k": _best_ms(lambda: mel_spectrogram_24k(w24p[None])),
+            "CAMPPlus": _best_ms(lambda: campplus_embed_wav(params["speaker_encoder"],
+                                                            w16[None])),
+            "S3 tokenizer x2": _best_ms(lambda: (
+                s3tokenizer_tokenize(params["tokenizer"], cfg, w16p[None], n_len),
+                s3tokenizer_tokenize(params["tokenizer"], cfg, w16p[None], n_len,
+                                     hp.speech_cond_prompt_len))),
+            "voice encoder": _best_ms(lambda: ve.embeds_from_wavs(
+                tts.ve_params, [ref_16k], sample_rate=16000)),
+        }
+    log(f"frontend: prepare_conditionals of a 6 s prompt on the card {ms:.2f} ms (best of "
+        f"3); parts (best of 3 each, synced): "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
+        + f"; sum {sum(split.values()):.2f} ms")
+
+    # T3 served as bench.py serves it, then requests from the prompt file
+    t0 = time.perf_counter()
+    tts.t3_params = quantize_t3_backbone(cast_params(tts.t3_params, torch.bfloat16),
+                                         mode=best_serving_mode(hp.backbone))
+    gen_kw = dict(top_k=1000, temperature=0.8, top_p=0.95, repetition_penalty=1.2)
+    wav = tts.generate(PHASE5_TEXT, audio_prompt_path=str(wav_path),
+                       max_new_tokens=WARMUP_TOKENS, **gen_kw)
+    if not (wav.ndim == 2 and np.isfinite(wav).all()):
+        raise AssertionError(f"frontend: generate from the prompt gave {wav.shape}")
+    ids = torch.as_tensor(turbo_ids(tts, PHASE5_TEXT), device="cuda").long()
+    sp = SamplerParams(0.8, 0.95, 1.2)
+
+    def request():
         t0 = time.perf_counter()
-        write_checkpoint(d, "t3_turbo_v1.safetensors", "s3gen_meanflow.safetensors", t3, hp, s3,
-                         vep)
-        write_turbo_tokenizer(d, 500, [PHASE5_TEXT * 4, "the river bank is near"])
-        wav_path = d / "prompt.wav"
-        save_wav(wav_path, 0.5 * synthetic_voice(6.0, 24000, seed=24), 24000)
-        files = sorted(f.name for f in d.iterdir())
-        mib = sum(f.stat().st_size for f in d.iterdir()) / 2**20
-        log(f"frontend: wrote {files} ({mib:.1f} MiB) in {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        tts = ChatterboxTurboTTS.from_local(d)
+        tts.prepare_conditionals(str(wav_path))
         torch.cuda.synchronize()
-        log(f"frontend: from_local on {tts.device} in {time.perf_counter() - t0:.1f} s "
-            f"(tokenizer {type(tts.tokenizer).__name__})")
-        n = (_equal_trees(tts.t3_params, t3, "t3") + _equal_trees(tts.s3gen.params, s3, "s3gen")
-             + _equal_trees(tts.ve_params, vep, "ve"))
-        log(f"frontend: the {n} loaded leaves equal the written ones")
-        del t3, s3, vep
-        t0 = time.perf_counter()
-        cpu = ChatterboxTurboTTS.from_local(d, device="cpu")
-        cpu.prepare_conditionals(str(wav_path))
-        log(f"frontend: from_local and prepare_conditionals on the cpu in "
-            f"{time.perf_counter() - t0:.1f} s")
-        ms = _best_ms(lambda: tts.prepare_conditionals(str(wav_path)))
-        _compare_conds(tts.conds, cpu.conds)
-        del cpu
+        t1 = time.perf_counter()
+        res = t3_generate(tts.t3_params, hp, tts.conds.t3.as_tensors("cuda"), ids, sp,
+                          max_new_tokens=N_TOKENS, top_k=1000, ignore_eos=True,
+                          generator=tts.generator)
+        wav, n_voc = tts.s3gen.inference_from_decode(
+            res.tokens, res.n_tokens, tts.conds.gen, generator=tts.generator, append_sil=3)
+        t2 = time.perf_counter()
+        if (n_voc != vocoded_tokens(res, False) or wav.shape != (1, n_voc * 960)
+                or not np.isfinite(wav).all()):
+            raise AssertionError(f"frontend request: waveform {wav.shape}, {n_voc} tokens")
+        return t2 - t0, t2 - t1, n_voc, res.n_forward
 
-        # the split of prepare_conditionals, each part on the card as it calls it
-        ref_24k = np.asarray(norm_loudness(load_audio(wav_path, 24000), 24000), np.float32)
-        dev = tts.s3gen.device
-        params, cfg = tts.s3gen.params, tts.s3gen.tok_cfg
-        w24 = torch.from_numpy(ref_24k).to(dev)
-        w16 = resample(w24, 24000, 16000)
-        n16 = 640 * -(-w16.shape[0] // 640)
-        w16p = torch.nn.functional.pad(w16, (0, n16 - w16.shape[0]))
-        w24p = torch.nn.functional.pad(w24, (0, max(0, n16 * 3 // 2 - w24.shape[0])))
-        n_len = torch.tensor([n16], device=dev)
-        ref_16k = w16.cpu().numpy()
-        with torch.no_grad(), nn.no_tf32_convs():
-            split = {
-                "load + loudness (host)": _best_ms(
-                    lambda: norm_loudness(load_audio(wav_path, 24000), 24000)),
-                "resample x2": _best_ms(
-                    lambda: (resample(w24, 24000, 16000), resample(w24, 24000, 16000))),
-                "mel 24k": _best_ms(lambda: mel_spectrogram_24k(w24p[None])),
-                "CAMPPlus": _best_ms(lambda: campplus_embed_wav(params["speaker_encoder"],
-                                                                w16[None])),
-                "S3 tokenizer x2": _best_ms(lambda: (
-                    s3tokenizer_tokenize(params["tokenizer"], cfg, w16p[None], n_len),
-                    s3tokenizer_tokenize(params["tokenizer"], cfg, w16p[None], n_len,
-                                         hp.speech_cond_prompt_len))),
-                "voice encoder": _best_ms(lambda: ve.embeds_from_wavs(
-                    tts.ve_params, [ref_16k], sample_rate=16000)),
-            }
-        log(f"frontend: prepare_conditionals of a 6 s prompt on the card {ms:.2f} ms (best of "
-            f"3); parts (best of 3 each, synced): "
-            + ", ".join(f"{k} {v:.2f} ms" for k, v in split.items())
-            + f"; sum {sum(split.values()):.2f} ms")
+    log(f"frontend: T3 quantized and a warm-up generate from the prompt file in "
+        f"{time.perf_counter() - t0:.1f} s")
+    reset_counts()
+    runs = [request() for _ in range(TIMED_RUNS)]
+    counts = read_counts()
+    L, forwards = hp.backbone.num_layers, sum(r[3] for r in runs)
+    check_counts(counts, f"Turbo from a prompt file, {L} layers x {forwards} decode steps",
+                 {k: L * forwards for k in GPT2})
+    full, bare = min(r[0] for r in runs), min(r[1] for r in runs)
+    audio_s = runs[0][2] / 25.0
+    log(f"Turbo request from a prompt file (prepare_conditionals + t3_generate + "
+        f"inference_from_decode): {[round(r[0], 4) for r in runs]} s for {audio_s:.2f} s of "
+        f"audio -> x-realtime {audio_s / full:.3f} with the frontend, {audio_s / bare:.3f} "
+        f"without it (best of {TIMED_RUNS})")
 
-        # T3 served as bench.py serves it, then requests from the prompt file
-        t0 = time.perf_counter()
-        tts.t3_params = quantize_t3_backbone(cast_params(tts.t3_params, torch.bfloat16),
-                                             mode=best_serving_mode(hp.backbone))
-        gen_kw = dict(top_k=1000, temperature=0.8, top_p=0.95, repetition_penalty=1.2)
-        wav = tts.generate(PHASE5_TEXT, audio_prompt_path=str(wav_path),
-                           max_new_tokens=WARMUP_TOKENS, **gen_kw)
-        if not (wav.ndim == 2 and np.isfinite(wav).all()):
-            raise AssertionError(f"frontend: generate from the prompt gave {wav.shape}")
-        ids = torch.as_tensor(turbo_ids(tts, PHASE5_TEXT), device="cuda").long()
-        sp = SamplerParams(0.8, 0.95, 1.2)
-
-        def request():
-            t0 = time.perf_counter()
-            tts.prepare_conditionals(str(wav_path))
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            res = t3_generate(tts.t3_params, hp, tts.conds.t3.as_tensors("cuda"), ids, sp,
-                              max_new_tokens=N_TOKENS, top_k=1000, ignore_eos=True,
-                              generator=tts.generator)
-            wav, n_voc = tts.s3gen.inference_from_decode(
-                res.tokens, res.n_tokens, tts.conds.gen, generator=tts.generator, append_sil=3)
-            t2 = time.perf_counter()
-            if (n_voc != vocoded_tokens(res, False) or wav.shape != (1, n_voc * 960)
-                    or not np.isfinite(wav).all()):
-                raise AssertionError(f"frontend request: waveform {wav.shape}, {n_voc} tokens")
-            return t2 - t0, t2 - t1, n_voc, res.n_forward
-
-        log(f"frontend: T3 quantized and a warm-up generate from the prompt file in "
-            f"{time.perf_counter() - t0:.1f} s")
-        reset_counts()
-        runs = [request() for _ in range(TIMED_RUNS)]
-        counts = read_counts()
-        L, forwards = hp.backbone.num_layers, sum(r[3] for r in runs)
-        check_counts(counts, f"Turbo from a prompt file, {L} layers x {forwards} decode steps",
-                     {k: L * forwards for k in GPT2})
-        full, bare = min(r[0] for r in runs), min(r[1] for r in runs)
-        audio_s = runs[0][2] / 25.0
-        log(f"Turbo request from a prompt file (prepare_conditionals + t3_generate + "
-            f"inference_from_decode): {[round(r[0], 4) for r in runs]} s for {audio_s:.2f} s of "
-            f"audio -> x-realtime {audio_s / full:.3f} with the frontend, {audio_s / bare:.3f} "
-            f"without it (best of {TIMED_RUNS})")
-
-        from torch.profiler import ProfilerActivity, profile
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            request()
-            torch.cuda.synchronize()
-        dev_us = sum(e.self_device_time_total for e in prof.key_averages()
-                     if e.device_type == torch.autograd.DeviceType.CUDA)
-        log(f"frontend: profiled request and its analysis {time.perf_counter() - t0:.1f} s")
-        log(f"Turbo request from a prompt file: {dev_us / 1e3:.1f} ms of device time "
-            f"(profiled run) against {full * 1e3:.1f} ms of wall (best unprofiled) -> device "
-            f"busy {100 * dev_us / 1e3 / (full * 1e3):.1f} % of a whole request")
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        request()
+        torch.cuda.synchronize()
+    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    log(f"frontend: profiled request and its analysis {time.perf_counter() - t0:.1f} s")
+    log(f"Turbo request from a prompt file: {dev_us / 1e3:.1f} ms of device time "
+        f"(profiled run) against {full * 1e3:.1f} ms of wall (best unprofiled) -> device "
+        f"busy {100 * dev_us / 1e3 / (full * 1e3):.1f} % of a whole request")
     return counts
 
 
@@ -1989,7 +2014,7 @@ def frontend_path() -> dict:
 STREAM_CHUNK = 25              # tokens a decode chunk of generate_stream
 HIFT_WINDOWS = (96, 168, 240)  # growing HiFT windows (mel frames); 16 held back
 STREAM_LA = 16                 # frames held back a window: past HiFT's receptive field
-STREAM_RUNS = 2                # timed streams a pipeline
+STREAM_RUNS = 1                # timed streams a pipeline
 
 
 def stream_tokens_equal(tts, label, decode_kw):
@@ -3235,6 +3260,493 @@ def serving_phase(turbo, cfg520) -> dict:
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the speculative slot path and the serving surfaces (HTTP, MCP,
+# the command line)
+# ---------------------------------------------------------------------------
+
+SPEC_SLOT_K = 8                 # n_draft of the speculative slot server
+SPEC_CAPS = (100, 150, 200, 250)  # the 4-slot run's per-request caps
+HTTP_TOKENS = 100               # the HTTP backends' max_new_tokens
+
+
+def first_parting(on, off):
+    """The first step where token lists on and off differ (None if equal)."""
+    n = min(len(on), len(off))
+    k = next((i for i in range(n) if on[i] != off[i]), None)
+    if k is None and len(on) != len(off):
+        raise AssertionError(f"{len(on)} tokens with draft on, {len(off)} with draft off, "
+                             f"equal where both run")
+    return k
+
+
+def parting_check(make_off, reqs, partings: dict, top_k: int, verify_logits: dict) -> dict:
+    """Why draft on parts from draft off, request by request: the draft-off
+    run of reqs again, its rounds split into one-step calls (the same
+    computation); at request rid's step k (partings[rid] = (k, on token,
+    off token)) its raw logits L_off, its sampler and the gumbel row g it
+    draws there. With the verify's raw logits at that position,
+    verify_logits[rid] = L_on (from spec_rerun), returns {rid: dict}:
+    follows, whether draft-on's token is the sample of L_on under the same
+    sampler and the same row g (then only the logits differ); err, max
+    |L_on - L_off| and scale, max |L_off|, against phase 8's VERIFY_TOL;
+    kind and margin, how near a tie draft off was: "lead", (l + g)[off] -
+    (l + g)[on] on its processed logits l, or "filter" where its top_k /
+    top_p filter drops the on token, the on token's tempered logit below
+    the least one kept, with lscale = max |l| over the kept tokens. Checks
+    that the rerun samples the off token there."""
+    import torch
+    from chatterbox_tpu_torch.ops import sampling as S
+    from chatterbox_tpu_torch.sampling import continuous as C
+    real = C.decode_chunk_multi
+    srv = make_off()
+    out = {}
+
+    def one_step_at_a_time(params, hp, state, *, n_steps, **kw):
+        V = state.logits.shape[1]
+        start = torch.arange(V, device=state.logits.device) == hp.start_speech_token
+        for _ in range(n_steps):
+            steps = state.step.tolist()
+            running = (state.active & ~state.done).tolist()
+            for slot, r in enumerate(srv._slot_req):
+                if r is None or r.request_id not in partings or not running[slot]:
+                    continue
+                k, tok_on, tok_off = partings[r.request_id]
+                if steps[slot] != k:
+                    continue
+                sp = S.SamplerParams(*[getattr(state, f)[:, None] for f in C._SAMPLER_FIELDS])
+                pen = state.seen | (start[None] & (state.step == 0)[:, None])
+                l = S.process_logits_turbo(state.logits, pen, sp, top_k)[slot]
+                gen = torch.Generator(device=l.device)
+                gen.set_state(state.generators[slot].get_state())
+                g = S.gumbel((V,), gen, l.device)
+                b = l + g
+                if int(b.argmax()) != tok_off:
+                    raise AssertionError(f"request {r.request_id}: the rerun samples "
+                                         f"{int(b.argmax())} at step {k}, not {tok_off}")
+                L_off, L_on = state.logits[slot], verify_logits[r.request_id]
+                sp1 = S.SamplerParams(*[getattr(state, f)[slot:slot + 1, None]
+                                        for f in C._SAMPLER_FIELDS])
+                l_on = S.process_logits_turbo(L_on[None], pen[slot:slot + 1], sp1, top_k)[0]
+                kept = l > S.NEG_INF
+                d = dict(follows=int((l_on + g).argmax()) == tok_on,
+                         err=float((L_on - L_off).abs().max()), scale=float(L_off.abs().max()),
+                         lscale=float(l[kept].abs().max()))
+                if kept[tok_on]:
+                    d.update(kind="lead", margin=float(b[tok_off] - b[tok_on]))
+                else:
+                    lt = L_off / state.temperature[slot]
+                    d.update(kind="filter", margin=float(lt[kept].min() - lt[tok_on]))
+                out[r.request_id] = d
+            real(params, hp, state, n_steps=1, **kw)
+        return state
+
+    C.decode_chunk_multi = one_step_at_a_time
+    try:
+        for r in reqs:
+            srv.submit(r)
+        srv.run_until_idle()
+    finally:
+        C.decode_chunk_multi = real
+    return out
+
+
+def _spec_run(srv, reqs):
+    """reqs (no more than srv's slots) submitted at once to an idle srv, so
+    reqs[i] takes slot i, run to the end: (results, wall s, each request's
+    raw token row, specials included)."""
+    import torch
+    for r in reqs:
+        srv.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = dict(srv.run_until_idle())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if set(res) != {r.request_id for r in reqs} or len(reqs) > srv.n_slots:
+        raise AssertionError(f"{len(res)} of {len(reqs)} results")
+    raw = {r.request_id: srv.state.tokens[i, :int(srv.state.step[i])].tolist()
+           for i, r in enumerate(reqs)}
+    return res, wall, raw
+
+
+def spec_rerun(make_on, reqs, partings: dict):
+    """The draft-on run of reqs again, its spec rounds split into one-round
+    calls (the same computation), counted on the host a round at a time:
+    (drafted, accepted, row rounds, tokens, verify logits), where verify
+    logits[rid] are the verify's raw logits (V,) at the slab position of
+    request rid's step k (partings[rid] = (k, ...)), taken from the same
+    speech-head call over the whole slab."""
+    from chatterbox_tpu_torch.models.t3 import model as t3m
+    from chatterbox_tpu_torch.sampling import continuous as C
+    real, real_slab = C.decode_chunk_multi_spec, C.bb.backbone_slab_rows
+    tally = [0, 0]                         # running rows over rounds, tokens emitted
+    hidden, logits, srv = [], {}, None
+
+    def slab(*a, **kw):
+        hidden[:] = [real_slab(*a, **kw)]
+        return hidden[0]
+
+    def one_round_at_a_time(params, qparams, hp, state, *, n_rounds, n_draft, step_bound,
+                            **kw):
+        for j in range(n_rounds):
+            running = (state.active & ~state.done).cpu()
+            step0 = state.step.cpu()
+            real(params, qparams, hp, state, n_rounds=1, n_draft=n_draft,
+                 step_bound=[b + j * (n_draft + 1) for b in step_bound], **kw)
+            tally[0] += int(running.sum())
+            tally[1] += int((state.step.cpu() - step0)[running].sum())
+            for slot, r in enumerate(srv._slot_req):
+                if r is None or r.request_id not in partings or not running[slot]:
+                    continue
+                pos = partings[r.request_id][0] - int(step0[slot])
+                if 0 <= pos <= n_draft:
+                    logits[r.request_id] = t3m.speech_logits(params, hidden[0]).float()[
+                        slot, pos]
+        return state
+
+    C.decode_chunk_multi_spec, C.bb.backbone_slab_rows = one_round_at_a_time, slab
+    try:
+        srv = make_on()
+        for r in reqs:
+            srv.submit(r)
+        srv.run_until_idle()
+    finally:
+        C.decode_chunk_multi_spec, C.bb.backbone_slab_rows = real, real_slab
+    K = srv.n_draft
+    # a round emits its accepted drafts and one token more (fewer only at EOS or the cap)
+    return K * tally[0], tally[1] - tally[0], tally[0], tally[1], logits
+
+
+def spec_slots_path(turbo) -> dict:
+    """Phase 10 (a): the seed-0 GPT-2-medium Turbo T3 in bf16 (phase 8's
+    verify target) behind ContinuousTTSServer(draft_int8=True,
+    n_draft=SPEC_SLOT_K), tokens only, at 1 slot (one request of 250
+    tokens) and at 4 slots (4 requests, caps SPEC_CAPS), against the same
+    server with draft off: tokens equal, or, where a request parts,
+    draft-on's token is the sample of the verify's own logits under draft
+    off's gumbel row and sampler, those logits within VERIFY_TOL of draft
+    off's there (phase 8's bound of a slab against single steps), and how
+    near a tie draft off was reported against NEAR_TIE; B1 / B2
+    launched layers x K x spec rounds and nothing else (none with draft
+    off); one host read a dispatch; a dispatch under sync debug mode; ms
+    per emitted token with draft on and off, acceptance. Returns the launch
+    counts of the draft-on runs."""
+    import numpy as np
+    import torch
+    from chatterbox_tpu_torch.models.t3 import model as t3m
+    from chatterbox_tpu_torch.sampling import continuous as C
+    from chatterbox_tpu_torch.serve.batching import TTSRequest
+    from chatterbox_tpu_torch.utils.quantize import cast_params
+    hp, L, K = turbo.hp, turbo.hp.backbone.num_layers, SPEC_SLOT_K
+    target = cast_params(t3m.t3_init(hp, seed=0, device=turbo.device), torch.bfloat16)
+    cond = turbo.conds.t3
+    top_k = 1000
+
+    def requests(n, caps, seed0):
+        return [TTSRequest(_Tokenizer(12 + 6 * i, 50000).text_to_tokens(BATCH_TEXTS[i])[0],
+                           cond, request_id=i, seed=seed0 + i, max_new=int(caps[i]))
+                for i in range(n)]
+
+    counts = {}
+    for n_slots, caps in ((1, (N_TOKENS,)), (4, SPEC_CAPS)):
+        def make(draft, n_slots=n_slots):
+            return C.ContinuousTTSServer(target, hp, n_slots=n_slots, text_bucket=64,
+                                         max_new_tokens=N_TOKENS, chunk=SLOT_CHUNK,
+                                         top_k=top_k, draft_int8=draft, n_draft=K)
+        n = len(caps)
+        _spec_run(make(True), requests(n, [16] * n, 1000))                 # warm-up
+        _spec_run(make(False), requests(n, [16] * n, 1000))
+        reset_counts()
+        off, wall_off, raw_off = _spec_run(make(False), requests(n, caps, 1100))
+        check_counts(read_counts(), f"draft off, {n_slots} slot(s) (bf16, no kernel)", {})
+        reads = []
+        orig_status = C.pack_status
+        C.pack_status = lambda st: (reads.append(1), orig_status(st))[1]
+        reset_counts()
+        try:
+            srv = make(True)
+            on, wall_on, raw_on = _spec_run(srv, requests(n, caps, 1100))
+        finally:
+            C.pack_status = orig_status
+        part = read_counts()
+        check_counts(part, f"draft on, {n_slots} slot(s), {L} layers x {K} draft steps x "
+                     f"{srv.spec_rounds} spec rounds",
+                     {k: L * K * srv.spec_rounds for k in GPT2})
+        if len(reads) != srv.rounds:
+            raise AssertionError(f"{len(reads)} status reads for {srv.rounds} dispatches")
+        for k, v in part.items():
+            counts[k] = counts.get(k, 0) + v
+        tok_on, tok_off = sum(map(len, on.values())), sum(map(len, off.values()))
+        partings = {}
+        for rid in raw_off:
+            k = first_parting(raw_on[rid], raw_off[rid])
+            if k is not None:
+                partings[rid] = (k, raw_on[rid][k], raw_off[rid][k])
+        drafted, accepted, row_rounds, emitted, verify_logits = spec_rerun(
+            lambda: make(True), requests(n, caps, 1100), partings)
+        checks = (parting_check(lambda: make(False), requests(n, caps, 1100), partings,
+                                top_k, verify_logits) if partings else {})
+        log(f"spec slots, {n_slots} slot(s), caps {list(caps)}: draft on {tok_on} tokens in "
+            f"{wall_on:.3f} s -> {wall_on / tok_on * 1e3:.3f} ms/token ({srv.rounds} "
+            f"dispatches, {srv.spec_rounds} spec rounds, a host read each dispatch); draft "
+            f"off {tok_off} tokens in {wall_off:.3f} s -> {wall_off / tok_off * 1e3:.3f} "
+            f"ms/token; {wall_off / tok_off / (wall_on / tok_on):.2f}x; acceptance "
+            f"{accepted / drafted:.3f} ({accepted} of {drafted}), {emitted / row_rounds:.2f} "
+            f"tokens a row and round; requests equal to draft off: "
+            f"{n - len(partings)} of {n}")
+        for rid, (k, t_on, t_off) in sorted(partings.items()):
+            if rid not in checks or rid not in verify_logits:
+                raise AssertionError(f"request {rid}: a rerun never reached step {k}")
+            c = checks[rid]
+            what = ("draft-off's token leads under the shared gumbel row by"
+                    if c["kind"] == "lead" else "draft-off's top_k / top_p filter drops "
+                    "draft-on's token, its tempered logit below the least one kept by")
+            near = "under" if c["margin"] < NEAR_TIE * c["lscale"] else "over"
+            log(f"spec slots, {n_slots} slot(s): request {rid} parts from draft off at step "
+                f"{k} of {len(raw_off[rid])} (draft on {t_on}, off {t_off}): {what} "
+                f"{c['margin']:.4g}, {100 * c['margin'] / c['lscale']:.3f} % of the processed "
+                f"logits' scale {c['lscale']:.3f} ({near} {100 * NEAR_TIE:g} %); the "
+                f"verify's logits there differ from draft off's "
+                f"step by {c['err']:.4g} at most, {100 * c['err'] / c['scale']:.3f} % of their "
+                f"scale {c['scale']:.3f} (VERIFY_TOL {100 * VERIFY_TOL:g} %), and draft-on's "
+                f"token {'is' if c['follows'] else 'is NOT'} their sample under the same "
+                f"gumbel row and sampler")
+            if not (c["follows"] and c["margin"] >= 0 and c["err"] <= VERIFY_TOL * c["scale"]):
+                raise AssertionError(f"request {rid}: draft on parts from draft off at step "
+                                     f"{k}: {c}")
+
+    # a dispatch with no synchronising call
+    srv = make(True)
+    for r in requests(4, SPEC_CAPS, 1200):
+        srv.submit(r)
+    srv.serve_round()
+    srv.serve_round()
+    run_without_sync(srv._dispatch_round, "a speculative dispatch")
+    torch.cuda.synchronize()
+    log(f"spec slots: a dispatch ({-(-SLOT_CHUNK // (K + 1))} spec rounds, 4 slots) ran with "
+        f"no synchronising call (sync debug mode 'warn'); draw table "
+        f"{tuple(srv.state.draw_table.shape)} float32, "
+        f"{srv.state.draw_table.numel() * 4 / 2**20:.1f} MiB")
+    del srv
+    return counts
+
+
+def _http(srv, path, payload=None, timeout=600):
+    import urllib.request
+    url = f"http://{srv.host}:{srv.port}{path}"
+    data = None if payload is None else json.dumps(payload).encode()
+    with urllib.request.urlopen(urllib.request.Request(url, data=data), timeout=timeout) as r:
+        return r.read()
+
+
+def _check_riff(body: bytes, label: str) -> int:
+    """A RIFF / PCM16 / 24 kHz mono body: its sample count."""
+    import struct
+    import numpy as np
+    if body[:4] != b"RIFF" or body[8:12] != b"WAVE":
+        raise AssertionError(f"{label}: not a RIFF/WAVE body")
+    fmt, ch, sr, _, _, bits = struct.unpack("<HHIIHH", body[20:36])
+    n = struct.unpack("<I", body[40:44])[0]
+    pcm = np.frombuffer(body[44:], np.int16)
+    if (fmt, ch, sr, bits) != (1, 1, 24000, 16) or n != 2 * len(pcm) or not len(pcm):
+        raise AssertionError(f"{label}: format {(fmt, ch, sr, bits)}, {n} data bytes for "
+                             f"{len(pcm)} samples")
+    return len(pcm)
+
+
+def _kernels_launched(counts, label, names, L) -> None:
+    """names launched equally often, a multiple of L, and no other kernel."""
+    log(f"launches ({label}): " + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+    got = {k for k, v in counts.items() if v}
+    if got != set(names) or len({counts[k] for k in names}) != 1 or counts[names[0]] % L:
+        raise AssertionError(f"{label}: launches {counts}, expected {names} alike")
+
+
+def http_path(turbo) -> dict:
+    """Phase 10 (b): TTSHTTPServer on 127.0.0.1:0 over phase 5's Turbo
+    (int8_fused): a BatchDecoder (kv_int8, HTTP_TOKENS) answering 4
+    concurrent POST /tts, the same seed alone twice (the same bytes),
+    /v1/audio/speech as pcm and /vc against a registered voice (twice, the
+    same bytes); then a
+    4-slot continuous backend (kv_int8) streaming a POST /tts (time to first
+    audio byte); /metrics counting the requests; B1 / B2 / B4 launched
+    alike. Returns the launch counts."""
+    import base64
+    import threading
+    import urllib.request
+    import numpy as np
+    from chatterbox_tpu_torch.sampling.continuous import ContinuousTTSServer
+    from chatterbox_tpu_torch.serve.batching import BatchDecoder
+    from chatterbox_tpu_torch.serve.http import (TTSHTTPServer, Voice, wav_bytes,
+                                                 wav_stream_header)
+    hp, L = turbo.hp, turbo.hp.backbone.num_layers
+    tok = _Tokenizer(24, 50000)
+    voices = {"default": Voice(turbo.conds.t3, turbo.s3gen.embed_ref(
+        synthetic_voice(6.0, 24000, seed=30), 24000))}
+    totals = {}
+    dec = BatchDecoder(turbo.t3_params, hp, max_batch=4, max_new_tokens=HTTP_TOKENS,
+                       kv_int8=True)
+    srv = TTSHTTPServer(dec, turbo.s3gen, tok, voices, port=0, timeout_s=600)
+    srv.start()
+    reset_counts()
+    try:
+        _http(srv, "/tts", {"text": "warm up", "seed": 1})
+        out, t0 = {}, time.perf_counter()
+
+        def call(i):
+            out[i] = _http(srv, "/tts", {"text": BATCH_TEXTS[i], "seed": 10 + i})
+
+        threads = [threading.Thread(target=call, args=(i,)) for i in range(4)]
+        [t.start() for t in threads]
+        [t.join(timeout=600) for t in threads]
+        wall = time.perf_counter() - t0
+        if sorted(out) != [0, 1, 2, 3]:
+            raise AssertionError(f"HTTP: {len(out)} of 4 concurrent replies")
+        n = [_check_riff(out[i], f"POST /tts {i}") for i in range(4)]
+        for i in range(4):
+            if not np.isfinite(np.frombuffer(out[i][44:], np.int16)).all():
+                raise AssertionError(f"POST /tts {i}: samples not finite")
+        a = _http(srv, "/tts", {"text": BATCH_TEXTS[5], "seed": 77})
+        b = _http(srv, "/tts", {"text": BATCH_TEXTS[5], "seed": 77})
+        if a != b:
+            raise AssertionError("HTTP: the same seed alone twice gave other bytes")
+        pcm = _http(srv, "/v1/audio/speech", {"input": BATCH_TEXTS[5], "voice": "alloy",
+                                               "seed": 77, "response_format": "pcm"})
+        if pcm != a[44:]:
+            raise AssertionError("/v1/audio/speech pcm differs from /tts's samples")
+        src = 0.5 * synthetic_voice(4.0, 16000, seed=31, f0=180.0)
+        t1 = time.perf_counter()
+        vc_req = {"wav_b64": base64.b64encode(wav_bytes(src, 16000)).decode(),
+                  "voice": "default", "seed": 3}
+        vc = _http(srv, "/vc", vc_req)
+        t_vc = time.perf_counter() - t1
+        n_vc = _check_riff(vc, "POST /vc")
+        if _http(srv, "/vc", vc_req) != vc:
+            raise AssertionError("HTTP: a seeded /vc twice gave other bytes")
+        metrics = json.loads(_http(srv, "/metrics.json"))
+        if metrics.get("requests_total") != 8 or metrics.get("vc_requests_total") != 2:
+            raise AssertionError(f"HTTP /metrics: {metrics}")
+    finally:
+        srv.stop()
+    counts = read_counts()
+    _kernels_launched(counts, "HTTP on BatchDecoder (kv_int8)", GPT2 + (B4,), L)
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+    log(f"HTTP (BatchDecoder, max_batch 4, kv_int8, {HTTP_TOKENS} tokens): 4 concurrent POST "
+        f"/tts in {wall:.3f} s, {[round(x / 24000, 2) for x in n]} s of audio, each a 24 kHz "
+        f"PCM16 RIFF; seed 77 alone twice the same {len(a)} bytes; /v1/audio/speech pcm = "
+        f"those samples; /vc of 4 s in {t_vc:.3f} s -> {n_vc / 24000:.2f} s, the same bytes "
+        f"again for its seed; /metrics "
+        f"requests_total {metrics['requests_total']}, http_tts mean "
+        f"{metrics['http_tts']['mean_s']} s")
+
+    slots = ContinuousTTSServer(turbo.t3_params, hp, n_slots=4, text_bucket=64,
+                                max_new_tokens=HTTP_TOKENS, chunk=SLOT_CHUNK, kv_int8=True,
+                                s3gen=turbo.s3gen, stream_chunk=25, first_chunk=12)
+    srv = TTSHTTPServer(None, turbo.s3gen, tok, voices, port=0, timeout_s=600,
+                        continuous=slots)
+    srv.start()
+    reset_counts()
+    try:
+        _http(srv, "/tts", {"text": "warm up", "seed": 2, "stream": True})
+        req = urllib.request.Request(f"http://{srv.host}:{srv.port}/tts", data=json.dumps(
+            {"text": BATCH_TEXTS[2], "seed": 21, "stream": True}).encode())
+        t0 = time.perf_counter()
+        body, t_first = b"", None
+        with urllib.request.urlopen(req, timeout=600) as r:
+            while True:
+                chunk = r.read1(1 << 16)
+                if not chunk:
+                    break
+                body += chunk
+                if t_first is None and len(body) > 44:
+                    t_first = time.perf_counter() - t0
+        wall = time.perf_counter() - t0
+        plain = _http(srv, "/tts", {"text": BATCH_TEXTS[3], "seed": 22})
+        metrics = json.loads(_http(srv, "/metrics.json"))
+    finally:
+        srv.stop()
+    counts = read_counts()
+    _kernels_launched(counts, "HTTP on the continuous backend (4 slots, kv_int8)",
+                      GPT2 + (B4,), L)
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+    pcm = np.frombuffer(body[44:], np.int16)
+    if body[:44] != wav_stream_header(24000) or not len(pcm) or t_first is None:
+        raise AssertionError("streamed POST /tts: no RIFF header or no audio")
+    _check_riff(plain, "continuous POST /tts")
+    if metrics.get("stream_requests_total") != 2 or metrics.get("requests_total") != 1:
+        raise AssertionError(f"continuous HTTP /metrics: {metrics}")
+    log(f"HTTP stream (continuous, 4 slots, kv_int8, first_chunk 12): first audio byte after "
+        f"{t_first * 1e3:.1f} ms, {len(pcm) / 24000:.2f} s of audio in {wall:.3f} s; "
+        f"http_stream_ttfa {metrics['http_stream_ttfa']}")
+    return totals
+
+
+def mcp_path(turbo) -> None:
+    """Phase 10 (c): tools/call generate_speech through MCPTTSServer.handle
+    (Turbo's generate, HTTP_TOKENS tokens); its audio content a RIFF."""
+    import base64
+    import numpy as np
+    from chatterbox_tpu_torch.serve.mcp import MCPTTSServer
+
+    def synth(text, voice, seed, **kw):
+        if seed is not None:
+            turbo.set_seed(int(seed))
+        return np.asarray(turbo.generate(text, max_new_tokens=HTTP_TOKENS, **kw))[0]
+
+    srv = MCPTTSServer(synth, {"default": turbo.conds})
+    t0 = time.perf_counter()
+    r = srv.handle({"jsonrpc": "2.0", "id": 1, "method": "tools/call", "params": {
+        "name": "generate_speech", "arguments": {"text": PHASE5_TEXT, "seed": 5,
+                                                 "temperature": 0.7}}})
+    dt = time.perf_counter() - t0
+    content = r["result"]["content"]
+    audio = next(c for c in content if c["type"] == "audio")
+    n = _check_riff(base64.b64decode(audio["data"]), "MCP generate_speech")
+    log(f"MCP tools/call generate_speech: {n / 24000:.2f} s of audio in {dt:.3f} s "
+        f"({next(c for c in content if c['type'] == 'text')['text']})")
+
+
+def cli_path(d) -> None:
+    """Phase 10 (d): `cli.main(["info"])` and `synth` from phase 6's
+    checkpoint directory d (the float T3 as from_local loads it, the prompt
+    file, seed 1) in this process; the WAV it writes read back."""
+    import contextlib
+    import io
+    import numpy as np
+    from scipy.io import wavfile
+    from chatterbox_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["info"])
+    info = json.loads(buf.getvalue())
+    log(f"cli info: torch {info['torch']}, CUDA {info['cuda_runtime']}, {info['devices']}")
+    out, buf = d / "cli_out.wav", io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["synth", "--ckpt-dir", str(d), "--text", PHASE5_TEXT, "--audio-prompt",
+                  str(d / "prompt.wav"), "--out", str(out), "--seed", "1"])
+    dt = time.perf_counter() - t0
+    sr, wav = wavfile.read(str(out))
+    if sr != 24000 or wav.dtype != np.float32 or not len(wav) or not np.isfinite(wav).all():
+        raise AssertionError(f"cli synth wrote {sr} Hz, {wav.dtype}, {wav.shape}")
+    log(f"cli synth (from_local, float T3, prompt file, seed 1): '{buf.getvalue().strip()}' "
+        f"-> {len(wav) / 24000:.2f} s of audio in {dt:.1f} s, the load included")
+
+
+def serving_surfaces_phase(turbo, ckpt_dir) -> dict:
+    """Phase 10. Returns the launch counts of its counted runs."""
+    totals = {}
+    for part in (spec_slots_path(turbo), http_path(turbo)):
+        for k, v in part.items():
+            totals[k] = totals.get(k, 0) + v
+    mcp_path(turbo)
+    cli_path(ckpt_dir)
+    return totals
+
+
 def int4_pipeline(tts, mode: str, seed: int):
     """The pipeline `tts` with its T3 weights drawn again from `seed` (as
     random_init draws them), cast to bf16 and quantized in `mode`; the S3Gen
@@ -3329,8 +3841,11 @@ def main(argv) -> int:
     log(f"phase 5 (main paths) {time.perf_counter() - t0:.1f} s")
     del turbo4, cfg4
     torch.cuda.empty_cache()
+    # phase 6's checkpoint directory stays for phase 10's command line
+    ckpt_tmp = tempfile.TemporaryDirectory()
+    ckpt_dir = Path(ckpt_tmp.name)
     t0 = time.perf_counter()
-    for k, v in frontend_path().items():
+    for k, v in frontend_path(ckpt_dir).items():
         launches[k] = launches.get(k, 0) + v
     log(f"phase 6 (frontend) {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -3347,6 +3862,14 @@ def main(argv) -> int:
     for k, v in serving_phase(turbo, cfg520).items():
         launches[k] = launches.get(k, 0) + v
     log(f"phase 9 (batched serving) {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        for k, v in serving_surfaces_phase(turbo, ckpt_dir).items():
+            launches[k] = launches.get(k, 0) + v
+    finally:
+        ckpt_tmp.cleanup()
+    log(f"phase 10 (speculative slots and serving surfaces) {time.perf_counter() - t0:.1f} s")
     for r in rows:
         r["launches"] = launches[r["name"]]
         if r["name"] in PHASE3_ONLY:

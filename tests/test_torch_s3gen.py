@@ -320,3 +320,23 @@ def test_unmapped_keys_raise():
     tree["mel2wav"]["conv_post"]["extra"] = np.zeros(3, np.float32)
     with pytest.raises(KeyError):
         s3gen_from_jax(tree, dims=DIMS, hift_base=HIFT_BASE, device="cpu")
+
+
+@pytest.mark.parametrize("cin,cout,k,stride", [(32, 16, 16, 8), (16, 8, 11, 5), (8, 4, 7, 3),
+                                               (4, 3, 5, 1)])
+def test_conv_transpose_by_phases_matches_torch(cin, cout, k, stride):
+    """nn.conv_transpose1d_cf (one ordinary convolution by output phases,
+    HiFT's upsamplers) against F.conv_transpose1d, with and without a bias:
+    the same shape and values to float32 rounding."""
+    import torch.nn.functional as F
+    from chatterbox_tpu_torch.nn import core as nn
+    g = torch.Generator().manual_seed(cin + k)
+    w = torch.randn(cin, cout, k, generator=g)
+    b = torch.randn(cout, generator=g)
+    x = torch.randn(2, cin, 9, generator=g)
+    pad = (k - stride) // 2
+    for p in ({"w": w, "b": b}, {"w": w}):
+        ref = F.conv_transpose1d(x, w, p.get("b"), stride=stride, padding=pad)
+        out = nn.conv_transpose1d_cf(p, x, stride, pad)
+        assert out.shape == ref.shape
+        np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=0, atol=2e-5)
