@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from ..kernels.fused_layer import INT4_FUSED_LAYOUT
-from ..models.s3gen.flow import FlowDims
+from ..models.s3gen.flow import FlowDims, flow_init
 from ..models.s3gen.model import s3gen_init
 from ..models.s3tok.model import S3TokenizerConfig
 from ..models.t3 import backbone as bb
@@ -237,6 +237,30 @@ def s3gen_from_jax(tree: dict, dims: FlowDims = FlowDims(), hift_base: int = 512
     frontend = tuple(k for k in ("tokenizer", "speaker_encoder") if k in tree)
     _check_schema(out, {k: template[k] for k in ("flow", "mel2wav") + frontend})
     return out
+
+
+def flow_from_jax(tree: dict, dims: FlowDims = FlowDims(), meanflow: bool = False,
+                  device="cuda") -> dict:
+    """A bare flow tree (the JAX package's `flow_init`, what its flow
+    trainer holds and saves) -> the port's flow tree on `device`."""
+    out = _convert(tree, device)
+    _check_schema(out, flow_init(nn.Init(0, "meta"), meanflow=meanflow, dims=dims))
+    return out
+
+
+def flow_to_jax(params: dict) -> dict:
+    """The inverse of `flow_from_jax`'s layouts: the port's flow tree ->
+    the same tree of tensors (views) in the JAX package's layouts (conv
+    weights (Cout, Cin, K) -> (K, Cin, Cout)), so either package reads the
+    file it is saved to."""
+    def walk(node, path=()):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, path + (i,)) for i, v in enumerate(node)]
+        return node.permute(2, 1, 0) if path[-1] == "w" and node.dim() == 3 else node
+
+    return walk(params)
 
 
 def ve_from_jax(tree: dict, device="cuda") -> dict:

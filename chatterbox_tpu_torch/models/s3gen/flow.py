@@ -6,19 +6,24 @@ prompt and generated lengths in one masked call (the batched vocode), each
 row's valid frames its exact-length result up to rounding."""
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
+from typing import NamedTuple, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from ...nn import core as nn
 from .encoder import upsample_encoder_init, upsample_encoder_apply
-from .unet import unet_init
+from .unet import unet_init, unet_apply
 from .cfm import solve_euler_cfg, solve_euler_meanflow
 
 VOCAB_SIZE = 6561
 OUTPUT_SIZE = 80
 SPK_EMBED_DIM = 192
 TOKEN_MEL_RATIO = 2
+SIGMA_MIN = 1e-6             # the OT-CFM path's noise floor
+TRAINING_CFG_RATE = 0.2      # classifier-free dropout while training
 
 
 @dataclass(frozen=True)
@@ -116,3 +121,135 @@ def flow_inference_batch(params: dict, token: torch.Tensor, token_len: torch.Ten
     solve = solve_euler_meanflow if meanflow else solve_euler_cfg
     return solve(params["decoder"], z, mu, spks, conds, n_timesteps=n_timesteps,
                  n_heads=dims.unet_heads, mask=mask_mel)
+
+
+# ---------------------------------------------------------------------------
+# training: the masked conditional-flow-matching loss
+# ---------------------------------------------------------------------------
+
+def cfm_interpolate(x1: torch.Tensor, z: torch.Tensor, t: torch.Tensor,
+                    sigma_min: float = SIGMA_MIN):
+    """The OT-CFM path point and its regression target for target x1,
+    noise z (B, T, C) and per-row t (B,): x_t = (1 - (1 - sigma) t) z + t x1
+    and u = x1 - (1 - sigma) z."""
+    t_ = t[:, None, None]
+    y = (1.0 - (1.0 - sigma_min) * t_) * z + t_ * x1
+    u = x1 - (1.0 - sigma_min) * z
+    return y, u
+
+
+class FlowDraws(NamedTuple):
+    """The random numbers of one flow loss call, in the order they are
+    drawn: uniforms keep_u (B,) (a row keeps a conditioning prefix where
+    >= 0.5), frac (B,) (its length, a fraction of 0.3 of the row's
+    frames), t_u (B,) (the flow time before its cosine warp), standard
+    normal z (B, T_mel, 80), and uniforms cfg_u (B,) (a row keeps mu, the
+    speaker and the prefix where > the dropout rate)."""
+    keep_u: torch.Tensor
+    frac: torch.Tensor
+    t_u: torch.Tensor
+    z: torch.Tensor
+    cfg_u: torch.Tensor
+
+
+def draw_flow_noise(generator: torch.Generator, batch: int, t_mel: int) -> FlowDraws:
+    """FlowDraws for a batch of `batch` rows of t_mel frames, from
+    `generator` on its own device."""
+    dev = generator.device
+    u = lambda: torch.rand(batch, generator=generator, device=dev)
+    keep_u, frac, t_u = u(), u(), u()
+    z = torch.randn((batch, t_mel, OUTPUT_SIZE), generator=generator, device=dev)
+    return FlowDraws(keep_u, frac, t_u, z, u())
+
+
+def flow_loss_terms(params: dict, generator: Optional[torch.Generator], *,
+                    token: torch.Tensor, token_len: torch.Tensor,
+                    feat: torch.Tensor, feat_len: torch.Tensor,
+                    embedding: torch.Tensor, dims: FlowDims = FlowDims(),
+                    sigma_min: float = SIGMA_MIN,
+                    training_cfg_rate: float = TRAINING_CFG_RATE,
+                    remat: bool = False,
+                    draws: Optional[FlowDraws] = None):
+    """`flow_compute_loss` before its division: (the summed squared error
+    over the valid frames, their count times 80). Every row's terms are its
+    own, so a data-parallel step sums each over the processes' rows."""
+    B, T_tok = token.shape
+    dev = token.device
+    emb = embedding / torch.linalg.norm(embedding, dim=-1, keepdim=True)
+    spks = nn.linear(params["spk_embed_affine"], emb)
+    mask_tok = torch.arange(T_tok, device=dev)[None] < token_len[:, None]
+    x = nn.embedding(params["input_embedding"], token.clamp(min=0)) * mask_tok[..., None]
+
+    def encode(p, x, lens):
+        return upsample_encoder_apply(p, x, d=dims.enc_dim, n_heads=dims.enc_heads, lens=lens)
+
+    def estimate(p, y, mask, mu, t, spks, conds):
+        return unet_apply(p, y, mu, t, spks, conds, n_heads=dims.unet_heads, mask=mask)
+
+    def run(fn, *args):
+        if remat:
+            return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    h = run(encode, params["encoder"], x, token_len)
+    mu = nn.linear(params["encoder_proj"], h)                  # (B, 2 T_tok, 80)
+
+    T_mel = mu.shape[1]
+    x1 = feat[:, :T_mel]
+    if x1.shape[1] < T_mel:
+        x1 = torch.nn.functional.pad(x1, (0, 0, 0, T_mel - x1.shape[1]))
+    frames = torch.arange(T_mel, device=dev)[None]
+    mask = (frames < TOKEN_MEL_RATIO * token_len[:, None]).to(mu.dtype)   # (B, T_mel)
+    x1 = x1 * mask[..., None]
+
+    if draws is None:
+        draws = draw_flow_noise(generator, B, T_mel)
+    keep_u, frac, t_u, z, cfg_u = (d.to(dev) for d in draws)
+    prefix = torch.floor(frac * 0.3 * feat_len).to(torch.int32)
+    prefix = torch.where(keep_u >= 0.5, prefix, 0)
+    conds = torch.where(frames[..., None] < prefix[:, None, None], x1, 0.0)
+
+    t = 1.0 - torch.cos(t_u * 0.5 * math.pi)
+    y, u = cfm_interpolate(x1, z, t, sigma_min)
+    if training_cfg_rate > 0:
+        cfg_keep = (cfg_u > training_cfg_rate).to(mu.dtype)
+        mu = mu * cfg_keep[:, None, None]
+        spks = spks * cfg_keep[:, None]
+        conds = conds * cfg_keep[:, None, None]
+
+    pred = run(estimate, params["decoder"], y, mask, mu, t, spks, conds)
+    m = mask[..., None]
+    return (((pred - u) * m) ** 2).sum(), mask.sum() * u.shape[-1]
+
+
+def flow_compute_loss(params: dict, generator: Optional[torch.Generator], *,
+                      token: torch.Tensor, token_len: torch.Tensor,
+                      feat: torch.Tensor, feat_len: torch.Tensor,
+                      embedding: torch.Tensor, dims: FlowDims = FlowDims(),
+                      sigma_min: float = SIGMA_MIN,
+                      training_cfg_rate: float = TRAINING_CFG_RATE,
+                      remat: bool = False,
+                      draws: Optional[FlowDraws] = None) -> torch.Tensor:
+    """The masked conditional-flow-matching loss of the flow (float32
+    scalar). token (B, T_tok) ids, token_len (B,) valid tokens, feat
+    (B, T_mel, 80) target mels (channels-last), feat_len (B,) valid mel
+    frames, embedding (B, 192) x-vectors:
+      * the encoder front as at inference (token embedding, masked upsample
+        conformer, 80-d projection = mu);
+      * a conditioning prefix per row: with probability 1/2 the first
+        floor(U[0, 1) 0.3 feat_len) target frames, else none;
+      * t ~ U(0, 1) warped to 1 - cos(t pi / 2), x_t and u by
+        `cfm_interpolate`;
+      * classifier-free dropout: each row's mu, speaker and prefix zeroed
+        with probability training_cfg_rate;
+      * the squared error of the estimator's velocity over each row's
+        valid frames, divided by their count times 80.
+    The random numbers come from `generator` (`draw_flow_noise`) unless
+    `draws` gives them. remat recomputes the encoder call and the estimator
+    call in the backward pass."""
+    num, count = flow_loss_terms(params, generator, token=token, token_len=token_len,
+                                 feat=feat, feat_len=feat_len, embedding=embedding,
+                                 dims=dims, sigma_min=sigma_min,
+                                 training_cfg_rate=training_cfg_rate, remat=remat,
+                                 draws=draws)
+    return (num / (count + 1e-8)).float()

@@ -27,6 +27,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ...nn import core as nn
 from ...kernels.decode_attention import (TT, decode_attention,
@@ -408,6 +409,62 @@ def _rows_forward(params: dict, cfg: BackboneConfig, embeds: torch.Tensor,
             cache.v[i, rows, :, pos] = v.to(cache.v.dtype)
             attn = _attn_core(q, cache.k[i], cache.v[i], cur, mask, T, fused_attn)
         x = _after_attn(lp, cfg, x, nn.merge_heads(attn), fused)
+    if cfg.is_gpt:
+        return nn.layer_norm(params["ln_f"], x, cfg.layer_norm_eps)
+    return nn.rms_norm(params["norm"], x, cfg.rms_norm_eps)
+
+
+def _refuse_quantized(params: dict):
+    """Training takes float layers only, as the JAX package trains them."""
+    for i, lp in enumerate(params["layers"]):
+        if "fused" in lp:
+            raise ValueError(f"layer {i} carries fused decode operands: train float params")
+        for name, p in lp.items():
+            if isinstance(p, dict) and not ("w" in p or "g" in p):
+                raise ValueError(f"layer {i}/{name} is quantized ({sorted(p)}): "
+                                 f"train float params")
+
+
+def train_attention(q, k, v, mask):
+    """The training pass's attention: q (B, H, T, hd) over the same layer's
+    k, v (B, H_kv, T, hd) under the causal keep-mask (T, T)."""
+    return _attn_core(q, k, v, None, mask, q.shape[2], False)
+
+
+def backbone_train(params: dict, cfg: BackboneConfig, embeds: torch.Tensor,
+                   remat: bool = False, attn=train_attention) -> torch.Tensor:
+    """The teacher-forced training forward over a whole sequence embeds
+    (B, T, D): positions 0..T-1 (learned for GPT-2, rotary for llama), each
+    layer's queries attending to that layer's own keys under the causal
+    mask, no cache (what `backbone_apply` computes with a fresh cache and
+    start 0, but without writes into a buffer that autograd would see
+    change). remat=True recomputes each layer in the backward pass
+    (torch.utils.checkpoint), trading compute for activation memory.
+    `attn` computes each layer's attention (`train_attention`'s
+    signature); a sharded step passes one that runs on local shards.
+    Float parameters only. Returns the final-norm hidden states (B, T, D)."""
+    _refuse_quantized(params)
+    B, T, D = embeds.shape
+    dev = embeds.device
+    positions = torch.arange(T, device=dev)[None].expand(B, T)
+    x = embeds
+    rope = None
+    if cfg.is_gpt:
+        x = x + nn.embedding(params["wpe"], positions).to(x.dtype)
+    else:
+        rope = tuple(c.to(x.dtype) for c in
+                     rope_cos_sin(inv_freq_tensor(cfg, dev), positions))
+    mask = _keep_mask(0, T, T, None, dev)
+
+    def layer(lp, x):
+        q, k, v = _qkv(lp, cfg, x, False, rope)
+        return _after_attn(lp, cfg, x, nn.merge_heads(attn(q, k, v, mask)), False)
+
+    for lp in params["layers"]:
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(layer, lp, x, use_reentrant=False)
+        else:
+            x = layer(lp, x)
     if cfg.is_gpt:
         return nn.layer_norm(params["ln_f"], x, cfg.layer_norm_eps)
     return nn.rms_norm(params["norm"], x, cfg.rms_norm_eps)

@@ -139,3 +139,22 @@ class T3Config:
             speech_cond_prompt_len=375, use_perceiver_resampler=False,
             emotion_adv=False,
         )
+
+    @classmethod
+    def tiny_test(cls, family: str = "gpt2") -> "T3Config":
+        """A CPU-fast config for tests and smoke runs (not in the reference
+        zoo); the speech table still covers the real special ids 6561 /
+        6562."""
+        if family == "gpt2":
+            return cls(
+                text_tokens_dict_size=64, backbone_name="GPT2_tiny_test",
+                speech_tokens_dict_size=6564, input_pos_emb=None,
+                speech_cond_prompt_len=8, use_perceiver_resampler=False,
+                emotion_adv=False, max_text_tokens=64, max_speech_tokens=128,
+            )
+        return cls(
+            text_tokens_dict_size=64, backbone_name="Llama_tiny_test",
+            speech_tokens_dict_size=6564, input_pos_emb="learned",
+            speech_cond_prompt_len=8, use_perceiver_resampler=True,
+            emotion_adv=True, max_text_tokens=64, max_speech_tokens=128,
+        )

@@ -151,3 +151,58 @@ def speech_embed_token(params: dict, hp: T3Config, token: torch.Tensor,
 
 def speech_logits(params: dict, hidden: torch.Tensor) -> torch.Tensor:
     return nn.linear(params["speech_head"], hidden)
+
+
+def text_logits(params: dict, hidden: torch.Tensor) -> torch.Tensor:
+    return nn.linear(params["text_head"], hidden)
+
+
+# ---------------------------------------------------------------------------
+# teacher-forced training forward and loss
+# ---------------------------------------------------------------------------
+
+def t3_forward(params: dict, hp: T3Config, cond: T3CondTensors,
+               text_tokens: torch.Tensor, speech_tokens: torch.Tensor,
+               remat: bool = False, attn=bb.train_attention):
+    """The dense [cond | text | speech] forward (cond broadcast to the
+    batch when it has one row) -> (text logits (B, Lt, V_text), speech
+    logits (B, Ls, V_speech)) over the text and speech segments. Inputs
+    are padded to fixed lengths; the loss masks the pad. `attn` is
+    `backbone_train`'s."""
+    B, Lt = text_tokens.shape
+    Ls = speech_tokens.shape[1]
+    ce = torch.cat(cond_embeds(params, hp, cond), dim=1)
+    if ce.shape[0] != B:
+        ce = ce.expand(B, -1, -1)
+    te = text_embeds(params, hp, text_tokens)
+    se = nn.embedding(params["speech_emb"], speech_tokens)
+    if hp.input_pos_emb == "learned":
+        se = se + nn.embedding(params["speech_pos_emb"],
+                               torch.arange(Ls, device=se.device))
+    x = torch.cat([ce, te, se], dim=1)
+    hidden = bb.backbone_train(params["backbone"], hp.backbone, x, remat=remat, attn=attn)
+    Lc = ce.shape[1]
+    return (text_logits(params, hidden[:, Lc:Lc + Lt]),
+            speech_logits(params, hidden[:, Lc + Lt:Lc + Lt + Ls]))
+
+
+def masked_ce(logits: torch.Tensor, targets: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """Cross-entropy of logits (B, L, V) against the same-position targets
+    (B, L), in float32, over each row's first lens[b] positions, divided
+    by the number of those positions (at least 1)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = logp.gather(-1, targets[..., None].long())[..., 0]
+    mask = torch.arange(targets.shape[1], device=targets.device)[None] < lens[:, None]
+    return -(ll * mask).sum() / mask.sum().clamp(min=1)
+
+
+def t3_loss(params: dict, hp: T3Config, cond: T3CondTensors,
+            text_tokens: torch.Tensor, text_lens: torch.Tensor,
+            speech_tokens: torch.Tensor, speech_lens: torch.Tensor,
+            remat: bool = False, attn=bb.train_attention):
+    """(loss_text, loss_speech): the masked cross-entropies of the text and
+    speech segments' logits against their own tokens, as the reference
+    trains its heads."""
+    tl, sl = t3_forward(params, hp, cond, text_tokens, speech_tokens, remat=remat,
+                        attn=attn)
+    return masked_ce(tl, text_tokens, text_lens), masked_ce(sl, speech_tokens, speech_lens)

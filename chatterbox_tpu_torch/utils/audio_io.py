@@ -7,8 +7,9 @@ The samples are scaled to [-1, 1] before the channels are averaged (in
 float64), which is what the JAX package's native reader
 (runtime/wavio.cpp, used wherever it builds) returns. Its scipy fallback
 averages integer channels before scaling and so leaves a multichannel PCM
-file unscaled; the port does not copy that. The native reader itself is
-not ported.
+file unscaled; the port does not copy that. The training data loader
+(chatterbox_tpu_torch/runtime) reads through the native reader where g++
+builds it, and through `read_wav` otherwise.
 """
 from __future__ import annotations
 
@@ -18,8 +19,8 @@ import torch
 from ..audio.resample import resample
 
 
-def load_audio(path, target_sr: int) -> np.ndarray:
-    """Mono float32 in [-1, 1] at target_sr."""
+def read_wav(path):
+    """(mono float32 samples in [-1, 1], the file's sample rate)."""
     from scipy.io import wavfile
     try:
         sr, data = wavfile.read(str(path))
@@ -36,7 +37,12 @@ def load_audio(path, target_sr: int) -> np.ndarray:
         wav = data.astype(np.float64)
     if wav.ndim == 2:
         wav = wav.mean(axis=1)
-    wav = wav.astype(np.float32)
+    return wav.astype(np.float32), int(sr)
+
+
+def load_audio(path, target_sr: int) -> np.ndarray:
+    """Mono float32 in [-1, 1] at target_sr."""
+    wav, sr = read_wav(path)
     if sr != target_sr:
         wav = resample(torch.from_numpy(wav), sr, target_sr).numpy()
     return wav

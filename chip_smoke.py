@@ -206,6 +206,22 @@ Phases, in order; any failure exits non-zero without the final "ok" line:
      launched alike. MCPTTSServer.handle tools/call generate_speech. The
      command line in process: `info`, and `synth` from phase 6's
      checkpoint directory and prompt file, its WAV read back.
+ 11. training, over a DTensor mesh of this one card (an NCCL world of
+     one): the Turbo T3 (24 x 1024, float32) through
+     build_sharded_train_step, 8 rows of the runner's synthetic batches
+     (text 48, speech 96), 6 steps with layer remat (ms a step, the median
+     of steps 2-6; tokens a second; peak memory), one forward and backward
+     without remat (the same loss and gradient norm), 10 steps on one
+     fixed batch (loss_speech falls); the CFM flow at FlowDims() (8 rows of
+     64 tokens) alike; a tiny T3 and a tiny flow stepped twice on the card
+     and on the CPU (the same losses and, to Adam's noise bound, the same
+     parameters); both runners in process at full width with a checkpoint
+     and --resume, and train_flow --data on WAVs written here, read by the
+     native loader; and the sharded steps in 4 gloo processes on the
+     host's CPU under this host's torch (tests/test_torch_parallel_worker:
+     T3 at dp 2 x tp 2 in both families, a sharded save and resume, the
+     flow at data 4), held to the same steps in one process. No kernel of
+     the port is launched.
 The line before the last is {"kernels": [...]} (launches summed over
 phases 5-10), the last {"ok": true, "device": {...}}.
 """
@@ -3760,6 +3776,339 @@ def int4_pipeline(tts, mode: str, seed: int):
                      seed=seed)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: training (T3 and the CFM flow, their AdamW steps over a DTensor
+# mesh of one card, the runners and the native WAV loader)
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH = 8                # rows a step, as the runners' default
+TRAIN_TIMED = 6                # timed steps a model; the median of steps 2-6 is kept
+TRAIN_FIXED = 10               # steps on one fixed batch, whose loss must fall
+TRAIN_OPT = dict(lr=1e-4, warmup_steps=1, total_steps=100, clip_norm=1.0)
+
+
+def _median_ms(times) -> float:
+    import numpy as np
+    return float(np.median(times[1:])) * 1e3
+
+
+def _timed_steps(run_step, n: int, label: str) -> list:
+    """n calls of run_step() -> metrics dict, each ended by reading its
+    losses on the host; returns the seconds of each, every loss checked
+    finite."""
+    import numpy as np
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        metrics = run_step()
+        vals = {k: float(v) for k, v in metrics.items()}
+        times.append(time.perf_counter() - t0)
+        if not all(np.isfinite(list(vals.values()))):
+            raise AssertionError(f"{label}: non-finite losses {vals}")
+    return times
+
+
+def _remat_check(params, losses_fn, label: str):
+    """The loss, the gradients' global norm and the peak memory of one
+    forward and backward with remat and without: the same loss and norm."""
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+    from chatterbox_tpu_torch.utils.dtensor import full
+    from chatterbox_tpu_torch.parallel.train import global_norm, leaves
+    out = {}
+    for remat in (True, False):
+        for p in leaves(params):
+            p.grad = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with implicit_replication():
+            losses = losses_fn(remat)
+            sum(losses).backward()
+        norm = float(global_norm([full(p.grad) for p in leaves(params) if p.grad is not None]))
+        out[remat] = ([float(full(v).detach()) for v in losses], norm,
+                      torch.cuda.max_memory_allocated() / 2**30)
+    for p in leaves(params):
+        p.grad = None
+    (l1, n1, m1), (l0, n0, m0) = out[True], out[False]
+    log(f"{label}: loss {l1} with remat, {l0} without; grad norm {n1:.6g} / {n0:.6g}; "
+        f"peak memory {m1:.2f} / {m0:.2f} GiB")
+    if max(abs(a - b) / abs(b) for a, b in zip(l1, l0)) > 1e-6 or abs(n1 - n0) > 1e-5 * n0:
+        raise AssertionError(f"{label}: remat changes the loss or the gradients")
+
+
+def t3_training(card: str, mesh) -> None:
+    """Turbo T3 (24 x 1024, float32) through build_sharded_train_step on
+    the mesh: TRAIN_TIMED steps of the runner's synthetic batches with
+    layer remat (ms a step, tokens a second, peak memory), one forward and
+    backward without remat (the same loss), then TRAIN_FIXED steps on one
+    fixed batch at a constant rate (loss_speech falls)."""
+    import torch
+    from chatterbox_tpu_torch.examples.train_t3 import _to as to_dev, synthetic_batches
+    from chatterbox_tpu_torch.models.t3 import model as t3m
+    from chatterbox_tpu_torch.models.t3.config import T3Config
+    from chatterbox_tpu_torch.parallel.mesh import shard_batch
+    from chatterbox_tpu_torch.parallel.train import build_sharded_train_step, local_attention
+    hp = T3Config.turbo()
+    step, init = build_sharded_train_step(hp, mesh, **TRAIN_OPT)
+    state = init(0)
+    batches = synthetic_batches(hp, TRAIN_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = _timed_steps(lambda: step(state, *to_dev(next(batches), "cuda"))[1],
+                         TRAIN_TIMED, "Turbo T3 step")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    T = t3m.cond_len(hp) + 48 + 96
+    ms = _median_ms(times)
+    log(f"Turbo T3 train step ({card}): batch {TRAIN_BATCH} x {T} tokens "
+        f"(cond {t3m.cond_len(hp)} + text 48 + speech 96), float32, remat, AdamW: "
+        f"{ms:.2f} ms/step (median of steps 2-{TRAIN_TIMED}; first {times[0]:.2f} s), "
+        f"{TRAIN_BATCH * T / ms * 1e3:.0f} tokens/s, peak memory {peak:.2f} GiB")
+    batch = shard_batch(to_dev(next(batches), "cuda"), mesh)
+    _remat_check(state.params, lambda remat: t3m.t3_loss(state.params, hp, *batch, remat=remat,
+                                                         attn=local_attention), "Turbo T3")
+    del state
+    torch.cuda.empty_cache()
+    step, init = build_sharded_train_step(hp, mesh, lr=3e-4)
+    state = init(1)
+    fixed = to_dev(next(batches), "cuda")
+    speech = []
+    for _ in range(TRAIN_FIXED):
+        speech.append(float(step(state, *fixed)[1]["loss_speech"]))
+    log(f"Turbo T3, {TRAIN_FIXED} steps on one batch: loss_speech {speech[0]:.4f} -> "
+        f"{speech[-1]:.4f}")
+    if not speech[-1] < speech[0]:
+        raise AssertionError(f"Turbo T3 loss_speech does not fall on a fixed batch: {speech}")
+    del state
+    torch.cuda.empty_cache()
+
+
+def flow_training(card: str, mesh) -> None:
+    """The CFM flow at FlowDims() through build_sharded_flow_train_step:
+    TRAIN_TIMED steps of the runner's synthetic batches (8 rows of 64
+    tokens, 128 mel frames) with remat, one forward and backward without
+    remat, TRAIN_FIXED steps on one fixed batch and fixed draws."""
+    import torch
+    from chatterbox_tpu_torch.examples.train_flow import synthetic_batches
+    from chatterbox_tpu_torch.models.s3gen.flow import (FlowDims, draw_flow_noise,
+                                                        flow_compute_loss)
+    from chatterbox_tpu_torch.parallel.mesh import local_replicas, local_rows
+    from chatterbox_tpu_torch.parallel.train import build_sharded_flow_train_step
+    dims, n_tok = FlowDims(), 64
+    step, init = build_sharded_flow_train_step(dims, mesh, **TRAIN_OPT)
+    state = init(0)
+    batches = synthetic_batches(TRAIN_BATCH, n_tok)
+    gen = torch.Generator("cuda").manual_seed(1000)
+
+    def one():
+        return step(state, gen, *(t.cuda() for t in next(batches)))[1]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = _timed_steps(one, TRAIN_TIMED, "CFM flow step")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = _median_ms(times)
+    log(f"CFM flow train step ({card}): batch {TRAIN_BATCH} x {n_tok} tokens "
+        f"({2 * n_tok} mel frames), FlowDims(), float32, remat, AdamW: {ms:.2f} ms/step "
+        f"(median of steps 2-{TRAIN_TIMED}; first {times[0]:.2f} s), "
+        f"{TRAIN_BATCH * 2 * n_tok / ms * 1e3:.0f} mel frames/s, peak memory {peak:.2f} GiB")
+    fixed = [t.cuda() for t in next(batches)]
+    draws = draw_flow_noise(torch.Generator("cuda").manual_seed(7), TRAIN_BATCH, 2 * n_tok)
+    *rows, row_draws = local_rows(tuple(fixed) + (draws,), mesh)
+    _remat_check(state.params, lambda remat: [flow_compute_loss(
+        local_replicas(state.params, mesh), None,
+        **dict(zip(("token", "token_len", "feat", "feat_len", "embedding"), rows)),
+        dims=dims, remat=remat, draws=row_draws)], "CFM flow")
+    step, init = build_sharded_flow_train_step(dims, mesh, lr=3e-4)
+    state = init(1)
+    losses = [float(step(state, None, *fixed, draws=draws)[1]["loss_cfm"])
+              for _ in range(TRAIN_FIXED)]
+    log(f"CFM flow, {TRAIN_FIXED} steps on one batch: loss_cfm {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the flow loss does not fall on a fixed batch: {losses}")
+    del state
+    torch.cuda.empty_cache()
+
+
+def _adam_close(a: dict, b: dict, lr: float, steps: int, label: str):
+    """Parameters after Adam steps: within 2 lr x steps elementwise (a
+    noise-level gradient's sign may differ), the 99th percentile of the
+    difference under 1e-6."""
+    import numpy as np
+    d = np.concatenate([np.abs(a[k] - b[k]).ravel() for k in a])
+    log(f"{label}: params max |diff| {d.max():.3g}, 99th percentile {np.percentile(d, 99):.3g}")
+    if d.max() > 2 * lr * steps or np.percentile(d, 99) > 1e-6:
+        raise AssertionError(f"{label}: parameters differ past Adam's noise bound")
+
+
+def train_card_vs_cpu() -> None:
+    """A tiny llama T3 and a tiny CFM flow, two AdamW steps each (clipping
+    at 1.0, constant lr 1e-3) from the same weights and batches, on the
+    card and on the CPU: losses within rtol 1e-5 (float32, another
+    summation order), parameters as `_adam_close`."""
+    import numpy as np
+    import torch
+    from chatterbox_tpu_torch.convert.native_ckpt import _flatten
+    from chatterbox_tpu_torch.models.s3gen.flow import FlowDims, draw_flow_noise, flow_init
+    from chatterbox_tpu_torch.models.t3 import model as t3m
+    from chatterbox_tpu_torch.models.t3.config import T3Config
+    from chatterbox_tpu_torch.nn import core as nn
+    from chatterbox_tpu_torch.parallel import train as TR
+    lr, steps = 1e-3, 2
+    hp, dims = T3Config.tiny_test("llama"), FlowDims.tiny_test()
+    rng = np.random.default_rng(0)
+    B = 4
+    t3_batches = [(t3m.T3CondTensors(
+        torch.from_numpy(rng.standard_normal((B, 256)).astype(np.float32)),
+        torch.from_numpy(rng.integers(0, 6561, (B, hp.speech_cond_prompt_len))),
+        torch.full((B, 1, 1), 0.5)),
+        torch.from_numpy(rng.integers(0, 64, (B, 16))), torch.tensor([16, 9, 5, 12]),
+        torch.from_numpy(rng.integers(0, 6561, (B, 24))), torch.tensor([24, 20, 7, 15]))
+        for _ in range(steps)]
+    flow_batches = [(torch.from_numpy(rng.integers(0, 6561, (B, 16))), torch.tensor([16, 11, 8, 16]),
+                     torch.from_numpy((0.3 * rng.standard_normal((B, 32, 80))).astype(np.float32)),
+                     torch.tensor([32, 22, 16, 32]),
+                     torch.from_numpy(rng.standard_normal((B, 192)).astype(np.float32)))
+                    for _ in range(steps)]
+    draws = [draw_flow_noise(torch.Generator().manual_seed(i), B, 32) for i in range(steps)]
+
+    def to(x, dev):
+        if isinstance(x, (tuple, list)):
+            return type(x)(*(to(v, dev) for v in x)) if hasattr(x, "_fields") else \
+                type(x)(to(v, dev) for v in x)
+        return None if x is None else x.to(dev)
+
+    results = {}
+    for dev in ("cuda", "cpu"):
+        opt = TR.make_optimizer(lr, clip_norm=1.0)
+        st = opt.init(_to(t3m.t3_init(hp, seed=3, device="cpu"), dev))
+        t3_losses = [[float(v) for v in TR.t3_train_step(st, hp, opt, *to(b, dev))[1].values()]
+                     for b in t3_batches]
+        fopt = TR.make_optimizer(lr, clip_norm=1.0)
+        fst = fopt.init(_to(flow_init(nn.Init(3, "cpu"), meanflow=False, dims=dims), dev))
+        flow_losses = [float(TR.flow_train_step(fst, fopt, None, *to(b, dev), dims,
+                                                draws=d)[1]["loss_cfm"])
+                       for b, d in zip(flow_batches, draws)]
+        results[dev] = (t3_losses, flow_losses,
+                        {k: p.detach().cpu().numpy() for k, p in _flatten(st.params)},
+                        {k: p.detach().cpu().numpy() for k, p in _flatten(fst.params)})
+    (tc, fc, tpc, fpc), (tk, fk, tpk, fpk) = results["cuda"], results["cpu"]
+    log(f"train card vs cpu: T3 losses {tc} vs {tk}; flow losses {fc} vs {fk}")
+    if not (np.allclose(tc, tk, rtol=1e-5, atol=0) and np.allclose(fc, fk, rtol=1e-5, atol=0)):
+        raise AssertionError("training losses differ between the card and the CPU")
+    _adam_close(tpc, tpk, lr, steps, "tiny T3 card vs cpu")
+    _adam_close(fpc, fpk, lr, steps, "tiny flow card vs cpu")
+
+
+def mesh_gloo_check() -> None:
+    """The sharded training steps in 4 gloo processes on the host's CPU
+    (tests/test_torch_parallel_worker.py), under this host's torch: the
+    tiny T3 at dp 2 x tp 2 in both families and the tiny flow at data 4
+    (draws from a torch generator), held to the same steps in this process
+    on plain tensors (losses rtol 1e-5, parameters as `_adam_close`); a
+    sharded state saved after 2 steps and resumed makes the third step."""
+    import numpy as np
+    import torch
+    from chatterbox_tpu_torch.models.s3gen.flow import draw_flow_noise
+    from tests import test_torch_parallel_worker as W
+    draws = [draw_flow_noise(torch.Generator().manual_seed(100 + i), W.B, W.FLOW_T_MEL)
+             for i in range(W.STEPS)]
+    with tempfile.TemporaryDirectory() as d:
+        res = W.spawn(Path(d), draws)
+    if tuple(res["mesh_shape"]) != (2, 2):
+        raise AssertionError(f"a world of 4 made a mesh of {res['mesh_shape']}")
+    runs = [(f"{fam} T3 dp 2 x tp 2", fam, W.single_t3(fam)) for fam in ("llama", "gpt2")]
+    runs.append(("flow data 4", "flow", W.single_flow(draws)))
+    for label, key, (losses, params) in runs:
+        got = res[f"{key}_losses"]
+        log(f"mesh of 4 gloo processes, {label}: losses {got.ravel().tolist()}, "
+            f"one process {losses.ravel().tolist()}")
+        if not np.allclose(got, losses, rtol=1e-5, atol=0):
+            raise AssertionError(f"{label}: the sharded losses differ from one process's")
+        _adam_close({k: res[f"{key}/{k}"] for k in params}, params, W.LR, W.STEPS, label)
+    resumed = {k[len("resumed/"):]: v for k, v in res.items() if k.startswith("resumed/")}
+    if (int(res["resumed_step_count"]) != 2
+            or not np.allclose(res["resumed_losses"], res["llama_losses"][2], rtol=1e-6)
+            or max(np.abs(v - res[f"llama/{k}"]).max() for k, v in resumed.items()) > 1e-7):
+        raise AssertionError("a resumed sharded state does not make the same third step")
+
+
+def _runner(main_fn, argv) -> str:
+    """A runner's main in process, its standard output returned (and logged)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main_fn(argv)
+    out = buf.getvalue()
+    log("  " + out.strip().replace("\n", "\n  "))
+    return out
+
+
+def runner_checks(d: Path) -> None:
+    """Both runners at full width on the card (their defaults: Turbo T3,
+    FlowDims(), batch 8), 2 steps with a checkpoint then --resume for 2
+    more; train_flow --data on three 24 kHz WAVs written here, read by the
+    native loader."""
+    import re
+    from chatterbox_tpu_torch.examples import train_flow, train_t3
+    from chatterbox_tpu_torch.utils.audio_io import save_wav
+    t3_dir, flow_dir = d / "t3", d / "flow"
+    out = _runner(train_t3.main, ["--steps", "2", "--ckpt-every", "2", "--ckpt-dir", str(t3_dir)])
+    if "done: 2 steps" not in out or not (t3_dir / "opt_state.safetensors").exists():
+        raise AssertionError("train_t3 did not checkpoint")
+    out = _runner(train_t3.main, ["--steps", "4", "--ckpt-every", "4", "--resume",
+                                  "--ckpt-dir", str(t3_dir)])
+    m = re.search(r"step +4  loss_text (\d+\.\d+)  loss_speech (\d+\.\d+)", out)
+    if "resumed from step 2" not in out or "done: 2 steps" not in out or not m:
+        raise AssertionError("train_t3 --resume did not go on from step 2")
+    out = _runner(train_flow.main, ["--steps", "2", "--ckpt-dir", str(flow_dir)])
+    out += _runner(train_flow.main, ["--steps", "2", "--resume", "--ckpt-dir", str(flow_dir)])
+    if f"resumed from {flow_dir}" not in out or len(re.findall(r"loss_cfm \d+\.\d+", out)) != 4:
+        raise AssertionError("train_flow did not save and resume")
+    wavs = d / "wavs"
+    wavs.mkdir()
+    for i in range(3):
+        save_wav(wavs / f"{i}.wav", synthetic_voice(3.0, 24000, seed=i, f0=120.0 + 30 * i), 24000)
+    out = _runner(train_flow.main, ["--steps", "2", "--data", str(wavs),
+                                    "--ckpt-dir", str(d / "flow_data")])
+    if "data: 3 wavs (native loader: True)" not in out:
+        raise AssertionError("the native WAV loader did not serve train_flow --data")
+    if len(re.findall(r"loss_cfm \d+\.\d+", out)) != 2:
+        raise AssertionError("train_flow --data did not train")
+
+
+def training_phase(card: str) -> None:
+    """Phase 11 (see the module docstring). No kernel of the port lies on
+    the training path: every launch count stays 0."""
+    import torch
+    import torch.distributed as dist
+    from chatterbox_tpu_torch.parallel.mesh import make_mesh
+    reset_counts()
+    mesh = make_mesh(device_type="cuda")          # an NCCL world of one
+    try:
+        t0 = time.perf_counter()
+        t3_training(card, mesh)
+        log(f"phase 11 T3 {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        flow_training(card, mesh)
+        log(f"phase 11 flow {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        train_card_vs_cpu()
+        log(f"phase 11 card vs cpu {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as d:
+            runner_checks(Path(d))
+        log(f"phase 11 runners {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        mesh_gloo_check()
+        log(f"phase 11 mesh of 4 gloo processes {time.perf_counter() - t0:.1f} s")
+        check_counts(read_counts(), "training", {})
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+
+
 def main(argv) -> int:
     ab_root = None
     if argv:
@@ -3870,6 +4219,11 @@ def main(argv) -> int:
     finally:
         ckpt_tmp.cleanup()
     log(f"phase 10 (speculative slots and serving surfaces) {time.perf_counter() - t0:.1f} s")
+    del turbo, cfg520
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    training_phase(card)
+    log(f"phase 11 (training) {time.perf_counter() - t0:.1f} s")
     for r in rows:
         r["launches"] = launches[r["name"]]
         if r["name"] in PHASE3_ONLY:

@@ -247,8 +247,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "models/s3tok/model", "models/ve/model", "text/tokenizer", "utils/audio_io",
         "utils/loudness", "sampling/chunked", "serve/streaming",
         "sampling/speculative", "sampling/continuous", "serve/batching", "serve/http",
-        "serve/mcp", "utils/profiling", "cli", "__init__")} <= walked
+        "serve/mcp", "utils/profiling", "cli", "__init__", "parallel/mesh",
+        "parallel/train", "runtime/__init__", "examples/train_t3", "utils/dtensor",
+        "examples/train_flow")} <= walked
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "chatterbox_tpu"), (f, mod)
+            assert top not in ("jax", "jaxlib", "optax", "chatterbox_tpu"), (f, mod)
