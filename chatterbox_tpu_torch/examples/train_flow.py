@@ -12,7 +12,9 @@ AdamW step over a DTensor mesh (the counterpart of examples/train_flow.py).
 The data is synthetic ((token, mel) pairs with realistic length spreads)
 unless --data names a directory of 24 kHz WAVs: the native loader
 (runtime/) prefetches clips while the device extracts S3 tokens, 24 kHz
-mels and the CAMPPlus x-vector with the port's frontend.
+mels and the CAMPPlus x-vector with the port's frontend; over several
+processes, process 0 alone loads and featurizes each batch and broadcasts
+it, so every process cuts its rows from one global batch.
 
 Run (one card; the CPU with tiny dims):
   python -m chatterbox_tpu_torch.examples.train_flow --steps 100
@@ -46,8 +48,12 @@ def real_batches(data_dir, batch: int, t_tok: int, engine, sr_expect=None):
     """Batches from a directory of WAVs at sr_expect (24 kHz by default):
     the native threaded loader prefetches clips while the card extracts the
     features (S3 tokens at 16 kHz, 24 kHz mels, the CAMPPlus x-vector), each
-    clip cropped to t_tok tokens of audio. Closing the generator stops the
-    loader's threads."""
+    clip cropped to t_tok tokens of audio. In a world of several processes
+    one global batch a step, as the JAX runner feeds it: process 0 alone
+    loads and featurizes (`engine` may be None elsewhere) and broadcasts
+    the batch's five CPU tensors to every process. Closing the generator
+    stops the loader's threads."""
+    import torch.distributed as dist
     from ..audio.mels import mel_spectrogram_24k
     from ..audio.resample import resample
     from ..models.s3gen.campplus import campplus_embed_wav
@@ -59,6 +65,17 @@ def real_batches(data_dir, batch: int, t_tok: int, engine, sr_expect=None):
     paths = sorted(Path(data_dir).rglob("*.wav"))
     if not paths:
         raise SystemExit(f"no .wav files under {data_dir}")
+    shared = dist.is_initialized() and dist.get_world_size() > 1
+    if shared and dist.get_rank() != 0:
+        while True:
+            out = (torch.empty((batch, t_tok), dtype=torch.int32),
+                   torch.empty((batch,), dtype=torch.int32),
+                   torch.empty((batch, 2 * t_tok, 80)),
+                   torch.empty((batch,), dtype=torch.int32),
+                   torch.empty((batch, 192)))
+            for t in out:
+                dist.broadcast(t, 0)
+            yield out
     max_frames = int(t_tok / 25 * 48000) + 48000   # generous native-rate cap
     loader = WavLoader(paths, n_threads=4, max_frames=max_frames, epochs=1_000_000, seed=0)
     print(f"data: {len(paths)} wavs (native loader: {loader.native})", flush=True)
@@ -91,8 +108,12 @@ def real_batches(data_dir, batch: int, t_tok: int, engine, sr_expect=None):
                 tlens[b] = n
                 feat[b, : min(len(ft), 2 * t_tok)] = ft[: 2 * t_tok]
                 emb[b] = em
-            yield (torch.from_numpy(token), torch.from_numpy(tlens), torch.from_numpy(feat),
+            out = (torch.from_numpy(token), torch.from_numpy(tlens), torch.from_numpy(feat),
                    torch.from_numpy(2 * tlens), torch.from_numpy(emb))
+            if shared:
+                for t in out:
+                    dist.broadcast(t, 0)
+            yield out
     finally:
         loader.close()
 
@@ -149,8 +170,11 @@ def main(argv=None):
         from ..models.s3gen.model import S3GenEngine, s3gen_init
         from ..models.s3tok.model import S3TokenizerConfig
         tok_cfg = S3TokenizerConfig.tiny_test() if args.tiny else S3TokenizerConfig()
-        engine = S3GenEngine(s3gen_init(9, device, meanflow=False, dims=dims, tok_cfg=tok_cfg),
-                             dims=dims, meanflow=False, tok_cfg=tok_cfg)
+        engine = None
+        if dist.get_rank() == 0:        # the one process that featurizes
+            engine = S3GenEngine(s3gen_init(9, device, meanflow=False, dims=dims,
+                                            tok_cfg=tok_cfg),
+                                 dims=dims, meanflow=False, tok_cfg=tok_cfg)
         batches = real_batches(args.data, args.batch, args.tokens, engine)
     else:
         batches = synthetic_batches(args.batch, args.tokens)

@@ -127,8 +127,10 @@ class KVCache:
 
     @classmethod
     def zeros(cls, cfg: BackboneConfig, batch: int, max_len: int, device,
-              dtype=torch.bfloat16) -> "KVCache":
-        shape = (cfg.num_layers, batch, kv_heads(cfg), max_len, cfg.head_dim)
+              dtype=torch.bfloat16, heads: int = 0) -> "KVCache":
+        """heads: the KV heads held (a tensor-parallel process's share;
+        default all of them)."""
+        shape = (cfg.num_layers, batch, heads or kv_heads(cfg), max_len, cfg.head_dim)
         return cls(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
 
@@ -148,8 +150,8 @@ class KVCacheInt8:
 
     @classmethod
     def zeros(cls, cfg: BackboneConfig, batch: int, max_len: int, device,
-              dtype=torch.bfloat16) -> "KVCacheInt8":
-        shape = (cfg.num_layers, batch, kv_heads(cfg), max_len, cfg.head_dim)
+              dtype=torch.bfloat16, heads: int = 0) -> "KVCacheInt8":
+        shape = (cfg.num_layers, batch, heads or kv_heads(cfg), max_len, cfg.head_dim)
         z = lambda shp, dt: torch.zeros(shp, dtype=dt, device=device)
         return cls(z(shape, torch.int8), z(shape, torch.int8),
                    z(shape[:-1] + (1,), dtype), z(shape[:-1] + (1,), dtype))
@@ -173,8 +175,10 @@ def quantize_kv(x: torch.Tensor):
 # forward
 # ---------------------------------------------------------------------------
 
-def _qkv(lp: dict, cfg: BackboneConfig, x: torch.Tensor, fused: bool, rope):
-    """q (B, H, t, hd) and k, v (B, H_kv, t, hd) of one layer."""
+def _qkv(lp: dict, cfg: BackboneConfig, x: torch.Tensor, fused: bool, rope, heads=None):
+    """q (B, H, t, hd) and k, v (B, H_kv, t, hd) of one layer; with `heads`
+    (parallel.mesh.HeadShards) this process's heads of each, as plain
+    tensors, before RoPE."""
     D = cfg.hidden_size
     if cfg.is_gpt:
         if fused:
@@ -196,6 +200,8 @@ def _qkv(lp: dict, cfg: BackboneConfig, x: torch.Tensor, fused: bool, rope):
     q = nn.split_heads(q, cfg.num_heads)
     k = nn.split_heads(k, kv_heads(cfg))
     v = nn.split_heads(v, kv_heads(cfg))
+    if heads is not None:
+        q, k, v = heads.local(q, k, v)
     if rope is not None:
         q, k = apply_rope(q, *rope), apply_rope(k, *rope)
     return q, k, v
@@ -259,14 +265,18 @@ def _keep_mask(start: int, t: int, end: int, kv_lo, device):
 
 def backbone_apply(params: dict, cfg: BackboneConfig, embeds: torch.Tensor,
                    positions: torch.Tensor, cache, start: int, kv_lo=None,
-                   fused_attn: bool = False) -> torch.Tensor:
+                   fused_attn: bool = False, heads=None) -> torch.Tensor:
     """Run the layers over embeds (B, t, D) at cache offset `start` (a host
     int shared by every row), writing K/V into cache[:, :, :, start:start+t]
     (`KVCache`, or `KVCacheInt8` quantized by `quantize_kv`). Query i
     attends to keys [kv_lo[b], start+i] (kv_lo (B,) device ints, default
     0). positions (B, t) index the learned (GPT-2) or rotary (llama)
     positions. fused_attn lets single-token steps take the decode-attention
-    kernels (see `_attn_core`). Returns the final-norm hidden states
+    kernels (see `_attn_core`). Over params sharded on a mesh (DTensors),
+    `heads` (parallel.mesh.HeadShards) hands each layer's q, k and v to the
+    cache and the attention as this process's heads, on plain tensors, and
+    the attention's output back to the row-parallel projection; the cache
+    then holds those heads only. Returns the final-norm hidden states
     (B, t, D)."""
     B, t, D = embeds.shape
     end = start + t
@@ -289,7 +299,7 @@ def backbone_apply(params: dict, cfg: BackboneConfig, embeds: torch.Tensor,
     stop = cache.max_len if fused_step else end     # the kernels take the whole cache
     for i, lp in enumerate(params["layers"]):
         fused = "fused" in lp and t == 1
-        q, k, v = _qkv(lp, cfg, x, fused, rope)
+        q, k, v = _qkv(lp, cfg, x, fused, rope, heads)
         if fused_step:
             q = q.contiguous()     # the kernels take (B, H, 1, hd) packed
         if int8:
@@ -315,7 +325,10 @@ def backbone_apply(params: dict, cfg: BackboneConfig, embeds: torch.Tensor,
             cache.v[i, :, :, start:end] = v
             attn = _attn_core(q, cache.k[i, :, :, :stop], cache.v[i, :, :, :stop], cur,
                               mask, end, fused_step, kv_lo)
-        x = _after_attn(lp, cfg, x, nn.merge_heads(attn), fused)
+        attn = nn.merge_heads(attn)
+        if heads is not None:
+            attn = heads.join(attn)
+        x = _after_attn(lp, cfg, x, attn, fused)
     if cfg.is_gpt:
         return nn.layer_norm(params["ln_f"], x, cfg.layer_norm_eps)
     return nn.rms_norm(params["norm"], x, cfg.rms_norm_eps)

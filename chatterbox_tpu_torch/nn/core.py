@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from ..kernels.int4_matmul import (MAX_ROWS, matmul_int4, matmul_int4_dense,
                                    matmul_int4c_dense)
+from ..utils.dtensor import settled
 
 F32_MIN = torch.finfo(torch.float32).min
 
@@ -37,12 +38,15 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """`x @ w` with XLA's result types: f32 products summed in f32, then
     rounded once to the result type (an int8 weight takes x's type; two
     float types promote). The JAX package's bf16 matmuls are computed this
-    way on the CPU, where torch would otherwise round bf16 partial sums."""
+    way on the CPU, where torch would otherwise round bf16 partial sums.
+    A row-parallel product over a mesh is summed over its shards in f32
+    before that rounding, as XLA sums it."""
     if w.dtype == torch.int8:
         out = x.dtype
     else:
         out = torch.promote_types(x.dtype, w.dtype)
-    return (x.float() @ w.float()).to(out)
+    y = x.float() @ w.float()
+    return (settled(y) if out != y.dtype else y).to(out)
 
 
 def linear(p: dict, x: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,18 @@ A mesh is always a `DeviceMesh` over the process group's world: under
 `torchrun` one process a device, otherwise a world of one set up here (an
 in-process store, so no port is opened; NCCL for "cuda", gloo for "cpu"),
 so one code path serves one device and many.
+
+Serving under a mesh (the JAX package passes sharded params and inputs to
+its engines; so does the port):
+  * tensor-parallel decode: `t3_generate` over `shard_t3_params`; the
+    projections stay DTensor ops, and each layer's attention runs on this
+    process's heads as plain tensors (`HeadShards`) over a KV cache of
+    those heads;
+  * data-parallel batched decode: `t3_generate_batched` over `replicate`d
+    params and a `shard_batch`ed request batch; each process decodes its
+    own rows (`local_rows`) with plain copies of the params
+    (`local_copies`), and the rows are gathered at the end
+    (`gather_rows`).
 """
 from __future__ import annotations
 
@@ -27,7 +39,9 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
-from torch.distributed.tensor import Partial, Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
+
+from ..utils.dtensor import full
 
 AXES = ("data", "model")
 
@@ -153,15 +167,18 @@ def shard_batch(tree, mesh: DeviceMesh):
 
 def local_rows(tree, mesh: DeviceMesh):
     """This process's rows of a full batch, as plain tensors: what
-    `shard_batch` would place here (None leaves stay None)."""
-    dp, r = mesh.size(AXES.index("data")), mesh.get_local_rank("data")
-
+    `shard_batch` would place here (None leaves stay None). A DTensor
+    placed by `shard_batch` gives its local rows, any other DTensor the
+    rows of its whole value."""
     def rows(_, t):
         if t is None:
             return None
-        if t.shape[0] % dp:
-            raise ValueError(f"a batch of {t.shape[0]} rows over {dp} data shards")
-        return t.chunk(dp)[r]
+        if isinstance(t, DTensor):
+            if tuple(t.placements) == tuple(placements(mesh, ("data",), t.shape)):
+                return t.to_local()
+            t = t.full_tensor()
+        lo, hi = row_range(t.shape[0], mesh)
+        return t[lo:hi]
     return _map_with_path(rows, tree)
 
 
@@ -175,3 +192,89 @@ def local_replicas(params, mesh: DeviceMesh):
     grad_pl = [Partial() if name == "data" and mesh.size(i) > 1 else Replicate()
                for i, name in enumerate(mesh.mesh_dim_names)]
     return _map_with_path(lambda _, t: t.to_local(grad_placements=grad_pl), params)
+
+
+# ---------------------------------------------------------------------------
+# decoding under a mesh
+# ---------------------------------------------------------------------------
+
+def tree_mesh(tree) -> Optional[DeviceMesh]:
+    """The mesh of a tree's first leaf, None when it is a plain tensor: a
+    tree is placed on a mesh whole (`shard_t3_params`, `replicate`) or not
+    at all."""
+    while isinstance(tree, (dict, list, tuple)):
+        tree = next(iter(tree.values() if isinstance(tree, dict) else tree), None)
+    return tree.device_mesh if isinstance(tree, DTensor) else None
+
+
+def local_heads(cfg, mesh: DeviceMesh) -> tuple:
+    """(heads, KV heads) of a layer on each process when its projections
+    are sharded over "model" (GPT-2's KV heads are its heads); refuses a
+    mesh whose "model" size divides either count unevenly."""
+    tp = mesh.size(AXES.index("model"))
+    kv = cfg.num_heads if cfg.is_gpt else cfg.num_kv_heads
+    if cfg.num_heads % tp or kv % tp:
+        raise ValueError(f"a model axis of {tp} devices over {cfg.num_heads} heads "
+                         f"and {kv} KV heads")
+    return cfg.num_heads // tp, kv // tp
+
+
+class HeadShards:
+    """A decode layer's attention on this process's heads. `local(q, k, v)`
+    takes the (B, H, t, hd) DTensors of a layer (replicated over "data")
+    to plain tensors of this process's H / tp heads, by a local slice where
+    an operand is replicated (GPT-2's q / k / v, split from its fused qkv);
+    `join(attn)` takes the merged local heads (B, t, H / tp * hd) back to a
+    DTensor sharded over "model", so that the row-parallel projection after
+    it sums over the processes. `kv` is the local KV head count, the
+    cache's."""
+
+    def __init__(self, cfg, mesh: DeviceMesh):
+        self.mesh = mesh
+        self.kv = local_heads(cfg, mesh)[1]
+        sharded = mesh.size(AXES.index("model")) > 1
+        self._heads = tuple(Shard(1) if name == "model" and sharded else Replicate()
+                            for name in mesh.mesh_dim_names)
+        self._merged = tuple(Shard(2) if name == "model" and sharded else Replicate()
+                             for name in mesh.mesh_dim_names)
+
+    def local(self, q, k, v):
+        return tuple(t.redistribute(self.mesh, self._heads).to_local() for t in (q, k, v))
+
+    def join(self, attn: torch.Tensor):
+        return DTensor.from_local(attn, self.mesh, self._merged, run_check=False)
+
+
+def local_copies(tree):
+    """Every DTensor leaf as its whole value, a plain tensor on this process
+    (a replicated leaf is its local tensor; no collective runs)."""
+    return _map_with_path(lambda _, t: full(t), tree)
+
+
+def row_range(n: int, mesh: DeviceMesh) -> tuple:
+    """[lo, hi): this process's rows of an n-row batch over "data"."""
+    dp, r = mesh.size(AXES.index("data")), mesh.get_local_rank("data")
+    if n % dp:
+        raise ValueError(f"a batch of {n} rows over {dp} data shards")
+    return r * n // dp, (r + 1) * n // dp
+
+
+def gather_rows(t: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
+    """The inverse of `local_rows`: every process's rows of a plain tensor,
+    all-gathered over "data" in the mesh's order, on every process."""
+    i = AXES.index("data")
+    if mesh.size(i) == 1:
+        return t
+    parts = [torch.empty_like(t) for _ in range(mesh.size(i))]
+    dist.all_gather(parts, t.contiguous(), group=mesh.get_group(i))
+    return torch.cat(parts)
+
+
+def same_everywhere(t: torch.Tensor) -> bool:
+    """Whether a plain tensor holds the same values on every process of the
+    world (one all-gather; every process gets the same answer)."""
+    if dist.get_world_size() == 1:
+        return True
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, t.contiguous())
+    return all(torch.equal(p, parts[0]) for p in parts)

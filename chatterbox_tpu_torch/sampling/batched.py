@@ -25,7 +25,21 @@ mask (`fused_attn` is refused, as in the JAX engine).
 
 Structure: `t3_prefill_batched` and `t3_decode_chunk_batched` are the
 engine, a host loop like sampling/decode.py; `t3_generate_batched` runs one
-chunk over the whole budget. The JAX package's bucketed variant
+chunk over the whole budget.
+
+Over a mesh, as the JAX package runs `t3_generate_batched` on `replicate`d
+params with the request batch and its keys `shard_batch`ed over "data":
+every process of the world calls it with the same arguments (the whole
+batch's host lengths, generators and sampler fields), and it hands its own
+rows (parallel.mesh.local_rows), their generators and sampler fields, and
+plain copies of the params to the engine, so no op of a step goes through
+DTensor's dispatch; the engine's `tokens` and `n_tokens` are all-gathered
+over "data" at the end (`n_forward` is the process's own count, the same
+everywhere when EOS is ignored). The prefill and chunk engines themselves
+run on plain tensors only. A row's pads and window come from the text
+tensor's width and its own length, so its tokens are the ones it gets in
+the whole batch. kv_int8 and quantized params are refused there, as in
+sampling/decode.py. The JAX package's bucketed variant
 (`t3_generate_batched_bucketed`, `grow_cache_batched`) grows the cache in
 doubling segments for XLA's static shapes and gives the one-chunk engine's
 tokens: it has no counterpart here.
@@ -42,7 +56,8 @@ from ..models.t3 import backbone as bb
 from ..models.t3 import model as t3m
 from ..models.t3.config import T3Config
 from ..ops import sampling as S
-from .decode import DONE_CHECK_EVERY, cache_len
+from ..parallel import mesh as M
+from .decode import DONE_CHECK_EVERY, cache_len, refuse_under_mesh
 
 
 class BatchGenResult(NamedTuple):
@@ -219,8 +234,15 @@ def t3_generate_batched(params: dict, hp: T3Config, cond: t3m.T3CondTensors,
     batched (B, ...); generators one torch.Generator per row; sp fields one
     value or B values. kv_int8: the int8 KV cache, read by the int8
     decode-attention kernel with the per-row left pad as its lower bound
-    (the cache length rounds up to the kernel's tile)."""
+    (the cache length rounds up to the kernel's tile). Over a mesh, data
+    parallel (see the module docstring): every process returns the whole
+    batch's tokens."""
     _check_fused_attn(fused_attn)
+    mesh = M.tree_mesh(params)
+    if mesh is not None:
+        refuse_under_mesh(params, kv_int8, False)
+        params, cond, text_tokens, text_lens, sp, generators = _local_batch(
+            mesh, params, cond, text_tokens, text_lens, sp, generators)
     P_pad = t3m.cond_len(hp) + text_tokens.shape[1] + (2 if cfg_mode else 1)
     state = t3_prefill_batched(params, hp, cond, text_tokens, text_lens, generators,
                                t_cap=cache_len(P_pad + max_new_tokens, kv_int8),
@@ -229,4 +251,22 @@ def t3_generate_batched(params: dict, hp: T3Config, cond: t3m.T3CondTensors,
     state = t3_decode_chunk_batched(params, hp, state, sp, n_steps=max_new_tokens,
                                     top_k=top_k, cfg_mode=cfg_mode,
                                     ignore_eos=ignore_eos)
-    return BatchGenResult(state.tokens, state.n, state.n_forward)
+    if mesh is None:
+        return BatchGenResult(state.tokens, state.n, state.n_forward)
+    return BatchGenResult(M.gather_rows(state.tokens, mesh), M.gather_rows(state.n, mesh),
+                          state.n_forward)
+
+
+def _local_batch(mesh, params, cond, text_tokens, text_lens, sp, generators):
+    """This process's rows of a batch sharded over "data" (their text
+    lengths, generators and per-row sampler fields) and plain copies of
+    the replicated params."""
+    n = text_tokens.shape[0]
+    if len(text_lens) != n or len(generators) != n:
+        raise ValueError("one text length and one generator per row")
+    lo, hi = M.row_range(n, mesh)
+    rows = lambda v: (torch.as_tensor(v).reshape(-1)[lo:hi]
+                      if torch.as_tensor(v).numel() == n else v)
+    sp = S.SamplerParams(*[rows(getattr(sp, f.name)) for f in dataclasses.fields(S.SamplerParams)])
+    return (M.local_copies(params), M.local_rows(cond, mesh), M.local_rows(text_tokens, mesh),
+            list(text_lens)[lo:hi], sp, list(generators)[lo:hi])

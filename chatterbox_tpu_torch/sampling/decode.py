@@ -29,18 +29,35 @@ int8 with a bf16 scale per position (`bb.KVCacheInt8`); fused_attn lets each
 decode step take the decode-attention kernels and rounds the cache length up
 to a multiple of their tile (256 keys). The pipelines pass
 kv_int8=kv_int8, fused_attn=kv_int8.
+
+Over a mesh, as the JAX package runs `t3_generate` under `with mesh:` on
+params placed by `shard_t3_params`: every process of the world calls it
+with the same inputs and the same generator seed (or `gumbel` draws). The
+projections run tensor parallel over "model" as DTensor ops; each layer's
+cache and attention hold this process's heads as plain tensors
+(parallel.mesh.HeadShards); the CFG pair stays whole on every process
+(replicated over "data"); the logits come back whole on every process, so
+every process samples the same token from its own generator and no
+collective runs for the sampler. The tokens are all-gathered once at the
+end, and a process whose tokens differ raises. What the JAX package never
+runs under a mesh is refused: kv_int8, fused_attn, quantized or "fused"
+params.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
 import torch
+from torch.distributed.tensor.experimental import implicit_replication
 
 from ..kernels.decode_attention import TT
 from ..models.t3 import backbone as bb
 from ..models.t3 import model as t3m
 from ..models.t3.config import T3Config
 from ..ops import sampling as S
+from ..parallel import mesh as M
+from ..utils.dtensor import full
+from ..utils.quantize import is_quantized
 
 DONE_CHECK_EVERY = 32     # decode steps between host reads of `done`
 
@@ -76,34 +93,56 @@ def cache_len(n: int, fused_attn: bool) -> int:
     return -(-n // TT) * TT if fused_attn else n
 
 
+def logits_of(params: dict, hidden: torch.Tensor) -> torch.Tensor:
+    """Speech logits (B, V) in f32, whole on every process over a mesh."""
+    return full(t3m.speech_logits(params, hidden).float())
+
+
 def decode_step(params: dict, hp: T3Config, token: torch.Tensor, step: int,
-                cache, pos: int, fused_attn: bool = False) -> torch.Tensor:
+                cache, pos: int, fused_attn: bool = False, heads=None) -> torch.Tensor:
     """Feed `token` (a () or (B,) long) as generated token `step` at cache
-    position `pos`; returns the next logits (B, V) f32."""
+    position `pos`; returns the next logits (B, V) f32. `heads`: see
+    `bb.backbone_apply`."""
     B = (cache.k_q if isinstance(cache, bb.KVCacheInt8) else cache.k).shape[1]
     emb = t3m.speech_embed_token(params, hp, token.reshape(-1).expand(B), step + 1)
     hidden = bb.backbone_apply(params["backbone"], hp.backbone, emb,
                                torch.full((B, 1), pos, device=emb.device), cache, pos,
-                               fused_attn=fused_attn)
-    return t3m.speech_logits(params, hidden[:, 0]).float()
+                               fused_attn=fused_attn, heads=heads)
+    return logits_of(params, hidden[:, 0])
 
 
 def prefill(params: dict, hp: T3Config, cond: t3m.T3CondTensors,
             text_tokens: torch.Tensor, batch: int, cfg_mode: bool,
-            max_new_tokens: int, kv_int8: bool = False, tile_align: bool = False):
+            max_new_tokens: int, kv_int8: bool = False, tile_align: bool = False,
+            heads=None):
     """The dense prefix through the backbone into a new cache of P +
     max_new_tokens positions (rounded up to the decode-attention tile when
-    tile_align). Returns (cache, logits (batch, V) f32 at the prefix's last
-    position, P)."""
+    tile_align), of this process's KV heads under `heads`. Returns (cache,
+    logits (batch, V) f32 at the prefix's last position, P)."""
     cfg = hp.backbone
     dev = params["speech_emb"]["w"].device
     x = build_prefix(params, hp, cond, text_tokens, batch, cfg_mode)   # (B, P, D)
     P = x.shape[1]
     cache_cls = bb.KVCacheInt8 if kv_int8 else bb.KVCache
-    cache = cache_cls.zeros(cfg, batch, cache_len(P + max_new_tokens, tile_align), dev)
+    cache = cache_cls.zeros(cfg, batch, cache_len(P + max_new_tokens, tile_align), dev,
+                            heads=heads.kv if heads is not None else 0)
     positions = torch.arange(P, device=dev)[None].expand(batch, -1)
-    hidden = bb.backbone_apply(params["backbone"], cfg, x, positions, cache, 0)
-    return cache, t3m.speech_logits(params, hidden[:, -1]).float(), P
+    hidden = bb.backbone_apply(params["backbone"], cfg, x, positions, cache, 0, heads=heads)
+    return cache, logits_of(params, hidden[:, -1]), P
+
+
+def refuse_under_mesh(params: dict, kv_int8: bool, fused_attn: bool):
+    """What the JAX package never runs over a mesh (its sharding rules
+    place float `w` / `b` leaves only, and its decode keeps the Pallas
+    attention off)."""
+    if kv_int8:
+        raise ValueError("kv_int8 is not a knob of the decode over a mesh: the bf16 cache only")
+    if fused_attn:
+        raise ValueError("fused_attn is not a knob of the decode over a mesh: plain attention "
+                         "on each process's heads")
+    if is_quantized(params):
+        raise ValueError("a mesh decodes float params: these are quantized or carry fused "
+                         "decode operands")
 
 
 def new_seen(hp: T3Config, cfg_mode: bool, device) -> torch.Tensor:
@@ -162,13 +201,34 @@ def t3_generate(params: dict, hp: T3Config, cond: t3m.T3CondTensors,
     `generator` (lets a test replay another engine's random numbers).
     fused_attn (None means False): decode steps take the decode-attention
     kernels over a tile-aligned cache. kv_int8: the int8 KV cache.
+    Over params placed on a mesh, tensor parallel (see the module
+    docstring).
     """
+    kw = dict(max_new_tokens=max_new_tokens, top_k=top_k, cfg_mode=cfg_mode,
+              cfg_batch2=cfg_batch2, ignore_eos=ignore_eos, generator=generator,
+              gumbel=gumbel, fused_attn=bool(fused_attn), kv_int8=kv_int8)
+    mesh = M.tree_mesh(params)
+    if mesh is None:
+        return _generate(params, hp, cond, text_tokens, sp, **kw)
+    refuse_under_mesh(params, kv_int8, bool(fused_attn))
+    with implicit_replication():
+        res = _generate(params, hp, cond, text_tokens, sp,
+                        heads=M.HeadShards(hp.backbone, mesh), **kw)
+    if not M.same_everywhere(res.tokens):
+        raise RuntimeError("the processes of the mesh decoded different tokens")
+    return res
+
+
+def _generate(params: dict, hp: T3Config, cond: t3m.T3CondTensors,
+              text_tokens: torch.Tensor, sp: S.SamplerParams, *, max_new_tokens: int,
+              top_k: int, cfg_mode: bool, cfg_batch2: bool, ignore_eos: bool,
+              generator: Optional[torch.Generator], gumbel: Optional[torch.Tensor],
+              fused_attn: bool, kv_int8: bool, heads=None) -> GenResult:
     dev = params["speech_emb"]["w"].device
     stop = hp.stop_speech_token
     B = 2 if cfg_mode and cfg_batch2 else 1
-    fused_attn = bool(fused_attn)
     cache, logits, P = prefill(params, hp, cond, text_tokens, B, cfg_mode,
-                               max_new_tokens, kv_int8, fused_attn)
+                               max_new_tokens, kv_int8, fused_attn, heads)
 
     # ---- token loop ---------------------------------------------------------
     tokens = torch.full((max_new_tokens,), stop, dtype=torch.long, device=dev)
@@ -189,6 +249,6 @@ def t3_generate(params: dict, hp: T3Config, cond: t3m.T3CondTensors,
             break
         if not ignore_eos and (step + 1) % DONE_CHECK_EVERY == 0 and bool(done):
             break
-        logits = decode_step(params, hp, tok, step, cache, P + step, fused_attn)
+        logits = decode_step(params, hp, tok, step, cache, P + step, fused_attn, heads)
         n_forward += 1
     return GenResult(tokens, n_tokens, n_forward)

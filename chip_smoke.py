@@ -3,13 +3,18 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ab <other checkout>
+    torchrun --nproc-per-node 4 chip_smoke.py --mesh
 
 The second form runs phases 1 and 2, then times the fused decode-layer
 kernels (B1, B2, B5, B6, and B9, B10 on the Turbo int4_fused weights) and
 B11 of this checkout against those of the other at 1, 2, 8 and 16 rows, B8 on
 the 520M int4 weights at 1, 2 and 8 rows (f32 result), and the
 decode-attention kernels (B3, B4, B7) at phase 3's attention shapes, in
-turns on the same operands, and stops.
+turns on the same operands, and stops. The third runs phase 12's two
+decodes over all the world's cards (the 520M CFG T3 at dp 2 x tp N/2 in
+bf16 and in float32, the Turbo T3 at data N with 8 rows), each process
+holding the unsharded decodes on its own card; process 0 prints the
+tokens' agreement, ms/token and ms/step, and the last line.
 
 The port's paths, each at full width with random weights from a seed,
 served as bench.py serves them (T3 cast to bf16 and quantized int8_fused,
@@ -158,7 +163,7 @@ Phases, in order; any failure exits non-zero without the final "ok" line:
      n_draft 4 and 8 (ms/token, acceptance, rounds; B1 / B2 launched 24 x
      (K+1) x rounds, nothing else), the sequential bf16 target and phase
      5's int8_fused Turbo in the same call; generate(draft="int8") end to
-     end; a Nano draft pipeline (acceptance, ms/token over 100 tokens, no
+     end; a Nano draft pipeline (acceptance, ms/token over 50 tokens, no
      kernel).
   9. batched serving: three voices made by embed_ref from synthetic 5.2,
      6.0 and 6.8 s prompts (130, 150, 170 prompt tokens); the batched
@@ -217,11 +222,23 @@ Phases, in order; any failure exits non-zero without the final "ok" line:
      and on the CPU (the same losses and, to Adam's noise bound, the same
      parameters); both runners in process at full width with a checkpoint
      and --resume, and train_flow --data on WAVs written here, read by the
-     native loader; and the sharded steps in 4 gloo processes on the
-     host's CPU under this host's torch (tests/test_torch_parallel_worker:
+     native loader; and, beside the runners, the sharded steps in 4 gloo
+     processes on the host's CPU under this host's torch (tests/test_torch_parallel_worker:
      T3 at dp 2 x tp 2 in both families, a sharded save and resume, the
-     flow at data 4), held to the same steps in one process. No kernel of
-     the port is launched.
+     flow at data 4), held to the same steps in one process, with the
+     decodes over a mesh (t3_generate at dp 2 x tp 2, tiny llama with CFG
+     and tiny GPT-2, greedy and sampled; t3_generate_batched at data 4, 8
+     rows) giving one process's tokens, and train_flow's real_batches
+     giving every process one global batch. No kernel of the port is
+     launched.
+ 12. serving under a mesh, over a DTensor mesh of this one card (an NCCL
+     world of one): the 520M CFG T3 (30 x 1024, bf16 from the seed's f32)
+     through shard_t3_params and t3_generate, 100 tokens with EOS ignored
+     on a seeded generator, against the unsharded t3_generate (tokens
+     equal; ms/token of both); the Turbo T3 (24 x 1024, bf16) through
+     replicate / shard_batch and t3_generate_batched at 8 rows, 100
+     tokens, against the plain call (tokens equal row for row, rows of one
+     input and seed equal; ms/step of both). No kernel is launched.
 The line before the last is {"kernels": [...]} (launches summed over
 phases 5-10), the last {"ok": true, "device": {...}}.
 """
@@ -233,6 +250,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate (NVIDIA data sheet)
@@ -2368,7 +2386,7 @@ CJ_TOKENS = [f"[cj_{c}]" for c in "abcdefghijklmnopqrstuvwxyz0123456789."]
 MTL_VOCAB_FILE = "grapheme_mtl_merged_expanded_v1.json"
 MTL_REQUESTS = ("fr", "ko", "zh")
 SPEC_K = (4, 8)                # draft lengths timed
-NANO_TOKENS = 100              # the Nano draft's timed decode (it accepts ~4 %)
+NANO_TOKENS = 50               # the Nano draft's timed decode (it accepts ~4 %)
 VERIFY_TOL = 0.05              # verify slab against single steps, of the logits' scale
 
 
@@ -4000,21 +4018,33 @@ def train_card_vs_cpu() -> None:
     _adam_close(fpc, fpk, lr, steps, "tiny flow card vs cpu")
 
 
-def mesh_gloo_check() -> None:
-    """The sharded training steps in 4 gloo processes on the host's CPU
-    (tests/test_torch_parallel_worker.py), under this host's torch: the
-    tiny T3 at dp 2 x tp 2 in both families and the tiny flow at data 4
-    (draws from a torch generator), held to the same steps in this process
-    on plain tensors (losses rtol 1e-5, parameters as `_adam_close`); a
-    sharded state saved after 2 steps and resumed makes the third step."""
-    import numpy as np
+def mesh_gloo_spawn() -> tuple:
+    """The 4 gloo processes of `mesh_gloo_check` (they print nothing):
+    (the flow's draws, process 0's results, every process's batches)."""
     import torch
     from chatterbox_tpu_torch.models.s3gen.flow import draw_flow_noise
     from tests import test_torch_parallel_worker as W
     draws = [draw_flow_noise(torch.Generator().manual_seed(100 + i), W.B, W.FLOW_T_MEL)
              for i in range(W.STEPS)]
     with tempfile.TemporaryDirectory() as d:
-        res = W.spawn(Path(d), draws)
+        return draws, W.spawn(Path(d), draws), W.read_batches(Path(d))
+
+
+def mesh_gloo_check(spawned=None) -> None:
+    """The sharded training steps in 4 gloo processes on the host's CPU
+    (tests/test_torch_parallel_worker.py), under this host's torch: the
+    tiny T3 at dp 2 x tp 2 in both families and the tiny flow at data 4
+    (draws from a torch generator), held to the same steps in this process
+    on plain tensors (losses rtol 1e-5, parameters as `_adam_close`); a
+    sharded state saved after 2 steps and resumed makes the third step.
+    The same run's decodes over the meshes (tensor-parallel t3_generate at
+    dp 2 x tp 2, both tiny families, greedy and sampled; data-parallel
+    t3_generate_batched at data 4) give this process's tokens exactly, and
+    train_flow's real_batches gives every process one global batch.
+    `spawned`: `mesh_gloo_spawn()`'s result, when it ran already."""
+    import numpy as np
+    from tests import test_torch_parallel_worker as W
+    draws, res, batches = spawned or mesh_gloo_spawn()
     if tuple(res["mesh_shape"]) != (2, 2):
         raise AssertionError(f"a world of 4 made a mesh of {res['mesh_shape']}")
     runs = [(f"{fam} T3 dp 2 x tp 2", fam, W.single_t3(fam)) for fam in ("llama", "gpt2")]
@@ -4031,6 +4061,27 @@ def mesh_gloo_check() -> None:
             or not np.allclose(res["resumed_losses"], res["llama_losses"][2], rtol=1e-6)
             or max(np.abs(v - res[f"llama/{k}"]).max() for k, v in resumed.items()) > 1e-7):
         raise AssertionError("a resumed sharded state does not make the same third step")
+    decodes = [(f"tp_{fam}_{mode}", W.single_decode(fam, mode == "greedy"))
+               for fam in ("llama", "gpt2") for mode in ("greedy", "sampled")]
+    decodes += [(f"dp_{mode}", W.single_batched(mode == "greedy"))
+                for mode in ("greedy", "sampled")]
+    for key, want in decodes:
+        log(f"mesh of 4 gloo processes, decode {key}: tokens "
+            f"{'equal to' if np.array_equal(res[key], want) else 'DIFFER from'} one process's "
+            f"{res[key].ravel()[:8].tolist()}")
+        if not np.array_equal(res[key], want):
+            raise AssertionError(f"{key}: the decode over the mesh differs from one process's")
+        if key.startswith("dp") and not np.array_equal(res[key][0], res[key][3]):
+            raise AssertionError(f"{key}: rows of one input and one generator differ")
+    for step in range(2):
+        names = [f"{step}/{j}" for j in range(5)]
+        same = all(np.array_equal(b[k], batches[0][k]) for b in batches for k in names)
+        parts = all(np.array_equal(np.concatenate([b[f"{k}/rows"] for b in batches]),
+                                   batches[0][k]) for k in names)
+        log(f"mesh of 4 gloo processes, train_flow real_batches step {step}: "
+            f"one batch on every process {same}, local rows partition it {parts}")
+        if not (same and parts):
+            raise AssertionError("real_batches gave the processes different batches")
 
 
 def _runner(main_fn, argv) -> str:
@@ -4097,21 +4148,238 @@ def training_phase(card: str) -> None:
         train_card_vs_cpu()
         log(f"phase 11 card vs cpu {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory() as d:
-            runner_checks(Path(d))
-        log(f"phase 11 runners {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        mesh_gloo_check()
-        log(f"phase 11 mesh of 4 gloo processes {time.perf_counter() - t0:.1f} s")
+        # the 4 gloo processes run on the host's CPU beside the runners,
+        # which time nothing (the script's time limit)
+        with ThreadPoolExecutor(1) as pool:
+            spawned = pool.submit(mesh_gloo_spawn)
+            with tempfile.TemporaryDirectory() as d:
+                runner_checks(Path(d))
+            log(f"phase 11 runners {time.perf_counter() - t0:.1f} s")
+            spawned = spawned.result()
+        mesh_gloo_check(spawned)
+        log(f"phase 11 runners and the mesh of 4 gloo processes beside them "
+            f"{time.perf_counter() - t0:.1f} s")
         check_counts(read_counts(), "training", {})
     finally:
         dist.destroy_process_group()
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 12: serving under a mesh (tensor-parallel CFG t3_generate over
+# shard_t3_params, data-parallel t3_generate_batched over replicate /
+# shard_batch)
+# ---------------------------------------------------------------------------
+
+MESH_TOKENS = 100              # tokens a mesh decode, EOS ignored
+MESH_ROWS = 8                  # Turbo rows of the data-parallel decode
+MESH_LENS = [30, 12, 25, 30, 7, 18, 22, 15]      # rows 0 and 3: one input, one seed
+
+
+def tp_decode_check(mesh, dtype) -> dict:
+    """The 520M CFG T3 (30 x 1024; params cast from the seed's f32 to
+    `dtype`) through t3_generate, MESH_TOKENS tokens with EOS ignored on a
+    seeded generator: unsharded, then over shard_t3_params(params, mesh)
+    (each after an 8-token warm-up). Returns the tokens and ms/token of
+    both; every process holds the unsharded run on its own card."""
+    import numpy as np
+    import torch
+    from chatterbox_tpu_torch.models.t3 import model as t3m
+    from chatterbox_tpu_torch.models.t3.config import T3Config
+    from chatterbox_tpu_torch.ops.sampling import SamplerParams
+    from chatterbox_tpu_torch.parallel.mesh import shard_t3_params
+    from chatterbox_tpu_torch.sampling.decode import t3_generate
+    from chatterbox_tpu_torch.utils.quantize import cast_params
+    hp = T3Config.english_only()
+    params = cast_params(t3m.t3_init(hp, seed=10, device="cuda"), dtype)
+    rng = np.random.default_rng(12)
+    cond = t3m.T3CondTensors(
+        torch.from_numpy(rng.standard_normal((1, 256)).astype(np.float32)).cuda(),
+        torch.from_numpy(rng.integers(0, 6561, (1, hp.speech_cond_prompt_len))).cuda(),
+        torch.full((1, 1, 1), 0.5, device="cuda"))
+    text = torch.from_numpy(rng.integers(1, hp.text_tokens_dict_size, (1, 30))).cuda()
+    sharded = shard_t3_params(params, mesh)
+    out = {}
+    for name, p in (("plain", params), ("mesh", sharded)):
+        run = lambda n: t3_generate(p, hp, cond, text, SamplerParams(), max_new_tokens=n,
+                                    cfg_mode=True, ignore_eos=True,
+                                    generator=torch.Generator("cuda").manual_seed(7))
+        run(8).tokens.cpu()
+        (sec,), res = _time_decode(lambda: run(MESH_TOKENS), 1)
+        out[name] = (res.tokens.cpu().numpy(), sec / MESH_TOKENS * 1e3)
+    del params, sharded
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_decode_check(mesh) -> dict:
+    """The Turbo T3 (24 x 1024, bf16 from the seed's f32) through
+    t3_generate_batched at MESH_ROWS rows of distinct text lengths (row 3 a
+    copy of row 0, with its generator seed), MESH_TOKENS tokens with EOS
+    ignored: unsharded, then over replicate(params) with the batch
+    shard_batch'ed over "data" (each after an 8-token warm-up). Returns the
+    tokens and ms/step of both and, over several data shards, of the
+    unsharded calls on each shard's rows in turn ("slices": the batch
+    shape each process decodes; a GEMM's kernel, and so its last bits,
+    depends on its row count)."""
+    import numpy as np
+    import torch
+    from chatterbox_tpu_torch.models.t3 import model as t3m
+    from chatterbox_tpu_torch.models.t3.config import T3Config
+    from chatterbox_tpu_torch.ops.sampling import SamplerParams
+    from chatterbox_tpu_torch.parallel.mesh import replicate, shard_batch
+    from chatterbox_tpu_torch.sampling.batched import t3_generate_batched
+    from chatterbox_tpu_torch.utils.quantize import cast_params
+    hp = T3Config.turbo()
+    params = cast_params(t3m.t3_init(hp, seed=0, device="cuda"))
+    rng = np.random.default_rng(13)
+    spk = rng.standard_normal((MESH_ROWS, 256)).astype(np.float32)
+    prompt = rng.integers(0, 6561, (MESH_ROWS, hp.speech_cond_prompt_len))
+    text = np.zeros((MESH_ROWS, max(MESH_LENS)), np.int64)
+    for i, n in enumerate(MESH_LENS):
+        text[i, :n] = rng.integers(1, hp.text_tokens_dict_size, n)
+    for a in (spk, prompt, text):
+        a[3] = a[0]
+    cond = t3m.T3CondTensors(torch.from_numpy(spk).cuda(), torch.from_numpy(prompt).cuda(),
+                             None)
+    text = torch.from_numpy(text).cuda()
+    seeds = [21, 22, 23, 21, 25, 26, 27, 28]
+    inputs = {"plain": (params, cond, text),
+              "mesh": (replicate(params, mesh), shard_batch(cond, mesh), shard_batch(text, mesh))}
+    dp = mesh.size(0)
+    if dp > 1:
+        k = MESH_ROWS // dp
+        inputs["slices"] = [(params, t3m.T3CondTensors(cond.speaker_emb[i:i + k],
+                                                       cond.cond_prompt_speech_tokens[i:i + k],
+                                                       None), text[i:i + k], slice(i, i + k))
+                            for i in range(0, MESH_ROWS, k)]
+    out = {}
+    for name, parts in inputs.items():
+        parts = parts if name == "slices" else [parts + (slice(None),)]
+        toks, sec = [], 0.0
+        for p, c, t, rows in parts:
+            run = lambda n: t3_generate_batched(
+                p, hp, c, t, MESH_LENS[rows], SamplerParams(),
+                [torch.Generator("cuda").manual_seed(s) for s in seeds[rows]],
+                max_new_tokens=n, ignore_eos=True)
+            run(8).tokens.cpu()
+            (wall,), res = _time_decode(lambda: run(MESH_TOKENS), 1)
+            toks.append(res.tokens.cpu().numpy())
+            sec += wall / len(parts)
+        out[name] = (np.concatenate(toks), sec / MESH_TOKENS * 1e3)
+    del params, inputs
+    torch.cuda.empty_cache()
+    return out
+
+
+def _compare_tokens(out: dict, label: str, unit: str, ref: str = "plain",
+                    run: str = "mesh") -> bool:
+    """Log two runs' speed (the unsharded `ref`, by default, and the mesh
+    run) and where their tokens part; True when they are equal."""
+    import numpy as np
+    (a, ms_a), (b, ms_b) = out[ref], out[run]
+    same = np.array_equal(a, b)
+    parted = [int(np.argmax(x != y)) for x, y in zip(np.atleast_2d(a), np.atleast_2d(b))
+              if not np.array_equal(x, y)]
+    log(f"{label}: {ref} {ms_a:.3f} {unit}, {run} {ms_b:.3f} {unit} ({ms_b / ms_a:.2f}x); "
+        f"tokens {'equal' if same else 'DIFFER'} ({int((a == b).sum())} of {a.size} equal"
+        f"{'' if same else f'; rows part at steps {parted}'})")
+    return same
+
+
+def mesh_serving_phase(card: str) -> None:
+    """Phase 12 (see the module docstring) on a mesh of this one card: the
+    520M CFG T3 tensor parallel and the Turbo T3 data parallel, each held
+    to its unsharded run; no kernel of the port is launched."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from chatterbox_tpu_torch.parallel.mesh import make_mesh
+    reset_counts()
+    mesh = make_mesh(device_type="cuda")          # an NCCL world of one
+    try:
+        t0 = time.perf_counter()
+        tp = tp_decode_check(mesh, torch.bfloat16)
+        log(f"phase 12 tensor parallel {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        dp = dp_decode_check(mesh)
+        log(f"phase 12 data parallel {time.perf_counter() - t0:.1f} s")
+        ok = _compare_tokens(tp, f"520M CFG bf16 t3_generate over shard_t3_params, mesh "
+                                 f"{tuple(mesh.shape)} ({card})", "ms/token")
+        ok &= _compare_tokens(dp, f"Turbo bf16 t3_generate_batched, {MESH_ROWS} rows over "
+                                  f"replicate / shard_batch, mesh {tuple(mesh.shape)} ({card})",
+                              "ms/step")
+        if not ok:
+            raise AssertionError("a decode over the mesh differs from the unsharded decode")
+        if not np.array_equal(dp["mesh"][0][0], dp["mesh"][0][3]):
+            raise AssertionError("rows of one input and one generator seed differ over the mesh")
+        check_counts(read_counts(), "mesh serving", {})
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+
+
+def mesh_main() -> int:
+    """`torchrun --nproc-per-node N chip_smoke.py --mesh`: phase 12's two
+    decodes over all N cards (the 520M at dp 2 x tp N/2 in bf16 and in
+    float32, Turbo at data N), each process holding the unsharded decodes
+    on its own card; process 0 compares and prints."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from chatterbox_tpu_torch.kernels import decode_attention as A
+    from chatterbox_tpu_torch.kernels import fused_layer as K
+    from chatterbox_tpu_torch.kernels import fused_mlp as FM
+    from chatterbox_tpu_torch.kernels import int4_matmul as M
+    from chatterbox_tpu_torch.parallel.mesh import make_mesh
+    COUNTERS[:] = [K.launches, A.launches, M.launches, FM.launches]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    tp_mesh = make_mesh(device_type="cuda")
+    rank0 = dist.get_rank() == 0
+    card = smi()
+    if rank0:
+        log(card)
+        log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA "
+            f"{torch.version.cuda}, world {dist.get_world_size()}, mesh {tuple(tp_mesh.shape)}")
+    dp_mesh = make_mesh(dp=dist.get_world_size(), device_type="cuda")
+    reset_counts()
+    try:
+        runs = [(tp_decode_check(tp_mesh, dt), f"520M CFG {name} t3_generate over "
+                 f"shard_t3_params, mesh {tuple(tp_mesh.shape)}", "ms/token")
+                for name, dt in (("bf16", torch.bfloat16), ("float32", torch.float32))]
+        runs.append((dp_decode_check(dp_mesh), f"Turbo bf16 t3_generate_batched, {MESH_ROWS} rows "
+                     f"over replicate / shard_batch, mesh {tuple(dp_mesh.shape)}", "ms/step"))
+        if any(read_counts().values()):
+            raise AssertionError(f"a kernel was launched over the mesh: {read_counts()}")
+        if rank0:
+            equal = [_compare_tokens(out, f"{label} ({card})", unit) for out, label, unit in runs]
+            # each process decodes MESH_ROWS / N rows: its tokens are one
+            # card's calls at that row count; the 8-row call may part from
+            # them at a bf16 near-tie, which the log above shows
+            dp, label, _ = runs[-1]
+            equal[-1] = _compare_tokens(dp, f"{label}, against one card's calls of each "
+                                            f"process's rows ({card})", "ms/step", ref="slices")
+            _compare_tokens(dp, "one card: the same rows in one call and in the processes' "
+                                "slices", "ms/step", run="slices")
+            if not np.array_equal(dp["mesh"][0][0], dp["mesh"][0][3]):
+                raise AssertionError("rows of one input and one generator seed differ")
+            if not all(equal):
+                raise AssertionError("a decode over the mesh differs from one card's")
+            log(f"total {time.perf_counter() - t_start:.1f} s")
+            print(card, flush=True)
+            print(json.dumps({"ok": True, "device": {
+                "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                "count": torch.cuda.device_count()}}), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
 def main(argv) -> int:
     ab_root = None
-    if argv:
+    if argv and argv != ["--mesh"]:
         if len(argv) != 2 or argv[0] != "--ab":
             print(__doc__, file=sys.stderr)
             return 2
@@ -4125,6 +4393,13 @@ def main(argv) -> int:
         print("chip_smoke: no CUDA device; this script runs only on the GPU",
               file=sys.stderr)
         return 2
+    try:
+        import chatterbox_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
+        return 2
+    if argv == ["--mesh"]:
+        return mesh_main()
     try:
         from chatterbox_tpu_torch import ChatterboxTTS, ChatterboxTurboTTS
         from chatterbox_tpu_torch.kernels import build
@@ -4224,6 +4499,9 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     training_phase(card)
     log(f"phase 11 (training) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mesh_serving_phase(card)
+    log(f"phase 12 (serving under a mesh) {time.perf_counter() - t0:.1f} s")
     for r in rows:
         r["launches"] = launches[r["name"]]
         if r["name"] in PHASE3_ONLY:

@@ -1,6 +1,7 @@
 """The port's (data, model) DTensor mesh (chatterbox_tpu_torch/parallel)
 held against the JAX package's sharding rules, against the JAX package's
-training steps and against the port's own single-process steps.
+training steps and decode engines, and against the port's own
+single-process steps and decodes.
 
 One module-scoped run starts 4 gloo processes on the CPU
 (tests/test_torch_parallel_worker.py): the T3 step at dp 2 x tp 2 (tiny
@@ -15,11 +16,20 @@ order); parameters within 2 lr x steps elementwise with the 99th
 percentile of the difference under 1e-6, since Adam moves a leaf whose
 gradient is rounding noise (a key bias under softmax) by up to lr a step
 in either direction.
+
+The same run decodes over the meshes (tensor-parallel `t3_generate` at dp
+2 x tp 2, data-parallel `t3_generate_batched` at data 4) and reads
+train_flow's `real_batches` on every process; the tensor-parallel tokens
+(sampled on JAX's own key splits) and the greedy data-parallel rows are
+held to the JAX package's unsharded engines, and every decode and batch to
+one process of the port.
 """
+import dataclasses
 from types import SimpleNamespace
 
 import numpy as np
 import pytest
+import torch
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -28,13 +38,20 @@ from chatterbox_tpu.convert.native_ckpt import load_pytree as jax_load_pytree  #
 from chatterbox_tpu.models.s3gen import flow as jflow  # noqa: E402
 from chatterbox_tpu.models.t3 import model as jt3m  # noqa: E402
 from chatterbox_tpu.models.t3.config import T3Config as JT3Config  # noqa: E402
+from chatterbox_tpu.ops import sampling as JS  # noqa: E402
 from chatterbox_tpu.parallel import mesh as jmesh  # noqa: E402
 from chatterbox_tpu.parallel import train as jtrain  # noqa: E402
+from chatterbox_tpu.sampling import batched as JB  # noqa: E402
+from chatterbox_tpu.sampling.decode import t3_generate as jax_generate  # noqa: E402
 
 from chatterbox_tpu_torch.convert.native_ckpt import _flatten  # noqa: E402
 from chatterbox_tpu_torch.models.t3 import model as t3m  # noqa: E402
 from chatterbox_tpu_torch.models.t3.config import T3Config  # noqa: E402
+from chatterbox_tpu_torch.ops.sampling import SamplerParams  # noqa: E402
 from chatterbox_tpu_torch.parallel import mesh as M  # noqa: E402
+from chatterbox_tpu_torch.sampling.batched import t3_generate_batched  # noqa: E402
+from chatterbox_tpu_torch.sampling.decode import t3_generate  # noqa: E402
+from chatterbox_tpu_torch.utils.quantize import quantize_t3_backbone  # noqa: E402
 from tests import test_torch_parallel_worker as W  # noqa: E402
 from tests.test_torch_flow_train import jax_draws  # noqa: E402
 from tests.test_torch_train import jax_key  # noqa: E402
@@ -44,11 +61,27 @@ def flow_key(i):
     return jax.random.key(100 + i)
 
 
+DECODE_KEY = 5       # the key of the JAX decodes the mesh decodes replay
+
+
+def jax_gumbel(fam: str) -> np.ndarray:
+    """The gumbel rows JAX's `t3_generate` draws from key DECODE_KEY, one a
+    step (key, sub = split(key); categorical(sub) = argmax(logits +
+    gumbel(sub))), for `gumbel=` replay."""
+    draws, k = [], jax.random.key(DECODE_KEY)
+    for _ in range(W.DECODE_N):
+        k, sub = jax.random.split(k)
+        draws.append(np.asarray(jax.random.gumbel(
+            sub, (T3Config.tiny_test(fam).speech_tokens_dict_size,), jnp.float32)))
+    return np.stack(draws)
+
+
 @pytest.fixture(scope="module")
 def mesh_run(tmp_path_factory):
     out = tmp_path_factory.mktemp("mesh")
     draws = [jax_draws(flow_key(i), W.B, W.FLOW_T_MEL) for i in range(W.STEPS)]
-    return SimpleNamespace(res=W.spawn(out, draws), out=out)
+    gumbel = {fam: jax_gumbel(fam) for fam in ("llama", "gpt2")}
+    return SimpleNamespace(res=W.spawn(out, draws, gumbel), out=out, gumbel=gumbel)
 
 
 def assert_adam_close(got: dict, want: dict, steps: int = W.STEPS):
@@ -216,3 +249,175 @@ def test_non_dividing_leaf_is_replicated_as_jax_does():
                                else tree["backbone"]["layers"][0][path[3]]["w"].shape)
             sharded = [repr(p) for p in got if "Shard" in repr(p)]
             assert sharded == ([] if spec == P() else ["Shard(dim=0)"]), (k, tp, got)
+
+
+# ---------------------------------------------------------------------------
+# decoding over the meshes (the same 4-process run)
+# ---------------------------------------------------------------------------
+
+def _jax_params(mesh_run, fam):
+    """The workers' seed-0 T3 params (their `<fam>_init.safetensors`) as a
+    JAX tree."""
+    jp = jax_load_pytree(mesh_run.out / f"{fam}_init.safetensors",
+                         jt3m.t3_init(jax.random.key(1), JT3Config.tiny_test(fam)))
+    return jax.tree.map(jnp.asarray, jp)
+
+
+def _jax_cond(cond):
+    return jt3m.T3CondArrays(jnp.asarray(cond.speaker_emb.numpy()),
+                             jnp.asarray(cond.cond_prompt_speech_tokens.numpy(), jnp.int32),
+                             None if cond.emotion_adv is None
+                             else jnp.asarray(cond.emotion_adv.numpy()))
+
+
+def _jax_sampler(sp):
+    return JS.SamplerParams.make(temperature=sp.temperature, top_p=sp.top_p,
+                                 repetition_penalty=sp.repetition_penalty, min_p=sp.min_p,
+                                 cfg_weight=sp.cfg_weight)
+
+
+@pytest.fixture(scope="module")
+def jax_tokens(mesh_run):
+    """JAX's `t3_generate` tokens of a (family, mode) decode of the
+    workers' params, on key DECODE_KEY, each computed once."""
+    done = {}
+
+    def tokens(fam, mode):
+        if (fam, mode) not in done:
+            hp, cond, text, sp, kw = W.decode_args(fam, mode == "greedy")
+            done[fam, mode] = np.asarray(jax_generate(
+                _jax_params(mesh_run, fam), JT3Config.tiny_test(fam), _jax_cond(cond),
+                jnp.asarray(text.numpy(), jnp.int32), jnp.asarray(text.shape[1]),
+                _jax_sampler(sp), jax.random.key(DECODE_KEY), max_new_tokens=W.DECODE_N,
+                top_k=kw["top_k"], cfg_mode=kw["cfg_mode"], ignore_eos=True).tokens)
+        return done[fam, mode]
+    return tokens
+
+
+@pytest.mark.parametrize("mode", ["greedy", "sampled"])
+@pytest.mark.parametrize("fam", ["llama", "gpt2"])
+def test_tp_decode_dp2_tp2_matches_jax(mesh_run, jax_tokens, fam, mode):
+    """`t3_generate(shard_t3_params(params, mesh), ...)` at dp 2 x tp 2 (the
+    JAX package's tests/test_parallel.py:61-92 with tiny llama and CFG;
+    tiny GPT-2 without) gives the JAX package's unsharded `t3_generate`
+    tokens exactly: greedy (min_p 1 with CFG, top_k 1 without), and sampled
+    on JAX's own key splits replayed through `gumbel=` (every process
+    checked its tokens equal to the others')."""
+    got = mesh_run.res[f"tp_{fam}_{mode}"]
+    np.testing.assert_array_equal(got, jax_tokens(fam, mode))
+    assert len(set(got.tolist())) > 2
+
+
+@pytest.mark.parametrize("mode", ["greedy", "sampled"])
+@pytest.mark.parametrize("fam", ["llama", "gpt2"])
+def test_tp_decode_dp2_tp2_equals_one_process(mesh_run, fam, mode):
+    """The same tensor-parallel decodes give the port's one-process tokens
+    on the same draws exactly. The quantized one-process paths are held to
+    JAX by tests/test_torch_t3_llama.py::
+    test_sampled_cfg_tokens_equal_with_jax_gumbel_draws and
+    tests/test_torch_t3.py::test_sampled_tokens_equal_with_jax_gumbel_draws."""
+    want = W.single_decode(fam, mode == "greedy", mesh_run.gumbel[fam])
+    np.testing.assert_array_equal(mesh_run.res[f"tp_{fam}_{mode}"], want)
+    assert len(set(want.tolist())) > 2
+
+
+@pytest.mark.parametrize("mode", ["greedy", "sampled"])
+@pytest.mark.parametrize("fam", ["llama", "gpt2"])
+def test_one_process_decode_matches_jax(mesh_run, jax_tokens, fam, mode):
+    """The workers' float params decoded in one process, on JAX's key
+    splits replayed through `gumbel=` when sampled, give the JAX package's
+    `t3_generate` tokens, with the tensor-parallel test's sampler."""
+    got = W.single_decode(fam, mode == "greedy", mesh_run.gumbel[fam])
+    np.testing.assert_array_equal(got, jax_tokens(fam, mode))
+
+
+@pytest.mark.parametrize("mode", ["greedy", "sampled"])
+def test_dp_batched_data4_equals_one_process(mesh_run, mode):
+    """`t3_generate_batched(replicate(params), ..., shard_batch(cond),
+    shard_batch(text), ...)` at data 4, 8 rows of tiny GPT-2 (two a
+    process), rows of distinct text lengths and generators (the JAX
+    package's tests/test_parallel.py:95-121): every row the one-process
+    run's, and rows 0 and 3, the same input and generator seed, equal.
+    The greedy rows are held to JAX's `t3_generate_batched` by the two
+    tests below (JAX draws from keys, the port from torch generators, so
+    only greedy rows compare)."""
+    got = mesh_run.res[f"dp_{mode}"]
+    assert got.shape == (W.BATCH_ROWS, 6)
+    np.testing.assert_array_equal(got, W.single_batched(mode == "greedy"))
+    np.testing.assert_array_equal(got[0], got[3])
+    assert len({tuple(r) for r in got.tolist()}) >= W.BATCH_ROWS - 1
+
+
+@pytest.fixture(scope="module")
+def jax_batched_tokens(mesh_run):
+    """JAX's greedy `t3_generate_batched` tokens of the data-parallel batch."""
+    hp, cond, text, lens, _, kw = W.batched_args(greedy=True)
+    return np.asarray(JB.t3_generate_batched(
+        _jax_params(mesh_run, "gpt2"), JT3Config.tiny_test("gpt2"), _jax_cond(cond),
+        jnp.asarray(text.numpy(), jnp.int32), jnp.asarray(lens, jnp.int32),
+        JS.SamplerParams.make(), jax.random.split(jax.random.key(1), W.BATCH_ROWS),
+        **kw).tokens)
+
+
+def test_one_process_batched_matches_jax(jax_batched_tokens):
+    np.testing.assert_array_equal(W.single_batched(greedy=True), jax_batched_tokens)
+
+
+def test_dp_batched_data4_greedy_matches_jax(mesh_run, jax_batched_tokens):
+    """The greedy data-parallel rows give JAX's unsharded batched tokens."""
+    np.testing.assert_array_equal(mesh_run.res["dp_greedy"], jax_batched_tokens)
+
+
+@pytest.mark.parametrize("step", [0, 1])
+def test_real_batches_one_global_batch_on_every_process(mesh_run, step):
+    """train_flow's `real_batches` in the 4-process world (C12): every
+    process gets process 0's batch (token, token_len, feat, feat_len,
+    embedding), and the processes' `local_rows` of it partition it."""
+    got = W.read_batches(mesh_run.out)
+    names = [f"{step}/{j}" for j in range(5)]
+    for r in range(1, W.WORLD):
+        for k in names:
+            np.testing.assert_array_equal(got[r][k], got[0][k], err_msg=f"process {r}, {k}")
+    for k in names:
+        np.testing.assert_array_equal(np.concatenate([g[f"{k}/rows"] for g in got]), got[0][k])
+    assert (got[0][f"{step}/1"] == W.WAV_TOKENS).all() and np.abs(got[0][f"{step}/2"]).max() > 0
+
+
+# ---------------------------------------------------------------------------
+# what a mesh refuses (a world of one, in this process)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def one_mesh():
+    return M.make_mesh(device_type="cpu")
+
+
+@pytest.mark.parametrize("case", ["kv_int8", "fused_attn", "int8", "int8_fused",
+                                  "batched_kv_int8", "batched_int8"])
+def test_mesh_decode_refuses_what_jax_never_shards(one_mesh, case):
+    """The JAX package's rules place float `w` / `b` leaves only and its
+    decode keeps the Pallas attention off: the int8 cache, the
+    decode-attention kernels and quantized params raise under a mesh."""
+    hp, cond, text, sp, kw = W.decode_args("gpt2", greedy=True)
+    if case == "int8_fused":            # widths the fused kernels take
+        hp = dataclasses.replace(hp, backbone_name="GPT2_fused_test")
+    params = t3m.t3_init(hp, seed=0, device="cpu")
+    if case in ("int8", "int8_fused", "batched_int8"):
+        params = quantize_t3_backbone(params, mode="int8_fused" if case == "int8_fused" else "int8")
+    with pytest.raises(ValueError):
+        if case.startswith("batched"):
+            hp, cond, text, lens, gens, bkw = W.batched_args(greedy=True)
+            t3_generate_batched(M.replicate(params, one_mesh), hp, M.shard_batch(cond, one_mesh),
+                                M.shard_batch(text, one_mesh), lens, SamplerParams(), gens,
+                                kv_int8=case == "batched_kv_int8", **bkw)
+        else:
+            t3_generate(M.shard_t3_params(params, one_mesh), hp, cond, text, sp,
+                        kv_int8=case == "kv_int8", fused_attn=case == "fused_attn", **kw)
+
+
+@pytest.mark.parametrize("fam", ["llama", "gpt2"])
+def test_mesh_whose_model_axis_does_not_divide_the_heads_is_refused(fam):
+    cfg = T3Config.tiny_test(fam).backbone           # 4 heads, 4 KV heads
+    assert M.local_heads(cfg, _Mesh(2, 2)) == (2, 2)
+    with pytest.raises(ValueError):
+        M.local_heads(cfg, _Mesh(1, 3))

@@ -142,3 +142,84 @@ def test_python_fallback_matches_jax_fallback_order(tmp_path, monkeypatch):
         native = {p: w for w, p in _clips(rt.WavLoader(paths, n_threads=1, max_frames=4000))}
         for w, p in got:
             np.testing.assert_allclose(w, native[p], rtol=0, atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# the native reader decodes what utils/audio_io.read_wav decodes, and refuses
+# (counted by errors()) the headers it cannot decode
+# ---------------------------------------------------------------------------
+
+def _riff(path, fmt_tag, channels, bits, block_align, data: bytes, rate=16000, sub=None):
+    """A WAV written by hand: a fmt chunk of 16 bytes, or of 40 for
+    WAVE_FORMAT_EXTENSIBLE with the subformat GUID of `sub`."""
+    import struct
+    fmt = struct.pack("<HHIIHH", fmt_tag, channels, rate, rate * block_align, block_align, bits)
+    if sub is not None:
+        guid = struct.pack("<H", sub) + b"\x00\x00\x00\x00\x10\x00\x80\x00\x00\xAA\x00\x38\x9B\x71"
+        fmt += struct.pack("<HHI", 22, bits, (1 << channels) - 1) + guid
+    body = b"WAVE" + b"fmt " + struct.pack("<I", len(fmt)) + fmt
+    body += b"data" + struct.pack("<I", len(data)) + data + b"\x00" * (len(data) % 2)
+    path.write_bytes(b"RIFF" + struct.pack("<I", len(body)) + body)
+
+
+def _pcm24(x: np.ndarray) -> bytes:
+    """int32 samples in 24-bit range as packed little-endian 3-byte words."""
+    b = x.astype("<i4").view(np.uint8).reshape(-1, 4)
+    return b[:, :3].tobytes()
+
+
+def _sine(channels: int) -> np.ndarray:
+    t = np.arange(700)
+    w = 0.5 * np.sin(t * 0.07)
+    return w if channels == 1 else np.stack([w, 0.6 * w], axis=1)
+
+
+@pytest.mark.parametrize("kind", ["u8", "i16", "i24", "i32", "f32", "f64", "ext24"])
+@pytest.mark.parametrize("channels", [1, 2])
+def test_native_reader_decodes_what_read_wav_decodes(tmp_path, kind, channels):
+    """8-bit unsigned, 16-, 24- and 32-bit PCM, 32- and 64-bit float and a
+    WAVE_FORMAT_EXTENSIBLE 24-bit file of a 0.5 sine: the native loader's
+    clip is read_wav's within 1e-6, and neither is silent (a peak of
+    0.5, or 0.4 for the stereo mean of the sine and 0.6 of it)."""
+    from chatterbox_tpu_torch.utils.audio_io import read_wav
+    if rt.dataload_lib() is None:
+        pytest.skip("no g++ here")
+    w = _sine(channels)
+    p = tmp_path / f"{kind}.wav"
+    if kind == "u8":
+        wavfile.write(p, 16000, np.round(w * 127 + 128).astype(np.uint8))
+    elif kind in ("i16", "i32"):
+        bits = int(kind[1:])
+        wavfile.write(p, 16000, np.round(w * (2 ** (bits - 1) - 1)).astype(f"int{bits}"))
+    elif kind in ("f32", "f64"):
+        wavfile.write(p, 16000, w.astype(f"float{kind[1:]}"))
+    else:
+        data = _pcm24(np.round(w * (2 ** 23 - 1)).astype(np.int32).reshape(-1))
+        _riff(p, 0xFFFE if kind == "ext24" else 1, channels, 24, 3 * channels, data,
+              sub=1 if kind == "ext24" else None)
+    want, _ = read_wav(p)
+    ld = rt.WavLoader([p], n_threads=1, max_frames=4000)
+    assert ld.native
+    got, errors = list(ld), ld.errors()
+    ld.close()
+    assert errors == 0 and len(got) == 1
+    np.testing.assert_allclose(got[0][0], want, rtol=0, atol=1e-6)
+    assert abs(np.abs(want).max() - (0.5 if channels == 1 else 0.4)) < 1e-2
+
+
+@pytest.mark.parametrize("bits", [4, 12])
+def test_native_reader_refuses_bits_not_a_multiple_of_8(tmp_path, bits):
+    """PCM of 4 bits (a byte a sample) and of 12 bits (two bytes a sample):
+    skipped and counted, not read as silence, beside a readable file."""
+    if rt.dataload_lib() is None:
+        pytest.skip("no g++ here")
+    bad = tmp_path / "bad.wav"
+    width = 1 if bits <= 8 else 2
+    _riff(bad, 1, 1, bits, width, bytes(range(200)) * width)
+    good = tmp_path / "good.wav"
+    wavfile.write(good, 16000, (_sine(1) * 32767).astype(np.int16))
+    ld = rt.WavLoader([bad, good], n_threads=2, max_frames=4000)
+    got, errors = list(ld), ld.errors()
+    ld.close()
+    assert [p for _, p in got] == [1]
+    assert errors == 1
