@@ -49,6 +49,7 @@ from ..sampling.decode import t3_generate
 from ..sampling.speculative import t3_generate_speculative
 from ..serve.streaming import StreamingVocoder
 from ..text.tokenizer import punc_norm
+from ..utils import profiling
 from ..utils.audio_io import load_audio
 from ..utils.loudness import norm_loudness
 from ..utils.quantize import (best_serving_mode, cast_params, is_quantized,
@@ -626,15 +627,17 @@ class ChatterboxVC:
 
     def generate(self, audio, target_voice_path=None) -> np.ndarray:
         """Convert `audio` (a path, or 16 kHz samples) to the target voice;
-        returns a (1, T) float32 waveform at 24 kHz."""
-        if target_voice_path:
-            self.set_target_voice(target_voice_path)
-        elif self.ref_dict is None:
-            raise ValueError("call `set_target_voice` or pass `target_voice_path` first")
-        if isinstance(audio, (str, Path)):
-            audio_16 = load_audio(audio, S3_SR)
-        else:
-            audio_16 = np.asarray(audio, np.float32).reshape(-1)
-        tokens, _ = self.s3gen.tokenize(audio_16)
-        wav = self.s3gen.inference(tokens, self.ref_dict, generator=self.generator)[0]
-        return self.watermarker.apply_watermark(wav, sample_rate=self.sr)[None]
+        returns a (1, T) float32 waveform at 24 kHz. One request: its spans
+        (utils/profiling.py) share the root span's id."""
+        with profiling.span("vc.generate"):
+            if target_voice_path:
+                self.set_target_voice(target_voice_path)
+            elif self.ref_dict is None:
+                raise ValueError("call `set_target_voice` or pass `target_voice_path` first")
+            if isinstance(audio, (str, Path)):
+                audio_16 = load_audio(audio, S3_SR)
+            else:
+                audio_16 = np.asarray(audio, np.float32).reshape(-1)
+            tokens, _ = self.s3gen.tokenize(audio_16)
+            wav = self.s3gen.inference(tokens, self.ref_dict, generator=self.generator)[0]
+            return self.watermarker.apply_watermark(wav, sample_rate=self.sr)[None]

@@ -11,6 +11,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import to_device
+
 
 @functools.lru_cache(maxsize=32)
 def resample_kernel(orig_freq: int, new_freq: int, lowpass_filter_width: int = 6,
@@ -39,7 +41,7 @@ def resample(wav: torch.Tensor, orig_freq: int, new_freq: int) -> torch.Tensor:
     kernels, width, orig, new = resample_kernel(orig_freq, new_freq)
     length = wav.shape[-1]
     x = F.pad(wav.reshape(-1, 1, length), (width, width + orig))
-    k = torch.from_numpy(kernels).to(wav.device, wav.dtype)[:, None, :]
+    k = to_device(kernels, wav.device, wav.dtype)[:, None, :]
     y = F.conv1d(x, k, stride=orig)                      # (N, new, frames)
     y = y.transpose(1, 2).reshape(x.shape[0], -1)        # interleave the phases
     n = int(math.ceil(new * length / orig))

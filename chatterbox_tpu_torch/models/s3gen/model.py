@@ -52,6 +52,7 @@ import torch
 from ...audio.mels import mel_spectrogram_24k
 from ...audio.resample import resample
 from ...nn import core as nn
+from ...utils import profiling
 from ...utils.quantize import cast_params
 from ..s3tok.model import S3_SR, S3TokenizerConfig, s3tokenizer_init, s3tokenizer_tokenize
 from .campplus import campplus_embed_wav, campplus_init
@@ -200,10 +201,10 @@ class S3GenEngine:
         entry = self._ref_cache.get(id(ref))
         if entry is None or entry[0] is not ref:
             P = int(np.asarray(ref.prompt_token_len).reshape(-1)[0])
-            dev = (torch.as_tensor(np.asarray(ref.prompt_token)[:, :P], dtype=torch.long,
-                                   device=self.device),
-                   torch.as_tensor(np.asarray(ref.prompt_feat, np.float32), device=self.device),
-                   torch.as_tensor(np.asarray(ref.embedding, np.float32), device=self.device),
+            dev = (profiling.to_device(np.asarray(ref.prompt_token)[:, :P], self.device,
+                                       torch.long),
+                   profiling.to_device(np.asarray(ref.prompt_feat, np.float32), self.device),
+                   profiling.to_device(np.asarray(ref.embedding, np.float32), self.device),
                    P)
             if len(self._ref_cache) >= self._REF_CACHE_CAP:
                 self._ref_cache.pop(next(iter(self._ref_cache)))
@@ -230,10 +231,12 @@ class S3GenEngine:
             noise = self.draw_noise(token.shape[1] * TOKEN_MEL_RATIO,
                                     (token.shape[1] - P) * TOKEN_MEL_RATIO, generator)
         with nn.no_tf32_convs():
-            mels = self._flow(token, P, ref, noise.z, n_timesteps)
-            wav, _, _ = hift_inference(self.params["mel2wav"],
-                                       mels[:, P * TOKEN_MEL_RATIO:], noise.source)
-        return self._trim_fade(wav)
+            with profiling.span("s3gen.flow", device=self.device, tokens=token.shape[1] - P):
+                mels = self._flow(token, P, ref, noise.z, n_timesteps)
+            with profiling.span("s3gen.hift", device=self.device):
+                wav, _, _ = hift_inference(self.params["mel2wav"],
+                                           mels[:, P * TOKEN_MEL_RATIO:], noise.source)
+                return self._trim_fade(wav)
 
     def _trim_fade(self, wav: torch.Tensor) -> torch.Tensor:
         """(B, T) -> the same with the trim-fade over its first samples."""
@@ -241,8 +244,8 @@ class S3GenEngine:
         return torch.cat([wav[:, :n_fade] * self._fade[:n_fade], wav[:, n_fade:]], dim=1)
 
     def _host_tokens(self, speech_tokens) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(speech_tokens).reshape(-1), dtype=torch.long,
-                               device=self.device)
+        return profiling.to_device(np.asarray(speech_tokens).reshape(-1), self.device,
+                                   torch.long)
 
     @torch.no_grad()
     def inference_from_decode(self, gen_tokens: torch.Tensor, n_tokens,
@@ -277,7 +280,8 @@ class S3GenEngine:
         if gen.numel() == 0:
             return np.zeros((1, 0), np.float32)
         token = torch.cat([prompt[0], gen])[None]
-        return self._vocode(token, P, ref, noise, generator, n_timesteps).float().cpu().numpy()
+        return profiling.to_host(self._vocode(token, P, ref, noise, generator,
+                                              n_timesteps).float()).numpy()
 
     @torch.no_grad()
     def flow_to_mel(self, speech_tokens, ref: RefDict, generator=None,
@@ -412,19 +416,22 @@ class S3GenEngine:
         params = self._bf16_flow_params() if use_bf16 else self.params
         lens = self._upload(np.array([[p + g for p, g in zip(Ps, Gs)], Ps], np.int64))
         with nn.no_tf32_convs():
-            mels = flow_inference_batch(
-                params["flow"], self._upload(tokens), lens[0], lens[1], self._upload(feats),
-                self._upload(embs), z, n_timesteps=n_timesteps or self.n_timesteps,
-                dims=self.dims, meanflow=self.meanflow)
+            with profiling.span("s3gen.flow", device=dev, tokens=sum(Gs)):
+                mels = flow_inference_batch(
+                    params["flow"], self._upload(tokens), lens[0], lens[1],
+                    self._upload(feats), self._upload(embs), z,
+                    n_timesteps=n_timesteps or self.n_timesteps, dims=self.dims,
+                    meanflow=self.meanflow)
             wavs = []
             for i in range(B):
                 if not Gs[i]:
                     continue
                 p0 = Ps[i] * TOKEN_MEL_RATIO
-                wav, _, _ = hift_inference(self.params["mel2wav"],
-                                           mels[i:i + 1, p0:p0 + Gs[i] * TOKEN_MEL_RATIO],
-                                           rows[i].source)
-                wavs.append(self._trim_fade(wav)[0])
+                with profiling.span("s3gen.hift", device=dev):
+                    wav, _, _ = hift_inference(self.params["mel2wav"],
+                                               mels[i:i + 1, p0:p0 + Gs[i] * TOKEN_MEL_RATIO],
+                                               rows[i].source)
+                    wavs.append(self._trim_fade(wav)[0])
         flat = torch.cat(wavs) if wavs else torch.zeros((0,), device=dev)
         return flat, [g * TOKEN_MEL_RATIO * TOTAL_UPSAMPLE for g in Gs]
 
@@ -546,7 +553,11 @@ class S3GenEngine:
         ref_wav = np.asarray(ref_wav, np.float32).reshape(-1)
         if len(ref_wav) > 10 * ref_sr:
             print("WARNING: s3gen received ref longer than 10s")
-        wav = torch.from_numpy(ref_wav).to(self.device)
+        with profiling.span("s3gen.embed_ref", device=self.device, samples=len(ref_wav)):
+            return self._embed_ref(ref_wav, ref_sr)
+
+    def _embed_ref(self, ref_wav: np.ndarray, ref_sr: int) -> RefDict:
+        wav = profiling.to_device(ref_wav, self.device)
         with nn.no_tf32_convs():
             wav24 = resample(wav, ref_sr, S3GEN_SR)
             wav16 = resample(wav, ref_sr, S3_SR)
@@ -560,28 +571,31 @@ class S3GenEngine:
             ref_mels = mel_spectrogram_24k(wav24p[None]).transpose(1, 2)
             tokens, token_len = s3tokenizer_tokenize(
                 self.params["tokenizer"], self.tok_cfg, wav16p[None],
-                torch.tensor([wav16p.shape[0]], device=self.device))
-        tokens = tokens.cpu().numpy().astype(np.int32)
-        token_len = token_len.cpu().numpy().astype(np.int32)
-        ref_mels = ref_mels.cpu().numpy()
+                profiling.to_device([wav16p.shape[0]], self.device))
+        tokens = profiling.to_host(tokens).numpy().astype(np.int32)
+        token_len = profiling.to_host(token_len).numpy().astype(np.int32)
+        ref_mels = profiling.to_host(ref_mels).numpy()
         # mel_len == 2 * token_len
         if ref_mels.shape[1] != 2 * tokens.shape[1]:
             n_keep = ref_mels.shape[1] // 2
             tokens = tokens[:, :n_keep]
             token_len = np.minimum(token_len, n_keep)
         return RefDict(prompt_token=tokens, prompt_token_len=token_len,
-                       prompt_feat=ref_mels, embedding=embedding.cpu().numpy())
+                       prompt_feat=ref_mels, embedding=profiling.to_host(embedding).numpy())
 
     @torch.no_grad()
     def tokenize(self, wav_16k: np.ndarray, max_len: Optional[int] = None):
         """16 kHz audio -> (tokens (1, n) int32, token_len (1,) int32 numpy),
         at most max_len tokens."""
-        wav = torch.from_numpy(np.asarray(wav_16k, np.float32).reshape(-1)).to(self.device)
-        n_tok = int(np.ceil(wav.shape[0] / (S3_SR / 25)))
-        wav = torch.nn.functional.pad(wav, (0, int(n_tok * S3_SR / 25) - wav.shape[0]))
-        with nn.no_tf32_convs():
-            tokens, token_len = s3tokenizer_tokenize(
-                self.params["tokenizer"], self.tok_cfg, wav[None],
-                torch.tensor([wav.shape[0]], device=self.device), max_len)
-        token_len = token_len.cpu().numpy().astype(np.int32)
-        return tokens.cpu().numpy().astype(np.int32)[:, :int(token_len[0])], token_len
+        wav_16k = np.asarray(wav_16k, np.float32).reshape(-1)
+        with profiling.span("s3gen.tokenize", device=self.device, samples=len(wav_16k)):
+            wav = profiling.to_device(wav_16k, self.device)
+            n_tok = int(np.ceil(wav.shape[0] / (S3_SR / 25)))
+            wav = torch.nn.functional.pad(wav, (0, int(n_tok * S3_SR / 25) - wav.shape[0]))
+            with nn.no_tf32_convs():
+                tokens, token_len = s3tokenizer_tokenize(
+                    self.params["tokenizer"], self.tok_cfg, wav[None],
+                    profiling.to_device([wav.shape[0]], self.device), max_len)
+            token_len = profiling.to_host(token_len).numpy().astype(np.int32)
+            tokens = profiling.to_host(tokens).numpy().astype(np.int32)
+            return tokens[:, :int(token_len[0])], token_len

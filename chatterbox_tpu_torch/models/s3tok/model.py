@@ -16,6 +16,7 @@ import torch
 
 from ...audio.mels import log_mel_spectrogram_s3tok
 from ...nn import core as nn
+from ...utils.profiling import to_device
 
 SPEECH_VOCAB_SIZE = 6561   # 3 ** 8
 S3_SR = 16_000
@@ -73,7 +74,7 @@ def s3tokenizer_encode_mel(params: dict, cfg: S3TokenizerConfig, mel: torch.Tens
     h = nn.gelu_exact(nn.conv1d(params["conv1"], mel, stride=2, padding=1))
     h = nn.gelu_exact(nn.conv1d(params["conv2"], h, stride=2, padding=1))
     T = h.shape[1]
-    h = h + torch.from_numpy(_sinusoids(T, cfg.n_state)).to(h.device)
+    h = h + to_device(_sinusoids(T, cfg.n_state), h.device)
     token_len = mel_len // 4
     key_mask = torch.arange(T, device=h.device)[None] < token_len[:, None]
     for blk in params["blocks"]:
@@ -86,7 +87,7 @@ def s3tokenizer_encode_mel(params: dict, cfg: S3TokenizerConfig, mel: torch.Tens
     h = nn.layer_norm(params["ln_post"], h)
     z = torch.tanh(nn.linear(params["fsq_proj"], h)) * 0.9990000128746033
     digits = torch.round(z) + 1.0                                    # {0, 1, 2}
-    powers = torch.from_numpy(3.0 ** np.arange(cfg.fsq_dim, dtype=np.float32)).to(h.device)
+    powers = to_device(3.0 ** np.arange(cfg.fsq_dim, dtype=np.float32), h.device)
     tokens = (digits * powers).sum(-1).long()
     return torch.where(key_mask, tokens, 0), token_len
 

@@ -514,6 +514,7 @@ class ContinuousTTSServer:
         self.rounds = 0                    # decode rounds dispatched (a host read each)
         self.decode_steps = 0              # their steps (each runs every slot's row);
                                            # with draft_int8 the draft steps
+        self.tokens_emitted = 0            # tokens of the finished requests' results
         self.spec_rounds = 0               # speculative rounds (a verify each)
 
     # ------------------------------------------------------------------
@@ -680,6 +681,7 @@ class ContinuousTTSServer:
                 t = drop_invalid_tokens_sliced(t)
             t = t[t < SPEECH_VOCAB_SIZE]
             self.results[req.request_id] = t
+            self.tokens_emitted += len(t)
             if st is not None:
                 feeds += self._finish_feeds(st)
                 self._slot_stream[i] = None

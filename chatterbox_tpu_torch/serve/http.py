@@ -27,7 +27,9 @@ ThreadingHTTPServer:
   GET  /healthz                                      -> {"ok": true, ...}
   GET  /metrics                                      -> Prometheus text
                  (request counts and stage times, streamed time to first
-                 audio, audio seconds made, errors); /metrics.json as JSON
+                 audio, audio seconds made, errors; on a continuous backend
+                 also rounds_total, decode_steps_total and
+                 tokens_emitted_total); /metrics.json as JSON
 
 Concurrent requests share device batches: the whole-batch backend (a
 ServingLoop over a BatchDecoder; requests join at batch boundaries, both
@@ -163,6 +165,7 @@ class TTSHTTPServer:
         self._results: dict[int, object] = {}
         self._next_id = 0
         self._id_lock = threading.Lock()
+        self._slot_server = continuous
         if continuous is not None:
             self.loop = ContinuousServingLoop(continuous, self._on_result)
         else:
@@ -174,6 +177,15 @@ class TTSHTTPServer:
         self.host, self.port = self._httpd.server_address[:2]
 
     # ------------------------------------------------------------------
+    def _metrics(self) -> Metrics:
+        """self.metrics with a continuous backend's counters as they are
+        now (decode rounds, their steps, the finished requests' tokens)."""
+        srv = self._slot_server
+        if srv is not None:
+            for name in ("rounds", "decode_steps", "tokens_emitted"):
+                self.metrics.set(f"{name}_total", getattr(srv, name))
+        return self.metrics
+
     def _on_result(self, result):
         ev = self._events.get(result.request_id)
         if ev is None:
@@ -348,7 +360,7 @@ class TTSHTTPServer:
                 elif self.path == "/voices":
                     self._json(200, {"voices": sorted(server_self.voices)})
                 elif self.path == "/metrics":
-                    body = metrics_text(server_self.metrics).encode()
+                    body = metrics_text(server_self._metrics()).encode()
                     self.send_response(200)
                     self.send_header("Content-Type",
                                      "text/plain; version=0.0.4")
@@ -356,7 +368,7 @@ class TTSHTTPServer:
                     self.end_headers()
                     self.wfile.write(body)
                 elif self.path == "/metrics.json":
-                    self._json(200, server_self.metrics.report())
+                    self._json(200, server_self._metrics().report())
                 else:
                     self._json(404, {"error": "not found"})
 

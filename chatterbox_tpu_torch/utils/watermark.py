@@ -15,6 +15,8 @@ import logging
 
 import numpy as np
 
+from .profiling import span
+
 logger = logging.getLogger(__name__)
 
 CHIP_RATE = 750           # chips per second
@@ -227,10 +229,11 @@ class Watermarker:
 
     def apply_watermark(self, wav: np.ndarray, sample_rate: int,
                         offset: int = 0) -> np.ndarray:
-        if self._perth is not None:
-            return self._perth.apply_watermark(wav, sample_rate=sample_rate)
-        return self._own.apply_watermark(wav, sample_rate=sample_rate,
-                                         offset=offset)
+        with span("watermark", samples=np.size(wav)):
+            if self._perth is not None:
+                return self._perth.apply_watermark(wav, sample_rate=sample_rate)
+            return self._own.apply_watermark(wav, sample_rate=sample_rate,
+                                             offset=offset)
 
     def get_watermark(self, wav: np.ndarray, sample_rate: int):
         if self._perth is not None:

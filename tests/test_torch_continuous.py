@@ -585,3 +585,16 @@ def test_pop_ready_defers_until_the_wav_arrives():
     ready = srv.pop_ready()
     assert [rid for rid, _, _ in ready] == [1] and ready[0][2] is not None
     assert not srv.results and not srv.wavs and not srv._await_wav
+
+
+def test_tokens_emitted_counts_the_finished_requests_tokens():
+    """tokens_emitted: the tokens of every finished request's result, plain
+    and streamed, with more requests than slots."""
+    srv = _server(G, n_slots=2, max_new_tokens=12, s3gen=_engine(), stream_chunk=4)
+    assert srv.tokens_emitted == 0
+    for rid in range(3):
+        srv.submit(_req(G, rid, 30 + rid, max_new=12, ref=_voice()))
+    srv.submit(_req(G, 3, 33, max_new=12, ref=_voice()), on_chunk=lambda c, f: None)
+    srv.run_until_idle()
+    assert sorted(srv.results) == [0, 1, 2, 3]
+    assert srv.tokens_emitted == sum(len(t) for t in srv.results.values()) > 0

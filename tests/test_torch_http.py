@@ -161,7 +161,8 @@ def test_wav_bytes_and_stream_header_match_jax(sr):
 
 def test_metrics_text_matches_jax():
     """The same stages and counters recorded in both packages' Metrics:
-    metrics_text and report() equal, and stage / xrt / reset behave alike."""
+    metrics_text and report() equal, a stage seen again, and reset behave
+    alike; `set` exports a counter kept elsewhere at its value."""
     ours, theirs = profiling.Metrics(), jprof.Metrics()
     for m in (ours, theirs):
         for dt in (0.125, 0.5, 0.0625):
@@ -172,11 +173,14 @@ def test_metrics_text_matches_jax():
         m.count("errors_total", 3)
     assert http.metrics_text(ours) == jhttp.metrics_text(theirs)
     assert ours.report() == theirs.report()
-    assert ours.xrt(6.0, "http_tts") == theirs.xrt(6.0, "http_tts") == 6.0 / 0.6875
-    assert ours.xrt(1.0, "absent") == float("inf")
-    with profiling.stage("s", ours):
-        pass
-    assert ours.report()["s"]["count"] == 1
+    assert ours.report()["http_tts"]["total_s"] == 0.6875
+    for m in (ours, theirs):
+        m.add_stage("s", 0.5)
+    assert ours.report()["s"] == theirs.report()["s"] and ours.report()["s"]["count"] == 1
+    ours.set("rounds_total", 7)
+    ours.set("rounds_total", 9)
+    assert ours.report()["rounds_total"] == 9 and "chatterbox_rounds_total 9\n" in \
+        http.metrics_text(ours)
     ours.reset()
     assert ours.report() == {} and http.metrics_text(ours) == "\n"
 
@@ -406,6 +410,25 @@ def test_continuous_roundtrip_and_determinism(cont_server):
     assert _read(cont_server, {"text": "determinism", "seed": 42, "temperature": 0.7}) == a
     with urllib.request.urlopen(_url(cont_server, "/healthz"), timeout=30) as r:
         assert json.load(r)["ok"] is True
+
+
+def test_continuous_metrics_export_the_slot_counters(cont_server):
+    """A continuous backend's /metrics and /metrics.json carry its decode
+    rounds, their steps and the finished requests' tokens as *_total."""
+    slots = cont_server.loop.server
+    before = slots.tokens_emitted
+    _, pcm = _parse_wav(_read(cont_server, {"text": "count me", "seed": 7}))
+    with urllib.request.urlopen(_url(cont_server, "/metrics.json"), timeout=30) as r:
+        rep = json.loads(r.read())
+    assert rep["rounds_total"] == slots.rounds >= 1
+    assert rep["decode_steps_total"] == slots.decode_steps >= slots.rounds
+    # the reply's tokens: 960 samples (40 ms) each
+    assert rep["tokens_emitted_total"] == slots.tokens_emitted == before + len(pcm) // 960
+    assert len(pcm) % 960 == 0 and len(pcm) > 0
+    with urllib.request.urlopen(_url(cont_server, "/metrics"), timeout=30) as r:
+        text = r.read().decode()
+    assert f"chatterbox_tokens_emitted_total {slots.tokens_emitted}\n" in text
+    assert f"chatterbox_rounds_total {slots.rounds}\n" in text
 
 
 def test_continuous_concurrent_mixed_requests(cont_server):
