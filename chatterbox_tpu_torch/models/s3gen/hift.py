@@ -16,6 +16,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from ...kernels.hift_source import harmonic_source
 from ...nn import core as nn
 
 UPSAMPLE_RATES = (8, 5, 3)
@@ -114,15 +115,77 @@ def hift_source(params: dict, f0: torch.Tensor, noise: SourceNoise,
 
     phase_carry (B, NB_HARMONICS+1): the sum of f/sr over every sample
     before this window, added to the float64 sum, so that a streaming
-    caller continues the harmonic phase across windows."""
-    f0_up = torch.repeat_interleave(f0, TOTAL_UPSAMPLE, dim=1)        # (B, T)
+    caller continues the harmonic phase across windows.
+
+    A CUDA float32 f0 takes the CUDA kernel (kernels/hift_source.py, the
+    order of hift_source_framewise_plain), a CPU f0 the plain code below;
+    any other raises."""
+    if f0.device.type == "cuda" and f0.dtype == torch.float32:
+        lin = params["m_source_linear"]
+        return harmonic_source(f0, noise.phase, noise.noise_u, lin["w"], lin["b"],
+                               phase_carry, frame=TOTAL_UPSAMPLE, sample_rate=SAMPLE_RATE,
+                               sine_amp=SINE_AMP, noise_std=NOISE_STD,
+                               threshold=VOICED_THRESHOLD)
+    if f0.device.type != "cpu":
+        raise ValueError(f"hift_source: no path for a {f0.dtype} f0 on {f0.device}")
+    return _source_from_phase(params, f0, harmonic_phase(f0, phase_carry), noise)
+
+
+def _harmonic_steps(f0: torch.Tensor) -> torch.Tensor:
+    """f0 (B, T) -> f/sr of each harmonic, (B, T, NB_HARMONICS+1) float32."""
     harmonics = torch.arange(1, NB_HARMONICS + 2, dtype=torch.float32,
                              device=f0.device)
-    f_mat = f0_up[..., None] * harmonics / SAMPLE_RATE
+    return f0[..., None] * harmonics / SAMPLE_RATE
+
+
+def harmonic_phase(f0: torch.Tensor, phase_carry=None) -> torch.Tensor:
+    """The plain source's harmonic phase in cycles, mod 1: the float64
+    cumsum of f/sr over every sample, plus the carry; (B, T*480,
+    NB_HARMONICS+1) float64."""
+    f_mat = torch.repeat_interleave(_harmonic_steps(f0), TOTAL_UPSAMPLE, dim=1)
     cum = torch.cumsum(f_mat.double(), dim=1)
     if phase_carry is not None:
         cum = cum + torch.as_tensor(phase_carry, device=f0.device).double()[:, None, :]
-    theta = 2.0 * torch.pi * torch.remainder(cum, 1.0).float()
+    return torch.remainder(cum, 1.0)
+
+
+def harmonic_phase_framewise(f0: torch.Tensor, phase_carry=None) -> torch.Tensor:
+    """harmonic_phase in the CUDA kernel's order. f0 repeats over a frame's
+    480 samples, so the phase at sample j of frame k is C_k + (j + 1) x_k,
+    x_k the frame's f/sr; the frame starts C_k = frac(carry + frac(sum over
+    k' < k of frac(480 x_k'))) are scanned over the frames alone. Each
+    term and each partial sum kept mod 1 lies in [0, 1) on the grid of 32
+    times the smallest x's ulp, 2^-52 or coarser for any f0 above 1.4e-6
+    Hz, so every addition of the scan is exact in float64 and its order
+    (here one frame after another, on the card runs of frames a thread and
+    a scan of the runs) gives the same bits."""
+    B, T = f0.shape
+    x = _harmonic_steps(f0).double()                                  # (B, T, H)
+    step = torch.remainder(TOTAL_UPSAMPLE * x, 1.0)
+    start = torch.zeros_like(x)
+    for k in range(1, T):
+        start[:, k] = torch.remainder(start[:, k - 1] + step[:, k - 1], 1.0)
+    if phase_carry is not None:
+        start = torch.remainder(
+            torch.as_tensor(phase_carry, device=f0.device).double()[:, None, :] + start, 1.0)
+    j = torch.arange(1, TOTAL_UPSAMPLE + 1, dtype=torch.float64, device=f0.device)
+    cum = start[:, :, None, :] + j[None, None, :, None] * x[:, :, None, :]
+    return torch.remainder(cum, 1.0).reshape(B, T * TOTAL_UPSAMPLE, -1)
+
+
+def hift_source_framewise_plain(params: dict, f0: torch.Tensor, noise: SourceNoise,
+                                phase_carry: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """hift_source with its phase summed in the CUDA kernel's order
+    (harmonic_phase_framewise); the rest as the plain code."""
+    return _source_from_phase(params, f0, harmonic_phase_framewise(f0, phase_carry), noise)
+
+
+def _source_from_phase(params: dict, f0: torch.Tensor, frac_phase: torch.Tensor,
+                       noise: SourceNoise) -> torch.Tensor:
+    """The source from the harmonic phase in cycles (mod 1, float64): the
+    sines, the voiced / unvoiced noise, the merge's linear and tanh."""
+    f0_up = torch.repeat_interleave(f0, TOTAL_UPSAMPLE, dim=1)        # (B, T)
+    theta = 2.0 * torch.pi * frac_phase.float()
     phase = noise.phase.clone()
     phase[:, :, 0] = 0.0
     sine = SINE_AMP * torch.sin(theta + phase)

@@ -58,7 +58,9 @@ weights quantized to int4:
     the continuous server (B1, B2, B4), the MCP server, and the command
     line (`cli.main(["synth", ...])` from phase 6's checkpoint directory).
 B11 (fused_mlp_int8) is on no path: nothing in the JAX package calls it
-outside its own test. Phase 3 holds it against its plain version.
+outside its own test. Phase 3 holds it against its plain version. H1
+(hift_source, HiFT's harmonic source) is on every path that vocodes on
+the card, once a hift_inference call.
 
 Phases, in order; any failure exits non-zero without the final "ok" line:
   1. device: the card's name and power limit (nvidia-smi), torch / CUDA /
@@ -87,7 +89,12 @@ Phases, in order; any failure exits non-zero without the final "ok" line:
      and of the tilings of B8 (columns a block, split of the packed rows;
      at each 520M linear shape, 2 and 8 rows) and B10 (columns a block for
      each phase, fc_out's split, dependent launch; 1 and 8 rows), and B6's,
-     B2's and B11's chosen tilings with dependent launch on and off;
+     B2's and B11's chosen tilings with dependent launch on and off; H1
+     at B = 1, as the VC path vocodes, over 1, 257, 1000 and 2000 frames
+     with and without a phase carry, against the plain float64 cumsum
+     path and against hift_source_framewise_plain (1e-6), timed at a 30 s
+     source (1500 frames; library: the same framewise form in PyTorch ops,
+     a float64 cumsum over the frames);
   4. reference: the CUDA path against the CPU path (plain kernel versions)
      on small models, same weights and noise: Turbo T3 teacher-forced
      logits on the bf16 and the int8 cache and meanflow S3Gen waveform;
@@ -97,7 +104,10 @@ Phases, in order; any failure exits non-zero without the final "ok" line:
      520M-family int4 (CFG, batch 2) teacher-forced logits;
   5. main paths, each with the launch counts set to 0 just before and read
      just after it (its own kernels launched layers x decode steps times,
-     B8 seven times that, every other kernel not at all): each pipeline's
+     B8 seven times that, H1 once for each hift_inference call on the card,
+     counted by a wrapper of hift_inference where S3GenEngine and the
+     streaming vocoder call it, every other kernel not at all; this holds
+     in every later phase that counts): each pipeline's
      generate once to warm up (32 tokens), then TIMED_RUNS requests timed as
      bench.py times them, t3_generate with EOS ignored then S3Gen's
      inference_from_decode with the pipeline's own tail (Turbo: 3 silence
@@ -142,7 +152,8 @@ Phases, in order; any failure exits non-zero without the final "ok" line:
      weights) and conds.pt written to a temporary directory,
      ChatterboxVC.from_local on the card (the loaded leaves equal the
      written ones), set_target_voice on a 6 s voice, generate on a 10 s
-     source once to warm up, then TIMED_RUNS timed runs (no kernel launched);
+     source once to warm up, then TIMED_RUNS timed runs (H1 launched once
+     a run, no other kernel);
   8. multilingual and speculative: a multilingual checkpoint directory
      (t3_mtl23ls_v2.safetensors from random full-width weights, ve.pt and
      s3gen.pt, conds.pt, a grapheme vocabulary trained here with the 23
@@ -692,6 +703,87 @@ def check_int4_kernels(turbo4, cfg4, turbo, K, M, FM) -> list:
     return rows
 
 
+HIFT_SRC = "chatterbox_tpu_torch/csrc/hift_source.cu"
+HIFT_FRAMES = (1, 257, 1000, 2000)      # a streaming window's least to a 40 s source
+HIFT_TIMED_FRAMES = 1500                # a 30 s source, the VC cell's middle
+
+
+def _plain_source(params, f0, noise, carry):
+    from chatterbox_tpu_torch.models.s3gen import hift as H
+    return H._source_from_phase(params, f0, H.harmonic_phase(f0, carry), noise)
+
+
+def framewise_source_torch(params, f0, noise, carry):
+    """The kernel's order in PyTorch ops: the frame starts by a float64
+    cumsum over the frames (not kept mod 1, so not exact past 2^53 of its
+    finest term's grid), the phase closed inside each frame, then the plain
+    code's sines, noise, merge and tanh."""
+    import torch
+    from chatterbox_tpu_torch.models.s3gen import hift as H
+    B, T = f0.shape
+    x = H._harmonic_steps(f0).double()                                 # (B, T, 9)
+    step = H.TOTAL_UPSAMPLE * x
+    start = torch.cat([torch.zeros_like(step[:, :1]), torch.cumsum(step, dim=1)[:, :-1]], 1)
+    if carry is not None:
+        start = start + carry.double()[:, None, :]
+    j = torch.arange(1, H.TOTAL_UPSAMPLE + 1, dtype=torch.float64, device=f0.device)
+    cum = start[:, :, None, :] + j[None, None, :, None] * x[:, :, None, :]
+    frac = torch.remainder(cum, 1.0).reshape(B, T * H.TOTAL_UPSAMPLE, -1)
+    return H._source_from_phase(params, f0, frac, noise)
+
+
+def hift_spec(T, seed, with_carry):
+    """H1 on one B = 1 source of T frames: f0 60-460 Hz with a tenth of the
+    frames low (0-10 Hz), the source linear, the noise and, if asked, a
+    carry, on the card."""
+    import torch
+    from chatterbox_tpu_torch.models.s3gen import hift as H
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape, **kw):
+        return torch.rand(shape, generator=g, device=dev, **kw)
+    f0 = torch.where(r(1, T) < 0.1, 10 * r(1, T), 60 + 400 * r(1, T))
+    params = {"m_source_linear": {"w": torch.randn((9, 1), generator=g, device=dev),
+                                  "b": torch.randn((1,), generator=g, device=dev)}}
+    noise = H.SourceNoise.draw(1, T, g, dev)
+    carry = r(1, 9, dtype=torch.float64) if with_carry else None
+    n = T * H.TOTAL_UPSAMPLE
+    return KernelSpec(
+        "hift_source", "— (jnp.cumsum, chatterbox_tpu/models/s3gen/hift.py:127)",
+        lambda i, f: f(params, f0, noise, carry),
+        lambda i: framewise_source_torch(params, f0, noise, carry),
+        # the noise (9 floats) and the source (1) a sample, f0, the carry,
+        # the phases and the linear
+        n * 40 + T * 4 + (72 if with_carry else 0) + 36 + 40, 0, 1e-6,
+        H.hift_source, _plain_source, source=HIFT_SRC)
+
+
+def check_hift_source() -> list:
+    """H1 against the plain float64 cumsum path and against
+    hift_source_framewise_plain (the kernel's order, frame by frame) at
+    B = 1, the VC path's, over HIFT_FRAMES with and without a carry; then
+    timed at a 30 s source as the VC path calls it (no carry), which gives
+    the row of the kernels line; the library is the framewise form in
+    PyTorch ops."""
+    from chatterbox_tpu_torch.models.s3gen import hift as H
+    for T in HIFT_FRAMES:
+        for with_carry in (False, True):
+            label = f"B=1, T_mel {T}, {'a' if with_carry else 'no'} carry"
+            sp = hift_spec(T, 100 + T, with_carry)
+            check_specs([sp], 1, label)
+            sp.plain = lambda p, f0, noise, carry: H.hift_source_framewise_plain(
+                p, f0, noise, carry)
+            check_specs([sp], 1, f"{label}, against the framewise order")
+    sp = hift_spec(HIFT_TIMED_FRAMES, 7, False)
+    errs = check_specs([sp], 1, f"B=1, T_mel {HIFT_TIMED_FRAMES}, a 30 s source")
+    ref = sp.call(0, sp.plain)
+    lib_err = (sp.library(0) - ref).abs().max().item()
+    log(f"hift_source library (framewise in PyTorch ops) against the plain path: max_abs_err "
+        f"{lib_err:.3e}; the plain source's mean |s| {ref.abs().mean().item():.3e}")
+    return time_specs([sp], 1, errs, "30 s source")
+
+
 def _load_other_kernels(root: str):
     """Another checkout's kernels/fused_layer.py, decode_attention.py,
     int4_matmul.py and fused_mlp.py, imported as a package of their own (its
@@ -1218,6 +1310,24 @@ def vocoded_tokens(res, cfg_slice: bool) -> int:
 
 
 COUNTERS = []                  # the launch-count dicts of the kernel modules
+VOCODES = "hift_inference on the card"   # the key of count_vocodes' calls
+_vocodes = {VOCODES: 0}
+
+
+def count_vocodes() -> None:
+    """Wrap hift_inference where S3GenEngine and the streaming vocoder call
+    it, counting the calls on CUDA tensors under VOCODES, so that
+    check_counts holds H1 (hift_source) to one launch a call."""
+    from chatterbox_tpu_torch.models.s3gen import model
+    from chatterbox_tpu_torch.serve import streaming
+
+    def wrap(inner):
+        def counted(params, mel, *a, **kw):
+            _vocodes[VOCODES] += mel.is_cuda
+            return inner(params, mel, *a, **kw)
+        return counted
+    for mod in (model, streaming):
+        mod.hift_inference = wrap(mod.hift_inference)
 
 
 def reset_counts():
@@ -1231,9 +1341,18 @@ def read_counts() -> dict:
 
 
 def check_counts(counts, label, expected: dict):
-    """Each named kernel launched exactly as often as expected; every other
-    kernel not at all."""
+    """Each named kernel launched exactly as often as expected, H1
+    (hift_source) once for each hift_inference call on the card (which an
+    expected H1 count, where given, must equal); every other kernel not at
+    all."""
+    calls = counts.get(VOCODES, 0)
+    if expected.get("hift_source", calls) != calls:
+        raise AssertionError(f"{label}: {calls} hift_inference calls on the card, expected "
+                             f"{expected['hift_source']}")
+    expected = dict(expected, hift_source=calls)
     for name in counts:
+        if name == VOCODES:
+            continue
         want = expected.get(name, 0)
         log(f"launches {name} ({label}): {counts[name]} (expected {want})")
         if counts[name] != want:
@@ -1287,7 +1406,8 @@ def run_path(tts, label, kernels, gen_kw, decode_kw, tail):
     L = tts.hp.backbone.num_layers
     per_layer = kernels if isinstance(kernels, dict) else dict.fromkeys(kernels, 1)
     check_counts(counts, f"{label}, {L} layers x {forwards} decode steps",
-                 {name: n * L * forwards for name, n in per_layer.items()})
+                 {**{name: n * L * forwards for name, n in per_layer.items()},
+                  "hift_source": TIMED_RUNS})
     best, audio_s = min(totals), n_voc / 25.0
     t3 = min(t3s)
     log(f"{label} request (t3_generate + inference_from_decode): "
@@ -2019,7 +2139,7 @@ def frontend_path(d) -> dict:
     counts = read_counts()
     L, forwards = hp.backbone.num_layers, sum(r[3] for r in runs)
     check_counts(counts, f"Turbo from a prompt file, {L} layers x {forwards} decode steps",
-                 {k: L * forwards for k in GPT2})
+                 {**{k: L * forwards for k in GPT2}, "hift_source": TIMED_RUNS})
     full, bare = min(r[0] for r in runs), min(r[1] for r in runs)
     audio_s = runs[0][2] / 25.0
     log(f"Turbo request from a prompt file (prepare_conditionals + t3_generate + "
@@ -2261,7 +2381,7 @@ def vc_path(conds) -> None:
     a temporary directory; ChatterboxVC.from_local on the card, the loaded
     leaves equal to the written ones; set_target_voice on a 6 s synthetic
     voice and generate on a 10 s synthetic source: a warm-up, then three
-    timed runs. No kernel is on this path: the counts stay 0."""
+    timed runs. H1 alone is on this path, once a run."""
     import tempfile
     from pathlib import Path
 
@@ -2311,11 +2431,10 @@ def vc_path(conds) -> None:
             if not (wav.shape == (1, 250 * 960) and np.isfinite(wav).all()
                     and np.abs(wav).max() > 0):
                 raise AssertionError(f"VC: converted {wav.shape}")
-        check_counts(read_counts(), "VC (no kernel on this path)", {})
+        check_counts(read_counts(), "VC (H1 alone on this path)", {"hift_source": TIMED_RUNS})
         log(f"VC generate (10 s source: tokenize, 10-step CFG flow, HiFT): "
             f"{[round(w * 1e3, 1) for w in walls]} ms -> x-realtime {10.0 / min(walls):.3f} "
-            f"(best of {TIMED_RUNS}); no kernel of the port is on this path (S3Gen is plain "
-            f"PyTorch)")
+            f"(best of {TIMED_RUNS}); H1 is the one kernel of the port on this path")
 
 
 def streaming_path(turbo, cfg520) -> dict:
@@ -3590,8 +3709,12 @@ def _check_riff(body: bytes, label: str) -> int:
 
 
 def _kernels_launched(counts, label, names, L) -> None:
-    """names launched equally often, a multiple of L, and no other kernel."""
+    """names launched equally often, a multiple of L, H1 once a
+    hift_inference call on the card, and no other kernel."""
     log(f"launches ({label}): " + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+    counts = dict(counts)
+    if counts.pop("hift_source", 0) != counts.pop(VOCODES, 0):
+        raise AssertionError(f"{label}: launches {counts}, H1 not once a hift_inference call")
     got = {k for k, v in counts.items() if v}
     if got != set(names) or len({counts[k] for k in names}) != 1 or counts[names[0]] % L:
         raise AssertionError(f"{label}: launches {counts}, expected {names} alike")
@@ -4330,9 +4453,10 @@ def mesh_main() -> int:
     from chatterbox_tpu_torch.kernels import decode_attention as A
     from chatterbox_tpu_torch.kernels import fused_layer as K
     from chatterbox_tpu_torch.kernels import fused_mlp as FM
+    from chatterbox_tpu_torch.kernels import hift_source as KS
     from chatterbox_tpu_torch.kernels import int4_matmul as M
     from chatterbox_tpu_torch.parallel.mesh import make_mesh
-    COUNTERS[:] = [K.launches, A.launches, M.launches, FM.launches]
+    COUNTERS[:] = [K.launches, A.launches, M.launches, FM.launches, KS.launches, _vocodes]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -4406,12 +4530,14 @@ def main(argv) -> int:
         from chatterbox_tpu_torch.kernels import decode_attention as A
         from chatterbox_tpu_torch.kernels import fused_layer as K
         from chatterbox_tpu_torch.kernels import fused_mlp as FM
+        from chatterbox_tpu_torch.kernels import hift_source as KS
         from chatterbox_tpu_torch.kernels import int4_matmul as M
         from chatterbox_tpu_torch.models.t3 import backbone as bb
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}", file=sys.stderr)
         return 2
-    COUNTERS[:] = [K.launches, A.launches, M.launches, FM.launches]
+    COUNTERS[:] = [K.launches, A.launches, M.launches, FM.launches, KS.launches, _vocodes]
+    count_vocodes()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -4451,7 +4577,7 @@ def main(argv) -> int:
     sweep_splits(turbo, cfg520, A, bb)
     sweep_tilings(turbo, cfg520, turbo4, cfg4, K, M, FM)
     rows = (check_kernels(turbo, cfg520, K) + check_attention(turbo, cfg520, A, bb)
-            + check_int4_kernels(turbo4, cfg4, turbo, K, M, FM))
+            + check_int4_kernels(turbo4, cfg4, turbo, K, M, FM) + check_hift_source())
     log(f"phase 3 (kernels) {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     check_reference()

@@ -4,12 +4,16 @@ card, and the wrappers' refusals. Needs an NVIDIA GPU and nvcc, not JAX:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Without a CUDA device every test skips."""
+import numpy as np
 import pytest
 import torch
 
 from chatterbox_tpu_torch.kernels import build
 from chatterbox_tpu_torch.kernels import decode_attention as A
 from chatterbox_tpu_torch.kernels import fused_layer as K
+from chatterbox_tpu_torch.kernels import hift_source as KS
+from chatterbox_tpu_torch.models.s3gen import hift as H
+from chatterbox_tpu_torch.nn import core as nn
 
 pytestmark = pytest.mark.cuda
 EPS = 1e-5
@@ -1209,3 +1213,102 @@ def test_b10_refuses_what_the_kernel_does_not_take(dev):
     ops = list(_b10_operands(dev, 2, 768, 3072, torch.bfloat16))
     with pytest.raises(ValueError):          # width 768: a packed half of 384 rows
         K.attnout_ln_mlp_int4(*ops, EPS)
+
+
+# ---------------------------------------------------------------------------
+# HiFT's harmonic source (csrc/hift_source.cu)
+# ---------------------------------------------------------------------------
+def _source_operands(dev, B, T, seed):
+    """f0 voiced 60-460 Hz with a tenth of the frames low (0-10 Hz), the
+    source linear, the noise and a carry, on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s, **k: torch.rand(s, generator=g, device=dev, **k)
+    f0 = torch.where(r(B, T) < 0.1, 10 * r(B, T), 60 + 400 * r(B, T))
+    params = {"m_source_linear": {"w": torch.randn((9, 1), generator=g, device=dev),
+                                  "b": torch.randn((1,), generator=g, device=dev)}}
+    return params, f0, H.SourceNoise.draw(B, T, g, dev), r(B, 9, dtype=torch.float64)
+
+
+def test_the_plain_f0_steps_are_products_with_the_reciprocal(dev):
+    """The kernel computes f0 * h / 24000 as the card's torch does: the f32
+    product, then the product with fl32(1 / 24000) (not the quotient)."""
+    f0 = 60 + 400 * torch.rand((4, 5000), device=dev)
+    h = torch.arange(1, 10, dtype=torch.float32, device=dev)
+    inv = torch.tensor(float(np.float32(1) / np.float32(24000)), device=dev)
+    assert torch.equal(H._harmonic_steps(f0), (f0[..., None] * h) * inv)
+
+
+# The kernel sums the phase as hift_source_framewise_plain does, bit for bit,
+# and computes the sines and the noise as the plain code; it merges the nine
+# harmonics by an fma chain where the plain code calls cuBLAS, so the sums
+# differ in their last bits (about 1e-7). Against the plain cumsum the phase
+# also differs by the cumsum's own rounding (at most 2^-24 cycles).
+@pytest.mark.parametrize("with_carry", [False, True])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("T", [1, 3, 257, 2000])
+def test_hift_source_kernel_matches_plain(dev, T, B, with_carry):
+    params, f0, noise, carry = _source_operands(dev, B, T, seed=10 * T + B)
+    carry = carry if with_carry else None
+    before = KS.launches["hift_source"]
+    out = H.hift_source(params, f0, noise, carry)
+    assert KS.launches["hift_source"] == before + 1
+    framewise = H.hift_source_framewise_plain(params, f0, noise, carry)
+    plain = H._source_from_phase(params, f0, H.harmonic_phase(f0, carry), noise)
+    torch.cuda.synchronize()
+    assert out.shape == (B, T * H.TOTAL_UPSAMPLE, 1) and out.dtype == torch.float32
+    assert (out - framewise).abs().max().item() <= 1e-6
+    assert (out - plain).abs().max().item() <= 1e-6
+
+
+def test_hift_source_kernel_takes_a_noise_view(dev):
+    params, f0, noise, carry = _source_operands(dev, 2, 40, seed=3)
+    wide = torch.randn((2, 40 * H.TOTAL_UPSAMPLE, 18), device=dev)
+    view = H.SourceNoise(noise.phase[:1].expand(2, 1, 9), wide[:, :, ::2])   # strides 0, 2
+    assert not view.noise_u.is_contiguous()
+    out = H.hift_source(params, f0, view, carry)
+    ref = H.hift_source_framewise_plain(params, f0,
+                                        H.SourceNoise(view.phase, view.noise_u.contiguous()),
+                                        carry)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 1e-6
+
+
+def test_hift_inference_counts_one_source_launch_a_call(dev):
+    params = H.hift_init(nn.Init(0, dev), base_channels=32)
+    mel = torch.randn((1, 12, 80), device=dev)
+    before = KS.launches["hift_source"]
+    for seed in range(3):
+        H.hift_inference(params, mel, generator=torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    assert KS.launches["hift_source"] == before + 3
+
+
+def test_hift_source_refuses_what_the_kernel_does_not_take(dev):
+    params, f0, noise, carry = _source_operands(dev, 2, 5, seed=4)
+    before = KS.launches["hift_source"]
+    with pytest.raises(ValueError, match="no path"):        # a bf16 f0 on the card
+        H.hift_source(params, f0.bfloat16(), noise)
+    with pytest.raises(TypeError):                          # float64 noise
+        H.hift_source(params, f0, H.SourceNoise(noise.phase, noise.noise_u.double()))
+    with pytest.raises(ValueError):                         # noise one sample short
+        H.hift_source(params, f0, H.SourceNoise(noise.phase, noise.noise_u[:, 1:]))
+    with pytest.raises(ValueError):                         # phases left on the CPU
+        H.hift_source(params, f0, H.SourceNoise(noise.phase.cpu(), noise.noise_u))
+    with pytest.raises(ValueError):                         # one carry for two rows
+        H.hift_source(params, f0, noise, carry[:1])
+    bf16 = {"m_source_linear": {k: v.bfloat16() for k, v in params["m_source_linear"].items()}}
+    with pytest.raises(TypeError):                          # a bf16 source linear
+        H.hift_source(bf16, f0, noise)
+    assert KS.launches["hift_source"] == before
+
+
+def test_hift_source_cold_build_time(dev, tmp_path, monkeypatch):
+    """nvcc of csrc/hift_source.cu alone, from nothing (printed; the first
+    conversion of a checkout pays it in its set-up)."""
+    import time
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    t0 = time.perf_counter()
+    build._finish("hift_source", *build._start("hift_source"))
+    seconds = time.perf_counter() - t0
+    print(f"cold nvcc of hift_source.cu: {seconds:.2f} s")
+    assert (tmp_path / "_build" / "libhift_source.so").exists() and seconds < 60

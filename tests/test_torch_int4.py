@@ -495,11 +495,12 @@ def test_ctypes_declarations_match_the_c_sources(monkeypatch):
     wrong argument on the card, where nothing checks it."""
     from chatterbox_tpu_torch.kernels import build
     from chatterbox_tpu_torch.kernels import decode_attention as A
+    from chatterbox_tpu_torch.kernels import hift_source as S
     libs = {}
     monkeypatch.setattr(build, "load", lambda name: libs.setdefault(name, _DeclaredLib()))
-    for mod, attr in ((K, "_lib"), (K, "_int4_lib"), (A, "_lib")):
+    for mod, attr in ((K, "_lib"), (K, "_int4_lib"), (A, "_lib"), (S, "_lib")):
         monkeypatch.setattr(mod, attr, None)
-    K._kernels(), K.int4_kernels(), A._kernel()
+    K._kernels(), K.int4_kernels(), A._kernel(), S._kernel()
     assert set(libs) == set(build.sources())
     for name, lib in libs.items():
         sigs = _c_signatures(name)
